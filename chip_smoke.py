@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+  1. the card's name and power limit, torch and CUDA versions;
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+  3. hold each kernel against its plain PyTorch version on the card at the
+     served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
+     the plain version, a library call (a yardstick only) and the bound;
+  4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
+     launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
+     slots) and check every request's budget and both kernels' launch
+     counts; time each pooled decode step with CUDA events;
+  5. the whole port stack on the card against the same weights on the CPU
+     (reduced config, fp32), and finite full-width logits;
+  6. one JSON line of per-kernel numbers, then the result line.
+
+Exits non-zero without a result when CUDA is unavailable.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+
+# tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|):
+#  fp32 -- both sides accumulate in fp32, in different orders over
+#          K <= 4096 terms: a few 1e-6 absolute at O(1) outputs; the CPU
+#          tests' fp32 limits hold with margin;
+#  bf16 -- inputs are identical, but the hidden activation / output are
+#          rounded to bf16 (ulp 2^-8 relative), so an fp32-order difference
+#          can flip one rounding step; 5e-2 as in the CPU kernel tests.
+TOL = {"torch.float32": (2e-5, 1e-4), "torch.bfloat16": (5e-2, 5e-2)}
+
+
+def sh(cmd):
+    return subprocess.run(cmd, check=True, capture_output=True,
+                          text=True).stdout.strip()
+
+
+def time_ms(fn, iters):
+    """Mean ms per call between CUDA events, after two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name, got, want):
+    import torch
+    atol, rtol = TOL[str(want.dtype)]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.all(err <= atol + rtol * w.abs())) and \
+        bool(torch.isfinite(g).all())
+    worst = float(err.max())
+    print(f"  {name}: max_abs_err={worst:.3e} (atol {atol:g}, rtol {rtol:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_moe_ffn(gen, card):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+
+    def make(E, C, d, f, act, dtype):
+        def rnd(shape, std):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * std).to(dtype)
+        wg = rnd((E, d, f), d ** -0.5) if act in ("swiglu", "geglu") else None
+        return (rnd((E, C, d), 1.0), wg, rnd((E, d, f), d ** -0.5),
+                rnd((E, f, d), f ** -0.5))
+
+    print("phase 3a: moe_ffn kernel vs plain (moe_ffn_ref)")
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for E, C, d, f, act in [(128, 8, 4096, 1536, "swiglu"),
+                                (3, 13, 520, 700, "swiglu"),
+                                (3, 13, 520, 700, "geglu"),
+                                (3, 13, 520, 700, "relu2"),
+                                (3, 13, 520, 700, "gelu")]:
+            xg, wg, wu, wd = make(E, C, d, f, act, dtype)
+            got = moe_ffn(xg, wg, wu, wd, act=act)
+            want = ref.moe_ffn_ref(xg, wg, wu, wd, act=act)
+            torch.cuda.synchronize()
+            err = compare(f"E={E} C={C} d={d} f={f} {act} {dtype}", got, want)
+            if (E, C, d, f) != (128, 8, 4096, 1536):
+                continue
+            ms = time_ms(lambda: moe_ffn(xg, wg, wu, wd, act=act), 10)
+            plain_ms = time_ms(
+                lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act), 5)
+
+            def library():
+                h = torch.nn.functional.silu(torch.bmm(xg, wg)) \
+                    * torch.bmm(xg, wu)
+                return torch.bmm(h, wd)
+            lib_ms = time_ms(library, 10)
+            esz = xg.element_size()
+            nbytes = esz * (2 * xg.numel() + wg.numel() + wu.numel()
+                            + wd.numel())
+            bound_ms, by = bound(nbytes, 2 * E * C * d * f * 3, dtype)
+            print(f"  time {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library (3x torch.bmm + silu) {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({by}) [{card}]")
+            if dtype == torch.bfloat16:
+                row = dict(name="moe_ffn", route="cuda",
+                           source="src/repro_torch/kernels/csrc/moe_ffn.cu",
+                           replaces="src/repro/kernels/moe_ffn.py:80",
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+            del xg, wg, wu, wd, got, want
+            torch.cuda.empty_cache()
+    return row
+
+
+def check_flash_decode(gen, card):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    print("phase 3b: flash_decode kernel vs plain (flash_decode_ref)")
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, Hkv, hd, S, lens in [(4, 64, 4, 128, 64, [1, 17, 40, 64]),
+                                       (2, 8, 2, 64, 300, [300, 7]),
+                                       (3, 16, 1, 128, 1000, [1000, 513, 1])]:
+            q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn((B, S, Hkv, hd), generator=gen,
+                            device="cuda").to(dtype)
+            cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = flash_decode(q, k, v, cl)
+            want = ref.flash_decode_ref(q, k, v, cl)
+            torch.cuda.synchronize()
+            err = compare(f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens={lens} "
+                          f"{dtype}", got, want)
+            if S != 64:
+                continue
+            ms = time_ms(lambda: flash_decode(q, k, v, cl), 200)
+            plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl), 50)
+            rep = H // Hkv
+            kk = k.transpose(1, 2).repeat_interleave(rep, dim=1)
+            vv = v.transpose(1, 2).repeat_interleave(rep, dim=1)
+            mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None]
+                    )[:, None, None, :]
+            qq = q[:, :, None, :]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask), 200)
+            n_valid = sum(min(n, S) for n in lens)
+            esz = q.element_size()
+            nbytes = esz * (2 * q.numel() + 2 * n_valid * Hkv * hd)
+            bound_ms, by = bound(nbytes, 4 * H * hd * n_valid, dtype)
+            print(f"  time {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library (F.scaled_dot_product_attention) "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}) "
+                  f"(L2-warm, back-to-back launches) [{card}]")
+            if dtype == torch.bfloat16:
+                row = dict(name="flash_decode", route="cuda",
+                           source="src/repro_torch/kernels/csrc/"
+                                  "flash_decode.cu",
+                           replaces="src/repro/kernels/flash_decode.py:83",
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return row
+
+
+def main_path(card):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import moe_ffn as moe_mod
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model
+
+    full = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=4)
+    print(f"phase 4: main path, {cfg.name} at full width (d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim_}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init: {n_params / 1e9:.2f}e9 params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    args = serve_mod.parse_args([
+        "--device", "cuda", "--requests", "4", "--prompt-len", "32",
+        "--max-new", "16", "--slots", "4"])
+    moe_mod.launches = 0
+    fd_mod.launches = 0
+    t0 = time.perf_counter()
+    out = serve_mod.serve(args, cfg, model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"moe_ffn": moe_mod.launches, "flash_decode": fd_mod.launches}
+    srv = out["server"]
+    n_moe, n_layers = len(model.moe_layers), cfg.n_layers
+    for r in out["requests"]:
+        got = len(out["tokens"][r.rid])
+        if got != r.max_new_tokens:
+            raise SystemExit(f"request {r.rid}: {got} tokens, budget "
+                             f"{r.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab for t in out["tokens"][r.rid]):
+            raise SystemExit(f"request {r.rid}: token out of vocabulary")
+    want_moe = n_moe * (out["n_warmup"] + srv.n_prefills + srv.n_decode_steps)
+    want_fd = n_layers * srv.n_decode_steps
+    print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
+          f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
+          f"prefills + {srv.n_decode_steps} decode steps) = {want_moe}); "
+          f"flash_decode {launches['flash_decode']} (expected {n_layers} "
+          f"layers x {srv.n_decode_steps} decode steps = {want_fd})")
+    if launches["moe_ffn"] != want_moe or launches["flash_decode"] != want_fd:
+        raise SystemExit("launch counts differ from the main path's calls")
+    steps = np.asarray(srv.decode_ms)
+    print(f"  decode step (pool of {srv.n_slots}, CUDA events): mean "
+          f"{steps.mean():.3f} ms, median {np.median(steps):.3f} ms, min "
+          f"{steps.min():.3f} ms over {len(steps)} steps; serve wall "
+          f"{wall:.1f} s [{card}]")
+    with torch.inference_mode():
+        toks = torch.as_tensor(out["requests"][0].prompt[None],
+                               dtype=torch.long, device="cuda")
+        logits, aux = model.forward({"tokens": toks})
+    if logits.shape != (1, toks.shape[1], cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise SystemExit("full-width forward logits are not finite")
+    print(f"  full-width forward logits {tuple(logits.shape)} finite")
+    del model, srv, out, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def port_vs_cpu():
+    """The whole port on the card (kernels) against the same weights on
+    the CPU (plain versions): reduced config, fp32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    print("phase 5: port on the card vs the same weights on the CPU "
+          "(qwen3-moe-235b-a22b reduced, fp32)")
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    gpu = Model(cfg, device="cuda").init(1)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        lg, ag = gpu.forward({"tokens": toks.cuda()})
+        lc, ac = cpu.forward({"tokens": toks})
+        err = float((lg.cpu() - lc).abs().max())
+        same = bool(torch.equal(ag["counts"].cpu(), ac["counts"]))
+        print(f"  forward logits max_abs_err={err:.3e} (limit 1e-3: fp32 "
+              f"sums in other orders through 2 layers), counts equal: {same}")
+        if err > 1e-3 or not same:
+            raise SystemExit("port on the card disagrees with the CPU")
+        caches = [m.init_cache(2, 32) for m in (gpu, cpu)]
+        outs = [m.prefill({"tokens": toks.to(m.device)}, c)
+                for m, c in zip((gpu, cpu), caches)]
+        tok = [o[0].argmax(-1) for o in outs]
+        for step in range(6):
+            outs = [m.serve_step(c, t.to(m.device))
+                    for m, c, t in zip((gpu, cpu), caches, tok)]
+            tok = [o[0].argmax(-1) for o in outs]
+            err = float((outs[0][0].cpu() - outs[1][0]).abs().max())
+            if err > 1e-3 or not torch.equal(tok[0].cpu(), tok[1]):
+                raise SystemExit(f"decode step {step}: card and CPU differ "
+                                 f"(max_abs_err {err:.3e})")
+        print(f"  6 decode steps: greedy tokens equal, last max_abs_err="
+              f"{err:.3e}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"])
+    print(card)
+    print(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+    card = card.splitlines()[0]
+
+    t0 = time.perf_counter()
+    build.build()
+    print(f"phase 2: built {', '.join(build.KERNELS)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = [check_moe_ffn(gen, card), check_flash_decode(gen, card)]
+    launches = main_path(card)
+    port_vs_cpu()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""Plain PyTorch versions of the kernels (the CPU path and the kernels'
+oracle). Same arithmetic as ``repro.kernels.ref``: fp32 accumulation, the
+expert FFN's hidden activation rounded to the input dtype before the
+down-projection, masked decode positions at -1e30."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _act(name: str, u, g=None):
+    if g is not None:
+        if name == "swiglu":
+            return F.silu(g) * u
+        return F.gelu(g, approximate="tanh") * u            # geglu
+    if name == "relu2":
+        return torch.square(F.relu(u))
+    return F.gelu(u, approximate="tanh")                     # gelu
+
+
+def moe_ffn_ref(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
+    """(E, C, d) grouped expert FFN, dense einsum formulation."""
+    xf = xg.float()
+    up = torch.einsum("ecd,edf->ecf", xf, w_up.float())
+    gate = (torch.einsum("ecd,edf->ecf", xf, w_gate.float())
+            if w_gate is not None else None)
+    h = _act(act, up, gate)
+    y = torch.einsum("ecf,efd->ecd", h.to(xg.dtype).float(), w_down.float())
+    return y.to(xg.dtype)
+
+
+def lengths(cache_len, B: int, device) -> torch.Tensor:
+    """``cache_len`` (int, 0-d or (B,) tensor) -> (B,) int32 on ``device``."""
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.to(device=device, dtype=torch.int32) \
+            .reshape(-1).expand(B).contiguous()
+    return torch.full((B,), int(cache_len), dtype=torch.int32, device=device)
+
+
+def flash_decode_ref(q, k, v, cache_len):
+    """q: (B, H, hd); k/v: (B, S, Hkv, hd); cache_len scalar or (B,)
+    per-slot lengths."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), kf) * hd ** -0.5
+    lens = lengths(cache_len, B, q.device)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, None, :] < lens[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    wts = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", wts, vf).to(q.dtype)

@@ -1,0 +1,335 @@
+"""Attention + MoE decoder (the serving model), in PyTorch.
+
+Port of ``repro.models.model.Model`` for stacks of GQA attention blocks
+with routed-MoE or dense FFNs. The reference scans periodic layer groups;
+here the layers are a ``ModuleList`` walked by a Python loop.
+``split_periodic`` is kept so that ``params.from_reference`` can unstack
+the reference's scan-group axis.
+
+Entry points (all under ``torch.inference_mode()`` when serving)
+  init(seed)                           -> self (weights from a seed)
+  forward(batch)                       -> (logits, aux)
+  init_cache(B, cache_len)             -> cache (zeros)
+  prefill(batch, cache, true_len=...)  -> (last_logits, cache, aux)
+  serve_step(cache, token, active=...) -> (logits, cache, aux)
+
+``aux["counts"]`` is (n_moe_layers, B, E) int32: the rows of the paper's
+Expert Activation Matrix, equal to the reference's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.config import ArchConfig, BLOCK_ATTN
+from repro_torch.models.attention import Attention, attn_decode, attn_forward
+from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
+from repro_torch.models.moe import MoE, moe_ffn
+
+
+@dataclass(frozen=True)
+class LayerDesc:
+    kind: str          # attn | mamba | rwkv
+    is_moe: bool
+    window: int        # sliding window for this layer (0 = full)
+
+
+def layer_descs(cfg: ArchConfig):
+    out = []
+    for i in range(cfg.n_layers):
+        kind = cfg.block_kind(i)
+        win = cfg.attn.sliding_window if cfg.is_local_attn_layer(i) else 0
+        out.append(LayerDesc(kind, cfg.is_moe_layer(i), win))
+    return out
+
+
+def split_periodic(descs):
+    """-> (n_prefix, period): tail [n_prefix:] is periodic with ``period``.
+
+    The reference's choice of scan groups: the split with the most groups,
+    ties to the shortest prefix; no periodic tail of >= 2 groups means
+    prefix only."""
+    n = len(descs)
+    best = (n, 1)
+    best_groups = 1 if n else 0
+    for prefix in range(0, n):
+        m = n - prefix
+        for period in range(1, m):
+            if m % period:
+                continue
+            if all(descs[prefix + i] == descs[prefix + i % period]
+                   for i in range(m)):
+                groups = m // period
+                if groups > best_groups:
+                    best, best_groups = (prefix, period), groups
+                break  # smallest period at this prefix is its best
+    if best == (n, 1) and n:
+        return n, 1
+    return best
+
+
+def _unsupported(cfg: ArchConfig):
+    """Why the port cannot run ``cfg`` yet, or None."""
+    a = cfg.attn
+    if any(cfg.block_kind(i) != BLOCK_ATTN for i in range(cfg.n_layers)):
+        return "mamba / rwkv blocks"
+    checks = [(a.mla is not None, "MLA attention"),
+              (cfg.is_encoder_decoder, "encoder-decoder models"),
+              (bool(a.mrope_sections), "M-RoPE"),
+              (bool(a.sliding_window), "sliding-window attention"),
+              (not a.use_rope, "learned absolute positions"),
+              (cfg.attn_impl != "naive", f"attn_impl={cfg.attn_impl!r}"),
+              (cfg.moe_dispatch != "global",
+               f"moe_dispatch={cfg.moe_dispatch!r}")]
+    for bad, what in checks:
+        if bad:
+            return what
+    return None
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, desc: LayerDesc, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = Norm(cfg.norm, d, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.norm2 = Norm(cfg.norm, d, device)
+        if desc.is_moe:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.ffn = FFN(cfg, cfg.d_ff, dtype, device)
+        if cfg.post_block_norm:
+            self.post_norm1 = Norm(cfg.norm, d, device)
+            self.post_norm2 = Norm(cfg.norm, d, device)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        super().__init__()
+        why = _unsupported(cfg)
+        if why:
+            raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.descs = layer_descs(cfg)
+        self.n_prefix, self.period = split_periodic(self.descs)
+        self.n_groups = (cfg.n_layers - self.n_prefix) // self.period
+        self.dtype = getattr(torch, cfg.dtype)
+        self.moe_layers = [i for i, d in enumerate(self.descs) if d.is_moe]
+        d, V, dev = cfg.d_model, cfg.vocab, self.device
+        self.embed = nn.Parameter(torch.empty(V, d, dtype=self.dtype,
+                                              device=dev), requires_grad=False)
+        self.final_norm = Norm(cfg.norm, d, dev)
+        self.stds = {"embed": d ** -0.5}
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(d, V, dtype=self.dtype,
+                                                    device=dev),
+                                        requires_grad=False)
+            self.stds["lm_head"] = d ** -0.5
+        self.layers = nn.ModuleList(Block(cfg, desc, self.dtype, dev)
+                                    for desc in self.descs)
+
+    # -- init -----------------------------------------------------------------
+    @torch.no_grad()
+    def init(self, seed: int = 0):
+        """Draw every weight from one seeded ``torch.Generator`` on the
+        model's device, with the reference's shapes, dtypes and stds (the
+        numbers differ from ``jax.random``'s). Norm scales are ones, biases
+        zeros. Returns self."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for mod in self.modules():
+            for name, std in getattr(mod, "stds", {}).items():
+                w = getattr(mod, name)
+                # row blocks of <= 2^26 elements bound the fp32 staging
+                rows = max(1, (1 << 26) // max(1, w[0].numel()))
+                for i in range(0, w.shape[0], rows):
+                    blk = w[i:i + rows]
+                    blk.copy_(torch.randn(blk.shape, generator=gen,
+                                          device=self.device) * std)
+        return self
+
+    # -- full-sequence blocks -------------------------------------------------
+    def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions):
+        """Mixer half. Returns (x_mid, h2, aux) with aux["kv"] = (k, v)."""
+        h = p.norm1(x)
+        y, kv = attn_forward(p.attn, self.cfg, h, positions,
+                             window=desc.window)
+        if self.cfg.post_block_norm:
+            y = p.post_norm1(y)
+        x = x + y
+        return x, p.norm2(x), {"kv": kv}
+
+    def _apply_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
+                          capacity_factor=None, token_mask=None):
+        """FFN half. Returns (x_out, aux) with MoE counts/aux_loss."""
+        aux = {}
+        if desc.is_moe:
+            y2, moe_aux = moe_ffn(p.moe, self.cfg, h2,
+                                  capacity_factor=capacity_factor,
+                                  token_mask=token_mask)
+            aux.update(moe_aux)
+        else:
+            y2 = apply_ffn(p.ffn, h2, self.cfg.act)
+        if self.cfg.post_block_norm:
+            y2 = p.post_norm2(y2)
+        return x_mid + y2, aux
+
+    def _embed(self, tokens):
+        x = self.embed[tokens]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        return x, positions
+
+    def _logits(self, x):
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        logits = (x @ head.to(x.dtype)).float()
+        return softcap(logits, self.cfg.final_logit_softcap)
+
+    # -- public: forward ------------------------------------------------------
+    def forward(self, batch):
+        """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns
+        (logits (B,S,V) fp32, {"counts": (n_moe,B,E) or None, "aux_loss"})."""
+        x, positions = self._embed(batch["tokens"])
+        counts, losses = [], []
+        for p, desc in zip(self.layers, self.descs):
+            x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions)
+            x, aux = self._apply_block_post(p, desc, x_mid, h2)
+            if "counts" in aux:
+                counts.append(aux["counts"])
+                losses.append(aux["aux_loss"])
+        logits = self._logits(self.final_norm(x))
+        aux_loss = (torch.stack(losses).sum() if losses
+                    else torch.zeros((), device=x.device))
+        return logits, {"counts": torch.stack(counts) if counts else None,
+                        "aux_loss": aux_loss}
+
+    # -- caches ---------------------------------------------------------------
+    def init_cache(self, B: int, cache_len: int):
+        """Zeroed decode cache: ``pos`` is a (B,) per-slot position vector,
+        ``layers`` one {"k", "v"} pair of (B, cache_len, Hkv, hd) per layer."""
+        cfg = self.cfg
+        shape = (B, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+
+        def zeros():
+            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+        return {"pos": torch.zeros(B, dtype=torch.int32, device=self.device),
+                "layers": [{"k": zeros(), "v": zeros()} for _ in self.descs]}
+
+    def write_slot(self, pool, one, slot: int):
+        """Copy a B=1 cache ``one`` into row ``slot`` of the pooled cache
+        (same cache_len), in place; the other slots are untouched."""
+        pool["pos"][slot] = one["pos"][0]
+        for pl, ol in zip(pool["layers"], one["layers"]):
+            for key in pl:
+                pl[key][slot] = ol[key][0]
+        return pool
+
+    # -- decode-path block ----------------------------------------------------
+    def _decode_block_pre(self, p: Block, desc: LayerDesc, bc, x, pos,
+                          active=None):
+        """Mixer half of one-token decode (norm1 -> attention over the
+        cache -> norm2). The new K/V rows are written in place, for active
+        slots only. Returns (x_mid, h2, bc)."""
+        h = p.norm1(x)
+        y, bc["k"], bc["v"] = attn_decode(p.attn, self.cfg, h, bc["k"],
+                                          bc["v"], pos, window=desc.window,
+                                          active=active)
+        if self.cfg.post_block_norm:
+            y = p.post_norm1(y)
+        x = x + y
+        return x, p.norm2(x), bc
+
+    def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2):
+        """FFN half of one-token decode. Returns (x_out, counts or None)."""
+        cfg = self.cfg
+        counts = None
+        if desc.is_moe:
+            # dropless (C >= T) by default: an inactive slot's token can
+            # never displace an active one's
+            cf = (cfg.decode_capacity_factor
+                  or cfg.moe.n_experts / cfg.moe.top_k)
+            y2, aux = moe_ffn(p.moe, cfg, h2, capacity_factor=cf)
+            counts = aux["counts"]
+        else:
+            y2 = apply_ffn(p.ffn, h2, cfg.act)
+        if cfg.post_block_norm:
+            y2 = p.post_norm2(y2)
+        return x_mid + y2, counts
+
+    # -- public: prefill / serve_step -----------------------------------------
+    def prefill(self, batch, cache, *, true_len=None):
+        """Run the prompt, fill ``cache`` (in place), return last-token
+        logits. ``true_len``: optional per-row real prompt length for a
+        right-padded prompt: pad tokens are causally invisible to real
+        ones, take no MoE capacity, add no counts, and the logits come from
+        each row's last real token. Returns (logits (B,V), cache, aux)."""
+        tokens = batch["tokens"]
+        x, positions = self._embed(tokens)
+        B, S = tokens.shape
+        token_mask = None
+        if true_len is not None:
+            true_len = torch.as_tensor(true_len, dtype=torch.int32,
+                                       device=x.device).expand(B)
+            token_mask = (torch.arange(S, device=x.device)[None, :]
+                          < true_len[:, None])
+        counts = []
+        for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
+            x_mid, h2, aux = self._apply_block_pre(p, desc, x, positions)
+            x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
+                                                capacity_factor=2.0,
+                                                token_mask=token_mask)
+            for key, full in zip(("k", "v"), aux["kv"]):
+                n = min(S, bc[key].shape[1])
+                bc[key][:, :n] = full[:, S - n:].to(bc[key].dtype)
+            if "counts" in aux_ffn:
+                counts.append(aux_ffn["counts"])
+        if true_len is None:
+            cache["pos"] = torch.full((B,), S, dtype=torch.int32,
+                                      device=x.device)
+            x_last = x[:, -1:]
+        else:
+            cache["pos"] = true_len.clone()
+            idx = (true_len.long() - 1)[:, None, None].expand(B, 1,
+                                                             x.shape[-1])
+            x_last = torch.gather(x, 1, idx)
+        logits = self._logits(self.final_norm(x_last))[:, 0]
+        return logits, cache, {
+            "counts": torch.stack(counts) if counts else None}
+
+    def serve_step(self, cache, token, *, active=None):
+        """One decode step for ``token`` (B,) at the per-slot positions
+        ``cache["pos"]``. ``active``: optional (B,) bool mask; inactive
+        slots are computed (fixed batch shape) but their cache rows,
+        position and counts stay untouched. Returns (logits (B,V), cache,
+        aux)."""
+        pos = cache["pos"]
+        x = self.embed[token][:, None]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+        counts = []
+        for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
+            x_mid, h2, bc = self._decode_block_pre(p, desc, bc, x, pos,
+                                                   active=active)
+            x, cnt = self._decode_block_post(p, desc, x_mid, h2)
+            if cnt is not None:
+                counts.append(cnt)
+        cache["pos"] = (pos + 1 if active is None
+                        else _gate_rows(active, pos + 1, pos))
+        logits = self._logits(self.final_norm(x))[:, 0]
+        counts = torch.stack(counts) if counts else None
+        if counts is not None and active is not None:
+            counts = counts * active.to(counts.dtype)[None, :, None]
+        return logits, cache, {"counts": counts}
+
+
+def _gate_rows(active, new, old):
+    """Per-row select: keep ``old`` rows where ``active`` is False."""
+    a = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(a, new, old)

@@ -1,0 +1,147 @@
+"""Routed mixture-of-experts FFN (global sort+gather dispatch).
+
+The dispatch is the reference's step for step (``repro.models.moe``): a
+stable argsort of the (token, expert) assignments by expert, capacity
+clipping, a scatter of token indices into ``(E*C)`` slots whose
+over-capacity entries land in one extra row that is sliced off (the
+reference's ``mode="drop"``), a gather into ``(E, C, d)`` blocks, the
+grouped expert FFN (the hand-written kernel on CUDA), and a gate-weighted
+``index_add_`` back to tokens. Pad tokens route to the sentinel expert
+``E``. The per-sequence counts (the paper's EAM rows) equal the reference's
+exactly: they feed the shared numpy host policy.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.config import ArchConfig, MoEConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import FFN, apply_ffn, is_gated
+
+
+class MoE(nn.Module):
+    """Router (fp32, (d, E)) and stacked expert weights in the reference
+    layout: w_gate/w_up (E, d, f), w_down (E, f, d)."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        E, f = m.n_experts, m.d_expert
+
+        def param(*shape, dt=dtype):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device),
+                                requires_grad=False)
+
+        self.w_router = param(d, E, dt=torch.float32)
+        self.w_up = param(E, d, f)
+        self.w_down = param(E, f, d)
+        self.stds = {"w_router": d ** -0.5, "w_up": d ** -0.5,
+                     "w_down": f ** -0.5}
+        if is_gated(cfg.act):
+            self.w_gate = param(E, d, f)
+            self.stds["w_gate"] = d ** -0.5
+        if m.n_shared_experts:
+            d_sh = (m.d_shared or m.d_expert) * m.n_shared_experts
+            self.shared = FFN(cfg, d_sh, dtype, device)
+
+
+def capacity(T: int, m: MoEConfig, factor: float | None = None) -> int:
+    f = m.capacity_factor if factor is None else factor
+    c = int(T * m.top_k / m.n_experts * f) + 1
+    return max(m.top_k, min(c, T))
+
+
+def _traced_capacity(n_tokens, m: MoEConfig, factor: float | None):
+    """``capacity`` over a token count held in a tensor (same formula, in
+    fp32 like the reference), so it stays on the device."""
+    f = m.capacity_factor if factor is None else factor
+    c = torch.floor(n_tokens * m.top_k / m.n_experts * f).to(torch.int32) + 1
+    return torch.clamp(torch.minimum(c, n_tokens.to(torch.int32)),
+                       min=m.top_k)
+
+
+def route(p, m: MoEConfig, xf):
+    """xf (T, d) -> (gates (T,k), idx (T,k), probs (T,E))."""
+    logits = xf.float() @ p.w_router
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, m.top_k, dim=-1)
+    if m.router_norm_topk:
+        gates = gates / (gates.sum(dim=-1, keepdim=True) + 1e-9)
+    return gates, idx, probs
+
+
+def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
+            token_mask=None):
+    """Apply the routed MoE to x (B, S, d).
+
+    Returns (y, aux) with aux = {"counts": (B, E) int32 per-sequence expert
+    activation counts, "aux_loss": load-balance loss}. ``token_mask``:
+    optional (B, S) bool validity mask; masked tokens take no expert
+    capacity and add nothing to ``counts``."""
+    if cfg.moe_dispatch == "grouped" and x.shape[0] > 1:
+        raise NotImplementedError("grouped MoE dispatch is not ported yet")
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    dev = x.device
+    xf = x.reshape(T, d)
+    gates, idx, probs = route(p, m, xf)            # (T,k) (T,k) (T,E)
+    C = capacity(T, m, capacity_factor)
+    E, k = m.n_experts, m.top_k
+
+    flat_e = idx.reshape(T * k)
+    C_drop = C
+    if token_mask is not None:
+        # pad tokens route to sentinel expert E: they sort past every real
+        # segment and never take a capacity slot ahead of a real token
+        real = token_mask.reshape(T).repeat_interleave(k)
+        flat_e = torch.where(real, flat_e, torch.full_like(flat_e, E))
+        # drop exactly as an exact-length prefill would
+        C_drop = _traced_capacity(token_mask.sum(), m, capacity_factor)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]                                 # (T*k,)
+    token_of = order // k
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev, dtype=sorted_e.dtype),
+        side="left")
+    e_clip = torch.clamp(sorted_e, max=E - 1)
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[e_clip]
+    keep = (pos_in_e < C_drop) & (sorted_e < E)
+    slot = e_clip * C + torch.clamp(pos_in_e, max=C - 1)
+
+    # token feeding each of the E*C slots (T = "no token"); over-capacity
+    # entries scatter to the extra row E*C, which is sliced off
+    slot_idx = torch.where(keep, slot, torch.full_like(slot, E * C))
+    slot_token = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    slot_token[slot_idx] = token_of
+    slot_token = slot_token[:E * C]
+    x_pad = torch.cat([xf, xf.new_zeros(1, d)], dim=0)
+    xg = x_pad[slot_token].reshape(E, C, d)
+
+    yg = ops.moe_expert_ffn(xg, getattr(p, "w_gate", None), p.w_up,
+                            p.w_down, act=cfg.act)
+    yg = yg.reshape(E * C, d)
+
+    gate_flat = gates.reshape(T * k)[order]
+    slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=dev)
+    slot_gate[slot_idx] = gate_flat
+    contrib = yg * slot_gate[:E * C, None].to(yg.dtype)
+    y = torch.zeros(T + 1, d, dtype=contrib.dtype, device=dev)
+    y.index_add_(0, slot_token, contrib)
+    y = y[:T].reshape(B, S, d).to(x.dtype)
+
+    if m.n_shared_experts:
+        y = y + apply_ffn(p.shared, x, cfg.act)
+
+    # aux: per-sequence expert counts (EAM row) + load-balance loss
+    one_hot = F.one_hot(idx.reshape(B, S * k), E).to(torch.int32)
+    if token_mask is not None:
+        one_hot = one_hot * token_mask.to(torch.int32) \
+            .repeat_interleave(k, dim=1)[..., None]
+    counts = one_hot.sum(dim=1, dtype=torch.int32)            # (B, E)
+    frac_tokens = counts.sum(dim=0).float() / (T * k)
+    frac_probs = probs.mean(dim=0)
+    aux_loss = m.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
+    return y, {"counts": counts, "aux_loss": aux_loss}

@@ -1,0 +1,58 @@
+"""Load the reference package's parameter tree into the port's modules.
+
+The tree is the one ``repro.models.Model.init`` returns, with every leaf
+already converted to a numpy array (``jax.tree.map(np.asarray, params)``):
+``embed``, ``final_norm``, ``lm_head``, ``prefix`` (one dict per unrolled
+layer) and ``blocks`` (one dict per position in the layer period, every
+leaf stacked on a leading scan-group axis). bfloat16 leaves
+(``ml_dtypes.bfloat16``) pass through float32, which holds them exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from _flatten(val, f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _to_tensor(arr, like: torch.Tensor) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(np.array(arr))          # a writable copy
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"shape {tuple(t.shape)} != {tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _load(module: torch.nn.Module, tree) -> None:
+    for name, arr in _flatten(tree):
+        param = module.get_parameter(name)
+        param.copy_(_to_tensor(arr, param))
+
+
+@torch.no_grad()
+def from_reference(model, tree):
+    """Copy ``tree`` into ``model`` (a ``repro_torch`` Model of the same
+    config) and return the model."""
+    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree}
+    _load(model, top)
+    for i in range(model.n_prefix):
+        _load(model.layers[i], tree["prefix"][i])
+    for pos, stacked in enumerate(tree["blocks"]):
+        for g in range(model.n_groups):
+            layer = model.n_prefix + g * model.period + pos
+            _load(model.layers[layer], _index(stacked, g))
+    return model
+
+
+def _index(tree, g: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return np.asarray(tree)[g]

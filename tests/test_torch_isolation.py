@@ -1,0 +1,129 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+its host-layer copies have not drifted from the reference, and its entry
+points refuse to fall back to the CPU when asked for CUDA."""
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as torch_serve
+from repro_torch.models import Model
+from repro_torch.serving import EngineConfig, TorchModelServer
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+SRC = REPO / "src"
+PORT = SRC / "repro_torch"
+
+HOST_COPIES = (
+    ["config.py", "train/data.py"]
+    + [f"configs/{p.name}" for p in sorted((SRC / "repro/configs")
+                                           .glob("*.py"))]
+    + [f"core/{n}.py" for n in ("__init__", "eam", "cache", "prefetch",
+                                "predictor", "memsim", "offload",
+                                "placement", "quant", "tracer")]
+    + [f"serving/{n}.py" for n in ("request", "scheduler", "spec",
+                                   "workload", "perf_model", "guard")])
+
+
+def _port_modules():
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax_and_no_reference(path):
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(REPO)} imports {mod}"
+
+
+def _code(text: str) -> ast.Module:
+    """The module's AST once ``repro.`` reads ``repro_torch.``, without
+    docstrings (documentation may be reworded; code may not)."""
+    tree = ast.parse(re.sub(r"\brepro\.", "repro_torch.", text))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant) \
+                and isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:] or [ast.Pass()]
+    return tree
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_layer_copy_has_not_drifted(rel):
+    """Each copy has the reference's code: the same AST once ``repro.``
+    reads ``repro_torch.``, apart from docstrings and comments (such as
+    the lint suppressions)."""
+    ref = (SRC / "repro" / rel).read_text(encoding="utf-8")
+    port = (PORT / rel).read_text(encoding="utf-8")
+    assert ast.dump(_code(port)) == ast.dump(_code(ref))
+
+
+def test_engine_step_loop_is_the_reference_copy():
+    def top_level(text):
+        return {n.name: ast.dump(n) for n in _code(text).body
+                if isinstance(n, (ast.ClassDef, ast.FunctionDef))}
+    ref = top_level((SRC / "repro/serving/engine.py").read_text())
+    port = top_level((PORT / "serving/engine.py").read_text())
+    for name in ("EngineConfig", "StepEngine", "_pow2_bucket"):
+        assert port[name] == ref[name], name
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
+    model = Model(cfg, device="cpu").init(0)
+    ec = EngineConfig(arch=cfg, gpu_cache_experts=2, dram_cache_experts=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchModelServer(ec, model)
+    args = torch_serve.parse_args(["--reduced"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_serve.serve(args, cfg)
+    # asking for the CPU explicitly works
+    srv = TorchModelServer(ec, model, device="cpu")
+    out, _ = srv.generate(np.ones((1, 4), np.int32), 2)
+    assert out.shape == (1, 2)

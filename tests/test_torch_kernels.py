@@ -1,0 +1,122 @@
+"""The port's kernels (repro_torch.kernels) against the reference's oracles
+and its Pallas kernels in interpret mode, on the same numpy-seeded inputs.
+
+On the CPU the port runs each kernel's plain PyTorch version; the CUDA
+kernels themselves are checked on the card by ``tests/test_torch_gpu.py``
+and by ``chip_smoke.py`` at the served shapes."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
+from repro.kernels.moe_ffn import moe_ffn as pallas_moe_ffn
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.moe_ffn import moe_ffn
+
+torch.set_num_threads(2)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype: str):
+    # tests/test_kernels.py's limits: fp32 sums in another order; bf16
+    # rounds the hidden activation and the output
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=2e-5, rtol=1e-4)
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor (bf16 rounds the
+    float32 input to nearest even in both)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), torch.from_numpy(a).to(td)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _moe_inputs(E, C, d, f, act, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    xg = rng.standard_normal((E, C, d), np.float32)
+    ws = [rng.standard_normal(s, np.float32) * 0.05
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    if act not in ("swiglu", "geglu"):
+        ws[0] = None
+    pairs = [_both(xg, dtype)] + [(None, None) if w is None else
+                                  _both(w, dtype) for w in ws]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("E,C,d,f", [(2, 64, 128, 256), (4, 128, 256, 512),
+                                     (1, 128, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_ffn_plain_matches_reference_and_pallas(E, C, d, f, dtype, act):
+    jx, tx = _moe_inputs(E, C, d, f, act, dtype)
+    y = ref.moe_ffn_ref(*tx, act=act)
+    assert y.dtype == tx[0].dtype and y.shape == (E, C, d)
+    y_ref = jref.moe_ffn_ref(*jx, act=act)
+    y_pallas = pallas_moe_ffn(*jx, act=act, block_c=64, block_f=128,
+                              interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(y_ref), **_tol(dtype))
+    np.testing.assert_allclose(_f32(y), _f32(y_pallas), **_tol(dtype))
+    # CPU dispatch takes the plain version
+    assert torch.equal(ops.moe_expert_ffn(*tx, act=act), y)
+
+
+@pytest.mark.parametrize("B,H,Hkv,hd,S", [(1, 4, 4, 64, 256),
+                                          (2, 8, 2, 64, 512),
+                                          (1, 16, 1, 128, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_reference_and_pallas(B, H, Hkv, hd, S,
+                                                         dtype):
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal(s, np.float32), dtype)
+        for s in ((B, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    for cache_len in (S, S - 17, 1):
+        y = ref.flash_decode_ref(tq, tk, tv, cache_len)
+        assert y.dtype == tq.dtype and y.shape == (B, H, hd)
+        y_ref = jref.flash_decode_ref(jq, jk, jv, cache_len)
+        y_pallas = pallas_flash_decode(jq, jk, jv, cache_len, block_s=128,
+                                       interpret=True)
+        np.testing.assert_allclose(_f32(y), _f32(y_ref), **_tol(dtype))
+        np.testing.assert_allclose(_f32(y), _f32(y_pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_per_slot_lengths(dtype):
+    """Each batch row masks its own valid prefix; a row's output does not
+    depend on the other rows' lengths."""
+    B, H, Hkv, hd, S = 4, 8, 2, 64, 256
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal(s, np.float32), dtype)
+        for s in ((B, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    lens = [S, 7, 129, 1]
+    y = ops.decode_attention(tq, tk, tv, torch.tensor(lens, dtype=torch.int32))
+    y_pallas = pallas_flash_decode(jq, jk, jv, jnp.asarray(lens, jnp.int32),
+                                   block_s=128, interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(y_pallas), **_tol(dtype))
+    for b, L in enumerate(lens):
+        assert torch.equal(y[b], ref.flash_decode_ref(tq, tk, tv, L)[b])
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its CUDA kernel or raises: it never runs the plain
+    version itself (that choice belongs to ops, by device)."""
+    x = torch.zeros(2, 4, 8)
+    w = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_ffn(x, w, w, torch.zeros(2, 16, 8))
+    q = torch.zeros(1, 4, 8)
+    kv = torch.zeros(1, 16, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(q, kv, kv, 16)
