@@ -8,13 +8,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
   3. hold each kernel against its plain PyTorch version on the card at the
      served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
-     the plain version, a library call (a yardstick only) and the bound;
+     the plain version, a library call (a yardstick only) and the bound:
+     3a moe_ffn (B1, also through a permuted slot table), 3b flash_decode
+     (B3), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
-     slots) and check every request's budget and both kernels' launch
-     counts; time each pooled decode step with CUDA events;
+     slots), every expert resident, and check every request's budget and
+     the kernels' launch counts; time each pooled decode step with CUDA
+     events; finite full-width logits;
+  4b the same through the streaming path (--resident-fraction 0.5
+     --transfer-dtype int8): experts in page-locked host memory, 256
+     device slots, real uploads; check budgets, slot counters, upload
+     bytes, B2's launch count and the memory the card no longer holds;
+     time decode steps, the demand stall and one expert's upload;
   5. the whole port stack on the card against the same weights on the CPU
-     (reduced config, fp32), and finite full-width logits;
+     (reduced config, fp32);
+  5b the streaming server on the card (reduced, fp32): a slot for every
+     expert gives the fused server's tokens; rf 0.5 over each wire, overlap
+     and fenced, gives the CPU port's tokens;
   6. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -22,6 +33,7 @@ Exits non-zero without a result when CUDA is unavailable.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -32,6 +44,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
 
 # tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|):
 #  fp32 -- both sides accumulate in fp32, in different orders over
@@ -135,8 +148,105 @@ def check_moe_ffn(gen, card):
                            replaces="src/repro/kernels/moe_ffn.py:80",
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+            # the same weights as slot buffers read through a permuted
+            # slot table (the streaming path's fp32 wire)
+            perm = torch.randperm(E, generator=gen, device="cuda")
+            got = moe_ffn(xg, wg, wu, wd, act=act,
+                          slot_ids=perm.to(torch.int32))
+            want = ref.moe_ffn_ref(xg, wg[perm], wu[perm], wd[perm], act=act)
+            torch.cuda.synchronize()
+            compare(f"E={E} C={C} d={d} f={f} {act} {dtype} permuted "
+                    "slot_ids", got, want)
             del xg, wg, wu, wd, got, want
             torch.cuda.empty_cache()
+    return row
+
+
+def check_moe_ffn_quant(gen, card):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn_quant
+
+    def wire(n, shape, kind):
+        """(n, *shape) fp16 or int8 slot buffer + (n, out) fp32 scales."""
+        std = shape[0] ** -0.5
+        if kind == "fp16":
+            w = torch.randn((n,) + shape, generator=gen, device="cuda") * std
+            return w.half(), None
+        q = torch.randint(-127, 128, (n,) + shape, generator=gen,
+                          device="cuda", dtype=torch.int8)
+        s = (torch.rand((n, shape[-1]), generator=gen, device="cuda") + 0.5) \
+            * (2 * std / 127)
+        return q, s
+
+    print("phase 3c: moe_ffn_quant kernel vs plain (moe_ffn_quant_ref)")
+    row = None
+    cases = [(MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"], 2 * MAIN["E"],
+              "swiglu", torch.float32)]
+    cases += [(3, 13, 520, 700, 4, act, out) for act in ("swiglu", "gelu")
+              for out in (torch.float32, torch.bfloat16)]
+    for kind in ("int8", "fp16"):
+        for xdt in (torch.bfloat16, torch.float32):
+            for E, C, d, f, n, act, out in cases:
+                xg = (torch.randn((E, C, d), generator=gen, device="cuda")
+                      ).to(xdt)
+                wg, sg = wire(n, (d, f), kind) if act == "swiglu" \
+                    else (None, None)
+                wu, su = wire(n, (d, f), kind)
+                wd, sd = wire(n, (f, d), kind)
+                if E == 3:
+                    slots = torch.tensor([3, 0, 0], device="cuda")
+                else:     # E distinct slots of 2E, as at rf 0.5
+                    slots = torch.randperm(n, generator=gen,
+                                           device="cuda")[:E]
+                slots = slots.to(torch.int32)
+                args = (xg, wg, wu, wd, sg, su, sd, slots)
+                got = moe_ffn_quant(*args, act=act, out_dtype=out)
+                want = ref.moe_ffn_quant_ref(*args, act=act, out_dtype=out)
+                torch.cuda.synchronize()
+                err = compare(f"E={E} C={C} d={d} f={f} n_slots={n} {act} "
+                              f"{kind} x {xdt} out {out}", got, want)
+                if E == 3:
+                    continue
+                ms = time_ms(lambda: moe_ffn_quant(*args, act=act,
+                                                   out_dtype=out), 10)
+                plain_ms = time_ms(lambda: ref.moe_ffn_quant_ref(
+                    *args, act=act, out_dtype=out), 3)
+                idx = slots.long()
+
+                def deq(w, s):
+                    w = w[idx].to(torch.bfloat16)
+                    return w if s is None else \
+                        w * s[idx][:, None, :].to(torch.bfloat16)
+
+                def library():
+                    x = xg.to(torch.bfloat16)
+                    h = torch.nn.functional.silu(torch.bmm(x, deq(wg, sg))) \
+                        * torch.bmm(x, deq(wu, su))
+                    return torch.bmm(h, deq(wd, sd))
+                lib_ms = time_ms(library, 10)
+                n_read = len(set(slots.tolist()))
+                wbytes = 3 * d * f * wu.element_size()
+                sbytes = 4 * (2 * f + d) if kind == "int8" else 0
+                nbytes = (xg.numel() * xg.element_size()
+                          + n_read * (wbytes + sbytes) + 4 * E
+                          + got.numel() * got.element_size())
+                bound_ms, by = bound(nbytes, 2 * E * C * d * f * 3,
+                                     torch.float32)
+                print(f"  time {kind} x {xdt}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library (dequantize to bf16 + 3x "
+                      f"torch.bmm + silu) {lib_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({by}) [{card}]")
+                if kind == "int8" and xdt == torch.bfloat16:
+                    row = dict(name="moe_ffn_quant", route="cuda",
+                               source="src/repro_torch/kernels/csrc/"
+                                      "moe_ffn_quant.cu",
+                               replaces="src/repro/kernels/moe_ffn.py:177",
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=by,
+                               library_ms=lib_ms)
+                del xg, wg, wu, wd, sg, su, sd, args, got, want
+                torch.cuda.empty_cache()
     return row
 
 
@@ -193,22 +303,57 @@ def check_flash_decode(gen, card):
     return row
 
 
-def main_path(card):
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_decode as fd_mod
-    from repro_torch.kernels import moe_ffn as moe_mod
-    from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import Model
+def _check_budgets(out, cfg):
+    for r in out["requests"]:
+        got = len(out["tokens"][r.rid])
+        if got != r.max_new_tokens:
+            raise SystemExit(f"request {r.rid}: {got} tokens, budget "
+                             f"{r.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab for t in out["tokens"][r.rid]):
+            raise SystemExit(f"request {r.rid}: token out of vocabulary")
 
+
+def _steps(srv, what, card):
+    import numpy as np
+    steps = np.asarray(srv.decode_ms)
+    print(f"  decode step {what} (pool of {srv.n_slots}, CUDA events): mean "
+          f"{steps.mean():.3f} ms, median {np.median(steps):.3f} ms, min "
+          f"{steps.min():.3f} ms over {len(steps)} steps [{card}]")
+    return steps
+
+
+def _full_cfg(what):
+    from repro_torch.configs import get_config
     full = get_config("qwen3-moe-235b-a22b")
     cfg = dataclasses.replace(full, n_layers=4)
-    print(f"phase 4: main path, {cfg.name} at full width (d_model "
+    print(f"{what}, {cfg.name} at full width (d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
           f"{cfg.head_dim_}, {cfg.moe.n_experts} experts top-"
           f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, vocab {cfg.vocab}, "
           f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers")
+    return cfg
+
+
+def _reset_counts():
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import moe_ffn as moe_mod
+    moe_mod.launches = moe_mod.quant_launches = fd_mod.launches = 0
+
+
+def _counts():
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import moe_ffn as moe_mod
+    return {"moe_ffn": moe_mod.launches,
+            "moe_ffn_quant": moe_mod.quant_launches,
+            "flash_decode": fd_mod.launches}
+
+
+def main_path(card):
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model
+
+    cfg = _full_cfg("phase 4: main path, every expert resident")
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
@@ -219,36 +364,30 @@ def main_path(card):
     args = serve_mod.parse_args([
         "--device", "cuda", "--requests", "4", "--prompt-len", "32",
         "--max-new", "16", "--slots", "4"])
-    moe_mod.launches = 0
-    fd_mod.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     out = serve_mod.serve(args, cfg, model)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"moe_ffn": moe_mod.launches, "flash_decode": fd_mod.launches}
+    launches = _counts()
     srv = out["server"]
     n_moe, n_layers = len(model.moe_layers), cfg.n_layers
-    for r in out["requests"]:
-        got = len(out["tokens"][r.rid])
-        if got != r.max_new_tokens:
-            raise SystemExit(f"request {r.rid}: {got} tokens, budget "
-                             f"{r.max_new_tokens}")
-        if not all(0 <= t < cfg.vocab for t in out["tokens"][r.rid]):
-            raise SystemExit(f"request {r.rid}: token out of vocabulary")
-    want_moe = n_moe * (out["n_warmup"] + srv.n_prefills + srv.n_decode_steps)
-    want_fd = n_layers * srv.n_decode_steps
+    _check_budgets(out, cfg)
+    want = {"moe_ffn": n_moe * (out["n_warmup"] + srv.n_prefills
+                                + srv.n_decode_steps),
+            "moe_ffn_quant": 0,
+            "flash_decode": n_layers * srv.n_decode_steps}
     print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
           f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
-          f"prefills + {srv.n_decode_steps} decode steps) = {want_moe}); "
-          f"flash_decode {launches['flash_decode']} (expected {n_layers} "
-          f"layers x {srv.n_decode_steps} decode steps = {want_fd})")
-    if launches["moe_ffn"] != want_moe or launches["flash_decode"] != want_fd:
+          f"prefills + {srv.n_decode_steps} decode steps) = "
+          f"{want['moe_ffn']}); flash_decode {launches['flash_decode']} "
+          f"(expected {n_layers} layers x {srv.n_decode_steps} decode steps "
+          f"= {want['flash_decode']}); moe_ffn_quant "
+          f"{launches['moe_ffn_quant']} (expected 0); serve wall "
+          f"{wall:.1f} s")
+    if launches != want:
         raise SystemExit("launch counts differ from the main path's calls")
-    steps = np.asarray(srv.decode_ms)
-    print(f"  decode step (pool of {srv.n_slots}, CUDA events): mean "
-          f"{steps.mean():.3f} ms, median {np.median(steps):.3f} ms, min "
-          f"{steps.min():.3f} ms over {len(steps)} steps; serve wall "
-          f"{wall:.1f} s [{card}]")
+    _steps(srv, "all-resident", card)
     with torch.inference_mode():
         toks = torch.as_tensor(out["requests"][0].prompt[None],
                                dtype=torch.long, device="cuda")
@@ -258,6 +397,122 @@ def main_path(card):
         raise SystemExit("full-width forward logits are not finite")
     print(f"  full-width forward logits {tuple(logits.shape)} finite")
     del model, srv, out, logits
+    gc.collect()          # the server holds reference cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def upload_gbps(stream, expert, reps=10):
+    """GB/s of one expert's page-locked host -> device upload (every weight
+    of the expert), timed with CUDA events on ``stream``."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in expert.values())
+    dst = {k: torch.empty(t.shape, dtype=t.dtype, device="cuda")
+           for k, t in expert.items()}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.cuda.stream(stream):
+        for k, t in expert.items():
+            dst[k].copy_(t, non_blocking=True)
+        start.record(stream)
+        for _ in range(reps):
+            for k, t in expert.items():
+                dst[k].copy_(t, non_blocking=True)
+        end.record(stream)
+    end.synchronize()
+    if not all(t.is_pinned() for t in expert.values()):
+        raise SystemExit("the host store is not page-locked")
+    return nbytes * reps / (start.elapsed_time(end) * 1e-3) / 1e9, nbytes
+
+
+def streaming_path(card):
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model
+
+    cfg = _full_cfg("phase 4b: main path, streaming experts at rf 0.5 "
+                    "over the int8 wire")
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    resident_bytes = torch.cuda.memory_allocated()
+    args = serve_mod.parse_args([
+        "--device", "cuda", "--requests", "4", "--prompt-len", "32",
+        "--max-new", "16", "--slots", "4", "--resident-fraction", "0.5",
+        "--transfer-dtype", "int8"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = serve_mod.serve(args, cfg, model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    srv = out["server"]
+    st = srv.stats()
+    store = srv.slot_runtime.store
+    n_moe, n_layers = len(model.moe_layers), cfg.n_layers
+    _check_budgets(out, cfg)
+    want = {"moe_ffn": n_moe * out["n_warmup"],
+            "moe_ffn_quant": n_moe * (srv.n_prefills + srv.n_decode_steps),
+            "flash_decode": n_layers * srv.n_decode_steps}
+    print(f"  launches: moe_ffn_quant {launches['moe_ffn_quant']} (expected "
+          f"{n_moe} MoE layers x ({srv.n_prefills} prefills + "
+          f"{srv.n_decode_steps} decode steps) = {want['moe_ffn_quant']}); "
+          f"moe_ffn {launches['moe_ffn']} (expected {n_moe} x "
+          f"{out['n_warmup']} all-resident EAMC warm-up forwards = "
+          f"{want['moe_ffn']}); flash_decode {launches['flash_decode']} "
+          f"(expected {want['flash_decode']}); serve wall {wall:.1f} s")
+    if launches != want:
+        raise SystemExit("launch counts differ from the streaming path's "
+                         "calls")
+    n_up = st["demand_uploads"] + st["prefetch_uploads"]
+    print(f"  slots: {st['weight_slots']} of {n_moe * cfg.moe.n_experts}, "
+          f"hits {st['slot_hits']}, misses {st['slot_misses']}, demand "
+          f"uploads {st['demand_uploads']}, prefetch uploads "
+          f"{st['prefetch_uploads']}, evictions {st['slot_evictions']}, "
+          f"uploaded {st['upload_bytes']} B = {n_up} x "
+          f"{st['wire_expert_bytes']} B")
+    if st["demand_uploads"] <= 0 or st["slot_hits"] <= 0:
+        raise SystemExit("the streaming path moved no expert on demand")
+    if st["upload_bytes"] != n_up * st["wire_expert_bytes"]:
+        raise SystemExit("upload bytes disagree with the upload count")
+    # land any staged rows and release staging memory before measuring
+    srv.slot_runtime.slot_cache.commit()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    expert_total = n_moe * cfg.moe.n_experts * store.expert_bytes
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    slot_bytes = nbytes(srv.slot_runtime.slot_cache.bufs.values())
+    kv_bytes = nbytes(t for bc in srv.slot_runtime.layer_caches
+                      for t in bc.values())
+    stream_bytes = torch.cuda.memory_allocated()
+    print(f"  card memory: {resident_bytes} B all-resident after init, "
+          f"{stream_bytes} B streaming after serving; experts "
+          f"{expert_total} B, slot buffers {slot_bytes} B, pooled KV cache "
+          f"{kv_bytes} B")
+    if resident_bytes + kv_bytes - stream_bytes < expert_total - slot_bytes:
+        raise SystemExit("the card still holds experts beyond its slots")
+    _steps(srv, "streaming rf 0.5 int8", card)
+    toks = srv.prefill_tokens + srv.decode_tokens
+    print(f"  demand stall: {st['demand_stall_s'] * 1e3:.3f} ms over {toks} "
+          f"tokens = {st['demand_stall_per_token_s'] * 1e3:.4f} ms/token "
+          f"(host time of the misses: issue + first-use int8 quantization) "
+          f"[{card}]")
+    from repro_torch.core.slot_cache import quantize_weight
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for w in store.expert(0, 0).values():
+            quantize_weight(w, "int8")
+    print(f"  host int8 quantization of one expert (first use, torch on "
+          f"{torch.get_num_threads()} CPU threads): "
+          f"{(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+    stream = srv.slot_runtime.slot_cache._copy_stream
+    for what, expert in (("bf16 master", store.expert(0, 0)),
+                         ("int8 wire", store.wire_expert(0, 0))):
+        gbps, size = upload_gbps(stream, expert)
+        print(f"  upload of one expert ({what}, {size} B, page-locked, "
+              f"copy stream, CUDA events): {gbps:.2f} GB/s [{card}]")
+    del model, srv, out, store, stream
+    gc.collect()          # frees the card and unlocks the host store
     torch.cuda.empty_cache()
     return launches
 
@@ -302,6 +557,57 @@ def port_vs_cpu():
               f"{err:.3e}")
 
 
+def streaming_vs_cpu():
+    """The streaming server on the card (B1/B2 over slot buffers, uploads
+    on the copy stream) against the fused server on the card and against
+    the streaming server on the CPU: reduced config, fp32."""
+    import copy
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import EngineConfig, TorchModelServer
+
+    print("phase 5b: streaming server on the card vs fused on the card and "
+          "vs the CPU (qwen3-moe-235b-a22b reduced, fp32)")
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    gpu = Model(cfg, device="cuda").init(2)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 9)).astype(np.int32)
+    total = len(gpu.moe_layers) * cfg.moe.n_experts
+
+    def serve(model, device, **kw):
+        srv = TorchModelServer(
+            EngineConfig(arch=cfg, gpu_cache_experts=3, dram_cache_experts=6,
+                         **kw), copy.deepcopy(model), cache_len=32,
+            device=device)
+        return srv.generate(prompts, 6)
+    fused, _ = serve(gpu, "cuda")
+    every, st = serve(gpu, "cuda", n_weight_slots=total)
+    print(f"  {total} slots for {total} experts: tokens equal to the fused "
+          f"server: {np.array_equal(every, fused)}, demand uploads "
+          f"{st['demand_uploads']}")
+    if not np.array_equal(every, fused) or st["demand_uploads"]:
+        raise SystemExit("slot path with every expert resident differs "
+                         "from the fused path")
+    for wire in ("fp32", "fp16", "int8"):
+        for fenced in (False, True):
+            kw = dict(resident_fraction=0.5, transfer_dtype=wire,
+                      fenced_uploads=fenced)
+            g_out, g_st = serve(gpu, "cuda", **kw)
+            c_out, c_st = serve(cpu, "cpu", **kw)
+            same = (np.array_equal(g_out, c_out)
+                    and g_st["demand_uploads"] == c_st["demand_uploads"]
+                    and g_st["upload_bytes"] == c_st["upload_bytes"])
+            print(f"  rf 0.5 {wire} {'fenced' if fenced else 'overlap'}: "
+                  f"tokens and uploads equal to the CPU: {same} (demand "
+                  f"uploads {g_st['demand_uploads']})")
+            if not same or g_st["demand_uploads"] <= 0:
+                raise SystemExit("streaming server on the card disagrees "
+                                 "with the CPU")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -329,11 +635,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_moe_ffn(gen, card), check_flash_decode(gen, card)]
-    launches = main_path(card)
+    rows = [check_moe_ffn(gen, card), check_moe_ffn_quant(gen, card),
+            check_flash_decode(gen, card)]
+    resident = main_path(card)
+    streaming = streaming_path(card)
+    for path, counts in (("all-resident", resident),
+                         ("streaming", streaming)):
+        for name in ("flash_decode",) + (
+                ("moe_ffn",) if path == "all-resident" else
+                ("moe_ffn_quant",)):
+            if counts[name] <= 0:
+                raise SystemExit(f"{name} was not launched on the "
+                                 f"{path} path")
     port_vs_cpu()
+    streaming_vs_cpu()
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # launches over both main-path runs, and per run
+        row["launches"] = resident[row["name"]] + streaming[row["name"]]
+        row["launches_by_path"] = {"all_resident": resident[row["name"]],
+                                   "streaming": streaming[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

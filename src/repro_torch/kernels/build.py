@@ -22,15 +22,20 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-KERNELS = ("moe_ffn", "flash_decode")
+KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of csrc/common.cuh
+WIRE_DTYPES = {torch.float16: 2, torch.int8: 3}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # xg, w_gate, w_up, w_down, h, y, E, C, d, f, act, dtype, stream
-    "moe_ffn": ("moe_ffn_launch", [_P] * 6 + [_I] * 6 + [_P]),
+    # xg, w_gate, w_up, w_down, slot_ids, h, y, E, C, d, f, act, dtype,
+    # stream
+    "moe_ffn": ("moe_ffn_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    # xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids, h, y, E, C,
+    # d, f, act, x_dtype, w_dtype, out_dtype, stream
+    "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 10 + [_I] * 8 + [_P]),
     # q, k, v, lens, out, B, S, Hkv, rep, hd, scale, dtype, stream
     "flash_decode": ("flash_decode_launch",
                      [_P] * 5 + [_I] * 5 + [_F, _I, _P]),

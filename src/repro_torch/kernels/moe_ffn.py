@@ -1,9 +1,15 @@
-"""Grouped expert FFN on the GPU: wrapper of ``csrc/moe_ffn.cu``.
+"""Grouped expert FFN on the GPU: wrappers of ``csrc/moe_ffn.cu`` and
+``csrc/moe_ffn_quant.cu``.
 
-Replaces the Pallas ``repro.kernels.moe_ffn.moe_ffn``. Takes CUDA tensors
-only; the CPU path is ``ref.moe_ffn_ref`` (dispatch lives in ``ops``).
-``launches`` counts calls that launched the kernel (one per call, although
-the kernel runs as two launches: up+activation, then down).
+``moe_ffn`` replaces the Pallas ``repro.kernels.moe_ffn.moe_ffn`` (B1);
+``moe_ffn_quant`` replaces ``repro.kernels.moe_ffn.moe_ffn_quant`` as
+reached through ``moe_ffn_slots`` (B2): fp16/int8 slot-cache buffers,
+dequantized in the kernel, with the expert -> slot table folded into its
+addressing. Both take CUDA tensors only; the CPU paths are
+``ref.moe_ffn_ref`` / ``ref.moe_ffn_quant_ref`` (dispatch lives in
+``ops``). ``launches`` / ``quant_launches`` count calls that launched each
+kernel (one per call, although each runs as two launches: up+activation,
+then down).
 """
 from __future__ import annotations
 
@@ -15,40 +21,117 @@ ACTS = {"swiglu": 1, "geglu": 2, "relu2": 3, "gelu": 4}
 GATED = ("swiglu", "geglu")
 
 launches = 0
+quant_launches = 0
 
 
-def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
-    """xg: (E, C, d); w_gate/w_up: (E, d, f) (``w_gate`` None for relu2 /
-    gelu); w_down: (E, f, d); all on one CUDA device, fp32 or bf16.
-    -> (E, C, d) in xg's dtype."""
-    global launches
-    if xg.device.type != "cuda":
-        raise ValueError("moe_ffn kernel needs CUDA tensors; the CPU path "
-                         "is kernels.ref.moe_ffn_ref")
+def _check_act(act: str, w_gate) -> None:
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if (w_gate is not None) != (act in GATED):
         raise ValueError(f"{act} {'needs' if act in GATED else 'takes no'} "
                          "w_gate")
-    if xg.dtype not in build.DTYPES:
-        raise TypeError(f"moe_ffn kernel supports fp32/bf16, got {xg.dtype}")
+
+
+def _check_weights(xg, w_gate, w_up, w_down, dtype, slot_ids):
+    """-> (E, C, d, f, n) after checking the weights' shapes: (n, d, f) /
+    (n, f, d), with n = E unless ``slot_ids`` (E,) int32 indexes them."""
     E, C, d = xg.shape
     f = w_up.shape[-1]
-    dev, dt = xg.device, xg.dtype
-    build.check_tensor("xg", xg, (E, C, d), dt, dev)
-    build.check_tensor("w_up", w_up, (E, d, f), dt, dev)
-    build.check_tensor("w_down", w_down, (E, f, d), dt, dev)
+    dev = xg.device
+    n = w_up.shape[0] if slot_ids is not None else E
+    build.check_tensor("w_up", w_up, (n, d, f), dtype, dev)
+    build.check_tensor("w_down", w_down, (n, f, d), dtype, dev)
     if w_gate is not None:
-        build.check_tensor("w_gate", w_gate, (E, d, f), dt, dev)
+        build.check_tensor("w_gate", w_gate, (n, d, f), dtype, dev)
+    if slot_ids is not None:
+        build.check_tensor("slot_ids", slot_ids, (E,), torch.int32, dev)
+    return E, C, d, f, n
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu",
+            slot_ids=None):
+    """xg: (E, C, d); w_gate/w_up: (E, d, f) (``w_gate`` None for relu2 /
+    gelu); w_down: (E, f, d); all on one CUDA device, fp32 or bf16.
+    ``slot_ids``: optional (E,) int32 on the device; the weights are then
+    slot buffers (n_slots, ...) and expert e reads slot ``slot_ids[e]``
+    (each must lie in [0, n_slots): the kernel does not check).
+    -> (E, C, d) in xg's dtype."""
+    global launches
+    if xg.device.type != "cuda":
+        raise ValueError("moe_ffn kernel needs CUDA tensors; the CPU path "
+                         "is kernels.ref.moe_ffn_ref")
+    _check_act(act, w_gate)
+    if xg.dtype not in build.DTYPES:
+        raise TypeError(f"moe_ffn kernel supports fp32/bf16, got {xg.dtype}")
+    dev, dt = xg.device, xg.dtype
+    build.check_tensor("xg", xg, tuple(xg.shape), dt, dev)
+    E, C, d, f, _ = _check_weights(xg, w_gate, w_up, w_down, dt, slot_ids)
     h = torch.empty((E, C, f), dtype=dt, device=dev)
     y = torch.empty((E, C, d), dtype=dt, device=dev)
     fn = build.load("moe_ffn")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xg.data_ptr(),
-                 w_gate.data_ptr() if w_gate is not None else None,
-                 w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
-                 y.data_ptr(), E, C, d, f, ACTS[act], build.DTYPES[dt], stream)
+        err = fn(xg.data_ptr(), _ptr(w_gate), w_up.data_ptr(),
+                 w_down.data_ptr(), _ptr(slot_ids), h.data_ptr(),
+                 y.data_ptr(), E, C, d, f, ACTS[act], build.DTYPES[dt],
+                 stream)
     build.check("moe_ffn", err)
     launches += 1
+    return y
+
+
+def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
+                  *, act: str = "swiglu", out_dtype=None):
+    """Slot-indexed grouped expert FFN over fp16 or int8 wire weights.
+
+    xg: (E, C, d) fp32 or bf16; w_gate/w_up: (n_slots, d, f) and w_down:
+    (n_slots, f, d), all fp16 or all int8 (``w_gate`` None for relu2 /
+    gelu); s_gate/s_up: (n_slots, f) and s_down: (n_slots, d) fp32
+    per-output-channel scales, given for int8 and None for fp16;
+    slot_ids: (E,) int32, each in [0, n_slots) (the kernel does not check).
+    -> (E, C, d) in ``out_dtype`` (fp32 or bf16; default xg's dtype)."""
+    global quant_launches
+    if xg.device.type != "cuda":
+        raise ValueError("moe_ffn_quant kernel needs CUDA tensors; the CPU "
+                         "path is kernels.ref.moe_ffn_quant_ref")
+    _check_act(act, w_gate)
+    out_dtype = xg.dtype if out_dtype is None else out_dtype
+    for name, dt in (("xg", xg.dtype), ("out_dtype", out_dtype)):
+        if dt not in build.DTYPES:
+            raise TypeError(f"moe_ffn_quant: {name} must be fp32/bf16, "
+                            f"got {dt}")
+    wdt = w_up.dtype
+    if wdt not in build.WIRE_DTYPES:
+        raise TypeError(f"moe_ffn_quant takes fp16/int8 weights, got {wdt}")
+    if slot_ids is None:
+        raise ValueError("moe_ffn_quant needs slot_ids")
+    dev = xg.device
+    build.check_tensor("xg", xg, tuple(xg.shape), xg.dtype, dev)
+    E, C, d, f, n = _check_weights(xg, w_gate, w_up, w_down, wdt, slot_ids)
+    # int8 takes a scale row per used projection; fp16 takes none
+    for name, s, width, used in (("s_gate", s_gate, f, w_gate is not None),
+                                 ("s_up", s_up, f, True),
+                                 ("s_down", s_down, d, True)):
+        if wdt == torch.int8 and used:
+            if s is None:
+                raise ValueError(f"int8 weights need {name}")
+            build.check_tensor(name, s, (n, width), torch.float32, dev)
+        elif s is not None:
+            raise ValueError(f"{name} is taken only with int8 weights")
+    h = torch.empty((E, C, f), dtype=torch.float32, device=dev)
+    y = torch.empty((E, C, d), dtype=out_dtype, device=dev)
+    fn = build.load("moe_ffn_quant")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(xg.data_ptr(), _ptr(w_gate), w_up.data_ptr(),
+                 w_down.data_ptr(), _ptr(s_gate), _ptr(s_up), _ptr(s_down),
+                 slot_ids.data_ptr(), h.data_ptr(), y.data_ptr(),
+                 E, C, d, f, ACTS[act], build.DTYPES[xg.dtype],
+                 build.WIRE_DTYPES[wdt], build.DTYPES[out_dtype], stream)
+    build.check("moe_ffn_quant", err)
+    quant_launches += 1
     return y

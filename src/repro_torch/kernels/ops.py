@@ -3,9 +3,10 @@ CUDA tensor launches the hand-written kernel (which raises if it cannot
 build or launch; there is no fallback)."""
 from __future__ import annotations
 
+from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.moe_ffn import moe_ffn
+from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_quant
 
 
 def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
@@ -13,6 +14,25 @@ def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
     if xg.device.type == "cpu":
         return ref.moe_ffn_ref(xg, w_gate, w_up, w_down, act=act)
     return moe_ffn(xg, w_gate, w_up, w_down, act=act)
+
+
+def moe_expert_ffn_slots(xg, bufs, slot_ids, *, act: str = "swiglu",
+                         out_dtype=None):
+    """Grouped expert FFN over slot-cache buffers ``bufs`` ({w_gate?, w_up,
+    w_down} (n_slots, ...) plus ``<name>_scale`` rows under int8) for the
+    (E,) int32 expert -> slot table ``slot_ids``. A wire in x's dtype with
+    no scales takes B1 (``moe_ffn`` with ``slot_ids``), fp16/int8 take B2
+    (``moe_ffn_quant``), as the reference's ``moe_ffn_quant`` delegates.
+    -> (E, C, d) in ``out_dtype`` (default x's dtype)."""
+    ws = [bufs.get(n) for n in EXPERT_WEIGHT_NAMES]
+    ss = [bufs.get(n + "_scale") for n in EXPERT_WEIGHT_NAMES]
+    if xg.device.type == "cpu":
+        return ref.moe_ffn_quant_ref(xg, *ws, *ss, slot_ids, act=act,
+                                     out_dtype=out_dtype)
+    if ss[1] is None and ws[1].dtype == xg.dtype:
+        y = moe_ffn(xg, *ws, act=act, slot_ids=slot_ids)
+        return y if out_dtype is None else y.to(out_dtype)
+    return moe_ffn_quant(xg, *ws, *ss, slot_ids, act=act, out_dtype=out_dtype)
 
 
 def decode_attention(q, k, v, cache_len):

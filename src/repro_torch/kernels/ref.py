@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (the CPU path and the kernels'
-oracle). Same arithmetic as ``repro.kernels.ref``: fp32 accumulation, the
-expert FFN's hidden activation rounded to the input dtype before the
-down-projection, masked decode positions at -1e30."""
+oracle). Same arithmetic as ``repro.kernels.ref`` and the Pallas kernels:
+fp32 accumulation, the expert FFN's hidden activation rounded to the input
+dtype before the down-projection (kept in fp32 over dequantized wire
+weights), masked decode positions at -1e30."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +28,40 @@ def moe_ffn_ref(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
     h = _act(act, up, gate)
     y = torch.einsum("ecf,efd->ecd", h.to(xg.dtype).float(), w_down.float())
     return y.to(xg.dtype)
+
+
+def moe_ffn_quant_ref(xg, w_gate, w_up, w_down, s_gate, s_up, s_down,
+                      slot_ids, *, act: str = "swiglu", out_dtype=None):
+    """Slot-indexed grouped expert FFN over wire-dtype weights (the plain
+    version of ``moe_ffn_quant`` as ``moe_ffn_slots`` reaches it).
+
+    ``w_*``: (n_slots, d, f) / (n_slots, f, d) slot buffers in int8, fp16
+    or the master dtype; ``s_*``: (n_slots, f) / (n_slots, d) fp32
+    per-output-channel scales (int8) or None; ``slot_ids``: (E,) expert ->
+    slot. Dequantized weights, x, gate, up and h are fp32
+    (h is not rounded to x's dtype); with no scales and weights in x's
+    dtype this is ``moe_ffn_ref`` on the gathered weights. -> (E, C, d) in
+    ``out_dtype`` (default x's dtype)."""
+    out_dtype = xg.dtype if out_dtype is None else out_dtype
+
+    idx = slot_ids.to(device=w_up.device, dtype=torch.long)
+
+    def take(w):
+        return None if w is None else w.index_select(0, idx)
+    wg, wu, wd = take(w_gate), take(w_up), take(w_down)
+    if s_up is None and wu.dtype == xg.dtype:
+        return moe_ffn_ref(xg, wg, wu, wd, act=act).to(out_dtype)
+
+    def deq(w, s):
+        w = w.float()
+        return w if s is None else w * take(s)[:, None, :]
+    xf = xg.float()
+    up = torch.einsum("ecd,edf->ecf", xf, deq(wu, s_up))
+    gate = (torch.einsum("ecd,edf->ecf", xf, deq(wg, s_gate))
+            if wg is not None else None)
+    h = _act(act, up, gate)
+    y = torch.einsum("ecf,efd->ecd", h, deq(wd, s_down))
+    return y.to(out_dtype)
 
 
 def lengths(cache_len, B: int, device) -> torch.Tensor:

@@ -11,10 +11,14 @@ warm-up pass over ``Model.forward`` (default), learned online
 
 The ``e2e=``/``tok-lat=`` figures are the ``MemSim`` virtual clock under the
 ``PAPER_8GPU`` hardware preset (the paper's testbed), not measurements of
-the device this runs on.
+the device this runs on. ``--resident-fraction < 1`` moves the experts to
+a host store after the EAMC warm-up and streams them through device weight
+slots (``--transfer-dtype``, ``--fenced-uploads``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --requests 4 --prompt-len 32 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+        --resident-fraction 0.5 --transfer-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 """
 from __future__ import annotations
@@ -68,9 +72,9 @@ def parse_args(argv=None):
                          "SSD-resident and pay the NVMe hop on a miss")
     ap.add_argument("--resident-fraction", type=float, default=1.0,
                     help="fraction of the L×E expert set held in device "
-                         "weight slots. Only 1.0 (every expert resident, "
-                         "fused step) is ported so far; streaming real "
-                         "expert weights (< 1.0) comes with the slot cache")
+                         "weight slots; < 1.0 keeps the experts in a host "
+                         "store and streams them through the slot cache "
+                         "(1.0: every expert resident, fused step)")
     ap.add_argument("--weight-slots", type=int, default=None,
                     help="explicit device expert-slot count (overrides "
                          "--resident-fraction)")
@@ -170,7 +174,8 @@ def _tenants(args):
 def serve(args, cfg, model: Optional[Model] = None) -> dict:
     """Serve ``args.requests`` open-loop requests of ``cfg`` and print the
     report. ``model``: weights to serve (default: ``Model(cfg).init(0)`` on
-    ``args.device``). Returns {"server", "requests", "tokens" (rid ->
+    ``args.device``; with device weight slots the server moves its experts
+    to the host store). Returns {"server", "requests", "tokens" (rid ->
     generated tokens), "n_warmup" (model.forward calls of the EAMC pass)}.
     """
     tenants = _tenants(args)
@@ -306,7 +311,24 @@ def serve(args, cfg, model: Optional[Model] = None) -> dict:
           f"(demand {stats['ssd_demand_bytes']/1e6:.1f}), "
           f"miss-cost dram={stats['miss_cost_dram']*1e3:.2f}ms "
           f"ssd={stats['miss_cost_ssd']*1e3:.2f}ms")
-    print("slots: all-resident (resident-fraction 1.0)")
+    if srv.slot_runtime is not None:
+        n_moe = len(model.moe_layers)
+        total = n_moe * cfg.moe.n_experts
+        print(f"slots: resident={stats['weight_slots']}/{total} "
+              f"hit-ratio={stats['slot_hit_ratio']:.3f} "
+              f"hits={stats['slot_hits']} misses={stats['slot_misses']} "
+              f"demand-uploads={stats['demand_uploads']} "
+              f"prefetch-uploads={stats['prefetch_uploads']} "
+              f"evictions={stats['slot_evictions']} "
+              f"uploaded={stats['upload_bytes']/1e6:.1f}MB "
+              f"demand-stall={stats['demand_stall_s']*1e3:.1f}ms "
+              f"({stats['demand_stall_per_token_s']*1e3:.2f}ms/token) "
+              f"wire={stats['transfer_dtype']} "
+              f"({stats['wire_expert_bytes']}B/expert, "
+              f"sim={stats['sim_expert_bytes']}B) "
+              f"schedule={'fenced' if args.fenced_uploads else 'overlap'}")
+    else:
+        print("slots: all-resident (resident-fraction 1.0)")
     learned = stats["eamc_online_inserts"] + stats["eamc_online_merges"]
     print(f"eamc: source={eamc_source} entries={stats['eamc_entries']} "
           f"learned={learned} "

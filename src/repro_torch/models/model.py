@@ -163,13 +163,17 @@ class Model(nn.Module):
         return x, p.norm2(x), {"kv": kv}
 
     def _apply_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
-                          capacity_factor=None, token_mask=None):
-        """FFN half. Returns (x_out, aux) with MoE counts/aux_loss."""
+                          capacity_factor=None, token_mask=None, routing=None,
+                          slot_weights=None, slot_ids=None):
+        """FFN half. Returns (x_out, aux) with MoE counts/aux_loss.
+        ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
         aux = {}
         if desc.is_moe:
             y2, moe_aux = moe_ffn(p.moe, self.cfg, h2,
                                   capacity_factor=capacity_factor,
-                                  token_mask=token_mask)
+                                  token_mask=token_mask, routing=routing,
+                                  slot_weights=slot_weights,
+                                  slot_ids=slot_ids)
             aux.update(moe_aux)
         else:
             y2 = apply_ffn(p.ffn, h2, self.cfg.act)
@@ -185,6 +189,22 @@ class Model(nn.Module):
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         return x, positions
+
+    def _embed_token(self, token):
+        """(B,) decode tokens -> (B, 1, d) embeddings."""
+        x = self.embed[token][:, None]
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+        return x
+
+    @staticmethod
+    def _store_kv(bc, kv, rows=slice(None)):
+        """Write a prefill's full-sequence (k, v) into cache rows ``rows``
+        (the last ``cache_len`` positions when the prompt is longer)."""
+        for key, full in zip(("k", "v"), kv):
+            S = full.shape[1]
+            n = min(S, bc[key].shape[1])
+            bc[key][rows, :n] = full[:, S - n:].to(bc[key].dtype)
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -246,8 +266,10 @@ class Model(nn.Module):
         x = x + y
         return x, p.norm2(x), bc
 
-    def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2):
-        """FFN half of one-token decode. Returns (x_out, counts or None)."""
+    def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
+                           routing=None, slot_weights=None, slot_ids=None):
+        """FFN half of one-token decode. Returns (x_out, counts or None).
+        ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
         cfg = self.cfg
         counts = None
         if desc.is_moe:
@@ -255,7 +277,9 @@ class Model(nn.Module):
             # never displace an active one's
             cf = (cfg.decode_capacity_factor
                   or cfg.moe.n_experts / cfg.moe.top_k)
-            y2, aux = moe_ffn(p.moe, cfg, h2, capacity_factor=cf)
+            y2, aux = moe_ffn(p.moe, cfg, h2, capacity_factor=cf,
+                              routing=routing, slot_weights=slot_weights,
+                              slot_ids=slot_ids)
             counts = aux["counts"]
         else:
             y2 = apply_ffn(p.ffn, h2, cfg.act)
@@ -285,9 +309,7 @@ class Model(nn.Module):
             x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
                                                 capacity_factor=2.0,
                                                 token_mask=token_mask)
-            for key, full in zip(("k", "v"), aux["kv"]):
-                n = min(S, bc[key].shape[1])
-                bc[key][:, :n] = full[:, S - n:].to(bc[key].dtype)
+            self._store_kv(bc, aux["kv"])
             if "counts" in aux_ffn:
                 counts.append(aux_ffn["counts"])
         if true_len is None:
@@ -310,9 +332,7 @@ class Model(nn.Module):
         position and counts stay untouched. Returns (logits (B,V), cache,
         aux)."""
         pos = cache["pos"]
-        x = self.embed[token][:, None]
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+        x = self._embed_token(token)
         counts = []
         for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
             x_mid, h2, bc = self._decode_block_pre(p, desc, bc, x, pos,

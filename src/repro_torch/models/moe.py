@@ -5,8 +5,9 @@ stable argsort of the (token, expert) assignments by expert, capacity
 clipping, a scatter of token indices into ``(E*C)`` slots whose
 over-capacity entries land in one extra row that is sliced off (the
 reference's ``mode="drop"``), a gather into ``(E, C, d)`` blocks, the
-grouped expert FFN (the hand-written kernel on CUDA), and a gate-weighted
-``index_add_`` back to tokens. Pad tokens route to the sentinel expert
+grouped expert FFN (the hand-written kernel on CUDA; over the device slot
+cache's buffers on the streaming path), and a gate-weighted ``index_add_``
+back to tokens. Pad tokens route to the sentinel expert
 ``E``. The per-sequence counts (the paper's EAM rows) equal the reference's
 exactly: they feed the shared numpy host policy.
 """
@@ -72,14 +73,30 @@ def route(p, m: MoEConfig, xf):
     return gates, idx, probs
 
 
+def slot_out_dtype(x_dtype, slot_weights):
+    """The expert output dtype of the reference's slot path: its gather
+    widens fp16/int8 wires to fp32 weights (a master-dtype wire stays as
+    it is), and the grouped einsum promotes x against them, so bf16 x over
+    a narrow wire stays fp32 until after the combine."""
+    w = slot_weights["w_up"]
+    narrow = "w_up_scale" in slot_weights or w.dtype == torch.float16
+    return torch.promote_types(x_dtype, torch.float32 if narrow else w.dtype)
+
+
 def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
-            token_mask=None):
+            token_mask=None, routing=None, slot_weights=None, slot_ids=None):
     """Apply the routed MoE to x (B, S, d).
 
     Returns (y, aux) with aux = {"counts": (B, E) int32 per-sequence expert
     activation counts, "aux_loss": load-balance loss}. ``token_mask``:
     optional (B, S) bool validity mask; masked tokens take no expert
-    capacity and add nothing to ``counts``."""
+    capacity and add nothing to ``counts``. ``routing``: optional
+    precomputed (gates (T,k), idx (T,k)) from :func:`route` over the
+    flattened tokens (the slot runtime routes first so that the host can
+    upload the routed experts before the expert FFN runs); ``aux_loss`` is
+    0 then. ``slot_weights``/``slot_ids``: the expert weights are the
+    device slot cache's buffers and (E,) int32 expert -> slot table
+    (``ops.moe_expert_ffn_slots``) instead of ``p``'s."""
     if cfg.moe_dispatch == "grouped" and x.shape[0] > 1:
         raise NotImplementedError("grouped MoE dispatch is not ported yet")
     m = cfg.moe
@@ -87,7 +104,10 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     T = B * S
     dev = x.device
     xf = x.reshape(T, d)
-    gates, idx, probs = route(p, m, xf)            # (T,k) (T,k) (T,E)
+    if routing is None:
+        gates, idx, probs = route(p, m, xf)        # (T,k) (T,k) (T,E)
+    else:
+        (gates, idx), probs = routing, None
     C = capacity(T, m, capacity_factor)
     E, k = m.n_experts, m.top_k
 
@@ -120,8 +140,13 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     x_pad = torch.cat([xf, xf.new_zeros(1, d)], dim=0)
     xg = x_pad[slot_token].reshape(E, C, d)
 
-    yg = ops.moe_expert_ffn(xg, getattr(p, "w_gate", None), p.w_up,
-                            p.w_down, act=cfg.act)
+    if slot_weights is None:
+        yg = ops.moe_expert_ffn(xg, getattr(p, "w_gate", None), p.w_up,
+                                p.w_down, act=cfg.act)
+    else:
+        yg = ops.moe_expert_ffn_slots(
+            xg, slot_weights, slot_ids, act=cfg.act,
+            out_dtype=slot_out_dtype(x.dtype, slot_weights))
     yg = yg.reshape(E * C, d)
 
     gate_flat = gates.reshape(T * k)[order]
@@ -141,7 +166,10 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
         one_hot = one_hot * token_mask.to(torch.int32) \
             .repeat_interleave(k, dim=1)[..., None]
     counts = one_hot.sum(dim=1, dtype=torch.int32)            # (B, E)
-    frac_tokens = counts.sum(dim=0).float() / (T * k)
-    frac_probs = probs.mean(dim=0)
-    aux_loss = m.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
+    if probs is None:
+        aux_loss = torch.zeros((), device=dev)
+    else:
+        frac_tokens = counts.sum(dim=0).float() / (T * k)
+        frac_probs = probs.mean(dim=0)
+        aux_loss = m.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
     return y, {"counts": counts, "aux_loss": aux_loss}

@@ -4,11 +4,12 @@ model.
 ``EngineConfig`` and ``StepEngine`` are verbatim copies of the reference
 (``repro.serving.engine``): the iteration-level step loop, admission,
 offload-engine bookkeeping and the virtual clock are shared numpy policy.
-``TorchModelServer`` is the port of ``JaxModelServer``'s fused path (every
-expert resident, ``--resident-fraction 1.0``): a fixed pool of decode
-slots, each joining request prefilled at B=1 into a power-of-two bucket and
-written into a free slot, and one pooled ``serve_step`` per iteration with
-greedy argmax. Latency accounting (compute + expert stalls) is the shared
+``TorchModelServer`` is the port of ``JaxModelServer``: a fixed pool of
+decode slots, each joining request prefilled at B=1 into a power-of-two
+bucket and written into a free slot, and one pooled decode step per
+iteration with greedy argmax; either the fused ``serve_step`` (every expert
+resident) or, with device weight slots, the layered walk of
+``serving.slot_runtime`` that streams experts through the slot cache. Latency accounting (compute + expert stalls) is the shared
 ``MemSim`` virtual clock, not a measurement of the device.
 """
 from __future__ import annotations
@@ -350,11 +351,13 @@ class TorchModelServer(StepEngine):
     neighbours: every per-row computation of the decode step is independent
     of the other rows under the default dropless decode capacity.
 
-    Eager PyTorch traces nothing, so ``compile_counts`` stays empty. On
-    CUDA, ``decode_ms`` records each pooled decode step's time between
-    CUDA events. Streaming expert weights through a device slot cache
-    (``resident_fraction < 1``, ``n_weight_slots``, ``n_devices > 1``) is
-    not ported yet.
+    With ``resident_fraction < 1`` or ``n_weight_slots`` the experts live
+    in a host store and stream through ``n_weight_slots`` device slots
+    (``slot_runtime``): constructing the server then moves ``model``'s
+    experts to the host. Expert parallelism (``n_devices > 1``) is not
+    ported. Eager PyTorch traces nothing, so ``compile_counts`` stays
+    empty. On CUDA, ``decode_ms`` records each pooled decode step's time
+    between CUDA events.
     """
 
     def __init__(self, cfg: EngineConfig, model, *,
@@ -365,15 +368,11 @@ class TorchModelServer(StepEngine):
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, server on "
                              f"{self.device}")
-        # the reference's JaxModelServer._resolve_weight_slots would give
-        # this config device weight slots
-        if cfg.arch.moe is not None and (
-                cfg.n_weight_slots is not None or cfg.resident_fraction < 1.0
-                or cfg.n_devices > 1):
+        if cfg.n_devices > 1:
             raise NotImplementedError(
-                "expert weight streaming (resident fraction < 1, explicit "
-                "weight slots, or more than one device) belongs to the "
-                "port's next slice: the device slot cache and slot runtime")
+                "expert-parallel serving (n_devices > 1) is not ported yet: "
+                "it needs a ShardedSlotRuntime (ROADMAP A10)")
+        cfg, n_weight_slots = self._resolve_weight_slots(cfg)
         super().__init__(cfg, eamc=eamc)
         self.model = model
         self.n_slots = n_slots or cfg.scheduler.max_batch
@@ -394,6 +393,47 @@ class TorchModelServer(StepEngine):
             cold_cost_fn=self._predicted_cold_cost,
             stall_budget=self._stall_budget(),
             stall_budgets=self._tenant_stall_budgets())
+        # device expert slot cache: real weight streaming through the
+        # layered runtime; None = the all-resident fused step
+        self.slot_runtime = None
+        if n_weight_slots is not None:
+            from repro_torch.serving.slot_runtime import SlotStreamRuntime
+            self.slot_runtime = SlotStreamRuntime(
+                model, n_pool_slots=self.n_slots,
+                n_weight_slots=n_weight_slots,
+                victim_fn=self.offload.gpu_cache.policy.victim,
+                transfer_dtype=cfg.transfer_dtype,
+                fenced=cfg.fenced_uploads)
+            # sim<->real crosswalk: the simulator charges exactly the bytes
+            # the host store ships per expert
+            self.offload.sim.expert_bytes = \
+                self.slot_runtime.store.wire_expert_bytes
+
+    @staticmethod
+    def _resolve_weight_slots(cfg: EngineConfig):
+        """Resolve ``resident_fraction``/``n_weight_slots`` into a concrete
+        slot count (or None = all-resident) and force the simulator's GPU
+        cache to the same capacity: device slots and the simulated GPU
+        cache are one physical resource. Floor: one layer's worst-case
+        routed set (E experts), the minimum the layered walk needs resident
+        at use time."""
+        arch = cfg.arch
+        if arch.moe is None:
+            return cfg, None
+        n_moe = sum(arch.is_moe_layer(i) for i in range(arch.n_layers))
+        total = n_moe * arch.moe.n_experts
+        from dataclasses import replace
+        if cfg.n_weight_slots is None and cfg.resident_fraction >= 1.0:
+            if cfg.n_devices <= 1:
+                return cfg, None
+            # expert parallelism always runs the sharded layered walk:
+            # all-resident just means every expert has a home slot
+            return (replace(cfg, n_weight_slots=total,
+                            gpu_cache_experts=total), total)
+        n = (cfg.n_weight_slots if cfg.n_weight_slots is not None
+             else int(round(cfg.resident_fraction * total)))
+        n = min(total, max(n, min(total, arch.moe.n_experts)))
+        return replace(cfg, n_weight_slots=n, gpu_cache_experts=n), n
 
     def _scheduler_cfg(self) -> SchedulerConfig:
         from dataclasses import replace
@@ -414,7 +454,12 @@ class TorchModelServer(StepEngine):
                 or need_len > self.cache_len:
             self.cache_len = _pow2_bucket(max(need_len, self.cache_len or 0),
                                           lo=32)
-        self._cache = self.model.init_cache(self.n_slots, self.cache_len)
+        if self.slot_runtime is not None:
+            # the layered runtime owns its own pooled decode cache
+            self.slot_runtime.build_pool(self.cache_len)
+            self._cache = "slot-runtime-pool"
+        else:
+            self._cache = self.model.init_cache(self.n_slots, self.cache_len)
         self._tok = np.zeros(self.n_slots, np.int32)
         self._free = list(range(self.n_slots))
 
@@ -428,6 +473,9 @@ class TorchModelServer(StepEngine):
     def _prefill(self, padded: np.ndarray, S: int, slot: int):
         """B=1 padded prefill written into pool row ``slot``.
         -> (first token, (n_moe, E) counts)."""
+        self.n_prefills += 1
+        if self.slot_runtime is not None:
+            return self.slot_runtime.prefill(padded, S, slot)
         dev = self.device
         one = self.model.init_cache(1, self.cache_len)
         toks = torch.from_numpy(padded[None]).to(dev, torch.long)
@@ -435,7 +483,6 @@ class TorchModelServer(StepEngine):
         logits, one, aux = self.model.prefill({"tokens": toks}, one,
                                               true_len=true_len)
         self.model.write_slot(self._cache, one, slot)
-        self.n_prefills += 1
         return (int(torch.argmax(logits[0])),
                 aux["counts"][:, 0, :].cpu().numpy())
 
@@ -448,12 +495,15 @@ class TorchModelServer(StepEngine):
         if timed:
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0.record()
-        tok = torch.from_numpy(self._tok).to(dev, torch.long)
-        act = torch.from_numpy(active).to(dev)
-        logits, self._cache, aux = self.model.serve_step(self._cache, tok,
-                                                         active=act)
-        tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
-        counts = aux["counts"].cpu().numpy()
+        if self.slot_runtime is not None:
+            tok_new, counts = self.slot_runtime.decode(self._tok, active)
+        else:
+            tok = torch.from_numpy(self._tok).to(dev, torch.long)
+            act = torch.from_numpy(active).to(dev)
+            logits, self._cache, aux = self.model.serve_step(
+                self._cache, tok, active=act)
+            tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
+            counts = aux["counts"].cpu().numpy()
         if timed:
             t1.record()
             t1.synchronize()
@@ -464,6 +514,11 @@ class TorchModelServer(StepEngine):
     # -- routing: prefill joiners into free slots, one pool decode step -------
     def _route_iteration(self, reqs: List[Request], tokens: List[int]
                          ) -> np.ndarray:
+        if self.slot_runtime is not None:
+            # iteration boundary: the offload engine's admit/evict/prefetch
+            # verdicts of the previous iteration become real async uploads
+            self.slot_runtime.sync_residency(
+                set(self.offload.gpu_cache.resident))
         cols: Dict[int, np.ndarray] = {}
         for r in reqs:
             if r.state != PREFILL:
@@ -501,6 +556,23 @@ class TorchModelServer(StepEngine):
         if slot is not None:
             self._free.append(slot)
         r.slot = -1
+
+    # -- metrics --------------------------------------------------------------
+    def stats(self) -> dict:
+        """Adds the measured slot-cache counters (expert-granularity hits
+        and misses, real upload traffic, wall-clock demand stall) next to
+        the simulator's modeled ones."""
+        s = super().stats()
+        if self.slot_runtime is not None:
+            rs = self.slot_runtime.slot_cache.stats()
+            s.update(rs)
+            s["sim_expert_bytes"] = self.offload.sim.expert_bytes
+            tot = rs["slot_hits"] + rs["slot_misses"]
+            s["slot_hit_ratio"] = rs["slot_hits"] / tot if tot else 1.0
+            toks = max(1, self.prefill_tokens + self.decode_tokens)
+            s["demand_uploads_per_token"] = rs["demand_uploads"] / toks
+            s["demand_stall_per_token_s"] = rs["demand_stall_s"] / toks
+        return s
 
     # -- request-loop API -----------------------------------------------------
     def submit(self, request: Request) -> None:

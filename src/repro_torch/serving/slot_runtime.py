@@ -1,0 +1,217 @@
+"""Layered streaming execution for model-mode serving with the expert slot
+cache (port of ``repro.serving.slot_runtime.SlotStreamRuntime``).
+
+The fused slot-pool step needs every expert the iteration might touch on
+the device before it starts, which cannot be known: layer ``l``'s router
+runs on what layer ``l-1`` produced. This runtime walks the stack one layer
+at a time with the block split at the MoE boundary:
+
+    pre   norm -> attention decode (or prefill) -> norm -> router top-k
+    host  read the routed expert ids (the one declared device->host sync
+          of a layer: it waits on the compute stream only) and ``ensure``
+          them in the slot cache (misses = timed demand uploads, victims =
+          the engine's Algorithm-2 verdict)
+    post  capacity dispatch over the slot buffers
+          (``moe_ffn(routing=..., slot_weights=..., slot_ids=...)``)
+
+so only one layer's routed experts must be resident at use time (the
+capacity floor is ``E``, not ``L*E``).
+
+Double-buffered schedule (default): ``sync_residency`` applies the
+engine's evictions, stages the first MoE layer's uploads and files the
+rest in a per-layer plan; the walk stages layer ``li+1``'s planned uploads
+right after enqueueing layer ``li``'s ``post``, so their host->device
+copies on the copy stream run while ``post`` computes. ``commit`` lands
+staged rows in the slot buffers on the compute stream right before the
+next ``post``. ``fenced=True`` stages everything at the boundary and waits
+for the copy stream on every demand miss.
+
+PyTorch runs eagerly, so there is nothing to trace and ``compile_counts``
+stays empty. On the CPU the same walk runs the kernels' plain versions and
+the numbers equal the fused path's bit for bit at the fp32 wire.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
+from repro_torch.models.moe import route
+
+
+class SlotStreamRuntime:
+    """Per-layer prefill/decode over a pooled decode cache, streaming
+    expert weights through an :class:`ExpertSlotCache`. Constructing it
+    moves ``model``'s experts into the host store."""
+
+    def __init__(self, model, *, n_pool_slots: int, n_weight_slots: int,
+                 victim_fn=None, transfer_dtype: str = "fp32",
+                 fenced: bool = False):
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.store = HostExpertStore(model, transfer_dtype=transfer_dtype)
+        self.slot_cache = ExpertSlotCache(self.store, n_weight_slots,
+                                          fenced=fenced)
+        self.fenced = bool(fenced)
+        self._upload_plan: Dict[int, List] = {}
+        self.victim_fn = victim_fn
+        self.n_pool_slots = n_pool_slots
+        self.cache_len: Optional[int] = None
+        self.pos = np.zeros(n_pool_slots, np.int32)
+        self.layer_caches: List = []
+        self._moe_li = {idx: li for li, idx in enumerate(model.moe_layers)}
+        # per-layer host rows of the slot table, page-locked on a GPU so
+        # the upload of a row never blocks the host
+        self._rows = torch.zeros(
+            (len(model.moe_layers), self.store.n_experts), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+
+    # -- pool lifecycle ------------------------------------------------------
+    def build_pool(self, cache_len: int) -> None:
+        """(Re)build the pooled per-layer decode caches."""
+        self.cache_len = cache_len
+        self.layer_caches = self.model.init_cache(self.n_pool_slots,
+                                                  cache_len)["layers"]
+        self.pos = np.zeros(self.n_pool_slots, np.int32)
+
+    def sync_residency(self, target_keys) -> int:
+        """Iteration-boundary reconciliation: the OffloadEngine's GPU-cache
+        verdicts become real async uploads and slot releases.
+
+        Double-buffered mode: evictions apply now, the first MoE layer's
+        uploads are staged now, and the remaining uploads are planned per
+        layer (:meth:`_stage_plan`). Fenced mode stages everything now."""
+        if self.fenced:
+            return self.slot_cache.sync(target_keys)
+        sc = self.slot_cache
+        target = set(target_keys)
+        for key in sc.resident:
+            if key not in target:
+                sc.evict(key)
+        plan: Dict[int, List] = {}
+        for key in sorted(target):
+            if key not in sc:
+                plan.setdefault(key[0], []).append(key)
+        self._upload_plan = plan
+        return self._stage_plan(0)
+
+    def _stage_plan(self, li: int) -> int:
+        """Stage the planned prefetch-class uploads for MoE layer ``li``
+        (issued while the previous layer's ``post`` computes)."""
+        keys = self._upload_plan.pop(li, None)
+        if not keys:
+            return 0
+        return self.slot_cache.prefetch(keys)
+
+    def flush_pending(self) -> None:
+        """Stage any still-planned uploads and commit the staging set:
+        residency then exactly matches the last sync's verdicts."""
+        for li in sorted(self._upload_plan):
+            self.slot_cache.prefetch(self._upload_plan[li])
+        self._upload_plan.clear()
+        self.slot_cache.commit()
+
+    # -- per-layer pieces ----------------------------------------------------
+    def _is_moe(self, i: int) -> bool:
+        return i in self._moe_li
+
+    def _ensure(self, li: int, expert_ids) -> None:
+        self.slot_cache.ensure([(li, int(e)) for e in expert_ids],
+                               self.victim_fn)
+
+    def _route(self, p, h2):
+        B, S, d = h2.shape
+        gates, idx, _ = route(p.moe, self.cfg.moe, h2.reshape(B * S, d))
+        return gates, idx
+
+    def _slot_args(self, li: int):
+        """The slot table row of MoE layer ``li`` on the device and the
+        committed slot buffers (staged uploads land now, after everything
+        already enqueued that reads the old contents)."""
+        self._rows[li] = torch.from_numpy(self.slot_cache.table_row(li))
+        row = self._rows[li].to(self.device, non_blocking=True)
+        return self.slot_cache.commit(), row
+
+    # -- decode --------------------------------------------------------------
+    @torch.inference_mode()
+    def decode(self, tok_np: np.ndarray, active_np: np.ndarray):
+        """One pooled decode step. Returns (new tokens (B,) np, counts
+        (n_moe, B, E) np, inactive rows zeroed as in the fused step)."""
+        model, dev = self.model, self.device
+        tok = torch.from_numpy(np.asarray(tok_np)).to(dev, torch.long)
+        pos = torch.from_numpy(self.pos).to(dev)
+        active = torch.from_numpy(np.asarray(active_np, bool)).to(dev)
+        rows = np.asarray(active_np, bool)
+        x = model._embed_token(tok)
+        counts_rows = []
+        for i, (p, desc) in enumerate(zip(model.layers, model.descs)):
+            bc = self.layer_caches[i]
+            x_mid, h2, bc = model._decode_block_pre(p, desc, bc, x, pos,
+                                                    active=active)
+            if not self._is_moe(i):
+                x, _ = model._decode_block_post(p, desc, x_mid, h2)
+                continue
+            li = self._moe_li[i]
+            gates, idx = self._route(p, h2)
+            idx_np = idx.cpu().numpy()                 # (B*1, k): sync point
+            used = (np.unique(idx_np[rows]) if rows.any()
+                    else np.empty(0, np.int64))
+            self._ensure(li, used)
+            bufs, row = self._slot_args(li)
+            x, cnts = model._decode_block_post(
+                p, desc, x_mid, h2, routing=(gates, idx), slot_weights=bufs,
+                slot_ids=row)
+            # double-buffered overlap: issue the next MoE layer's planned
+            # uploads while this post computes
+            self._stage_plan(li + 1)
+            counts_rows.append(cnts * active.to(cnts.dtype)[:, None])
+        logits = model._logits(model.final_norm(x))[:, 0]
+        tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.pos = self.pos + rows.astype(np.int32)
+        return tok_new, torch.stack(counts_rows).cpu().numpy()
+
+    # -- prefill -------------------------------------------------------------
+    @torch.inference_mode()
+    def prefill(self, padded_prompt: np.ndarray, true_len: int, slot: int):
+        """Stream one right-padded B=1 prompt through the stack and land
+        its per-layer caches in pool row ``slot``. Returns (first generated
+        token, counts (n_moe, E) np, pad tokens excluded)."""
+        model, dev = self.model, self.device
+        P = len(padded_prompt)
+        toks = torch.from_numpy(
+            np.asarray(padded_prompt, np.int64)[None]).to(dev)
+        tl = torch.tensor([true_len], dtype=torch.int32, device=dev)
+        token_mask = torch.arange(P, device=dev)[None, :] < tl[:, None]
+        x, positions = model._embed(toks)
+        counts_rows = []
+        for i, (p, desc) in enumerate(zip(model.layers, model.descs)):
+            x_mid, h2, aux = model._apply_block_pre(p, desc, x, positions)
+            bc = self.layer_caches[i]
+            for key in bc:
+                bc[key][slot].zero_()
+            model._store_kv(bc, aux["kv"], rows=slice(slot, slot + 1))
+            if not self._is_moe(i):
+                x, _ = model._apply_block_post(p, desc, x_mid, h2,
+                                               capacity_factor=2.0,
+                                               token_mask=token_mask)
+                continue
+            li = self._moe_li[i]
+            gates, idx = self._route(p, h2)
+            idx_np = idx.cpu().numpy()[:true_len]      # real tokens only
+            self._ensure(li, np.unique(idx_np))
+            bufs, row = self._slot_args(li)
+            x, aux2 = model._apply_block_post(
+                p, desc, x_mid, h2, capacity_factor=2.0,
+                token_mask=token_mask, routing=(gates, idx),
+                slot_weights=bufs, slot_ids=row)
+            self._stage_plan(li + 1)
+            counts_rows.append(aux2["counts"][0])
+        last = (tl.long() - 1)[:, None, None].expand(1, 1, x.shape[-1])
+        x_last = torch.gather(x, 1, last)
+        logits = model._logits(model.final_norm(x_last))[:, 0]
+        tok0 = int(torch.argmax(logits[0]))
+        self.pos[slot] = true_len
+        return tok0, torch.stack(counts_rows).cpu().numpy()

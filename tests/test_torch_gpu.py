@@ -5,11 +5,15 @@ runs:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
 from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import moe_ffn as moe_mod
 from repro_torch.kernels import ref
@@ -127,3 +131,119 @@ def test_model_and_server_on_card_match_cpu(cuda):
     np.testing.assert_array_equal(g_out, c_out)
     assert g_stats["demand_fetches"] == c_stats["demand_fetches"]
     assert len(g_srv.decode_ms) == g_srv.n_decode_steps > 0
+
+
+def _wire(rng, n, shape, wire, dev):
+    """(n, *shape) fp16 or int8 weights and (n, shape[-1]) fp32 scales
+    (None for fp16)."""
+    w = rng.standard_normal((n,) + shape, np.float32) * shape[0] ** -0.5
+    if wire == "fp16":
+        return torch.from_numpy(w).to(dev, torch.float16), None
+    q = rng.integers(-127, 128, (n,) + shape).astype(np.int8)
+    s = np.abs(w).max(axis=1) / 127.0
+    return torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_moe_ffn_quant_kernel_matches_plain(cuda, wire, dtype, act, out):
+    """B2 over slot buffers, with a permuted slot table in which one
+    expert is clamped to slot 0, on ragged shapes."""
+    rng = np.random.default_rng(6)
+    E, C, d, f, n = 3, 13, 520, 700, 4
+    xg = _rand(rng, (E, C, d), 1.0, dtype, cuda)
+    wg, sg = (_wire(rng, n, (d, f), wire, cuda) if act == "swiglu"
+              else (None, None))
+    wu, su = _wire(rng, n, (d, f), wire, cuda)
+    wd, sd = _wire(rng, n, (f, d), wire, cuda)
+    slots = torch.tensor([3, 0, 0], dtype=torch.int32, device=cuda)
+    before = moe_mod.quant_launches
+    y = moe_mod.moe_ffn_quant(xg, wg, wu, wd, sg, su, sd, slots, act=act,
+                              out_dtype=DTYPES[out])
+    assert moe_mod.quant_launches == before + 1
+    assert y.dtype == DTYPES[out]
+    want = ref.moe_ffn_quant_ref(xg, wg, wu, wd, sg, su, sd, slots, act=act,
+                                 out_dtype=DTYPES[out])
+    # x, the dequantized weights and h are fp32 on both sides: only the
+    # summation order differs, unless the output is rounded to bf16
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol(out))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_kernel_with_slot_ids_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(7)
+    E, C, d, f, n = 3, 13, 520, 700, 5
+    xg = _rand(rng, (E, C, d), 1.0, dtype, cuda)
+    wg, wu = (_rand(rng, (n, d, f), d ** -0.5, dtype, cuda) for _ in "gu")
+    wd = _rand(rng, (n, f, d), f ** -0.5, dtype, cuda)
+    slots = torch.tensor([4, 1, 0], dtype=torch.int32, device=cuda)
+    y = moe_mod.moe_ffn(xg, wg, wu, wd, act="swiglu", slot_ids=slots)
+    idx = slots.long()
+    np.testing.assert_allclose(_f32(y), _f32(ref.moe_ffn_ref(
+        xg, wg[idx], wu[idx], wd[idx], act="swiglu")), **_tol(dtype))
+
+
+def test_inflight_kernel_never_reads_a_committed_overwrite(cuda):
+    """No alias on the card, at the full expert shape: a B2 launch over
+    slot s is enqueued, then s is evicted, re-staged with another expert on
+    the copy stream and committed. The first launch computes with the old
+    weights; a launch after the commit sees the new ones."""
+    full = get_config("qwen3-moe-235b-a22b")
+    model = Model(dataclasses.replace(full, n_layers=1), device=cuda).init(0)
+    store = HostExpertStore(model, transfer_dtype="int8")
+    assert not hasattr(model.layers[0].moe, "w_up")
+    cache = ExpertSlotCache(store, n_slots=2)
+    cache.prefetch([(0, 0), (0, 1)])
+    bufs = cache.commit()
+    s = int(cache.slot_of[0, 0])
+    E, d = full.moe.n_experts, full.d_model
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xg = torch.randn((E, 8, d), generator=gen, device=cuda).to(torch.bfloat16)
+    slots = torch.full((E,), s, dtype=torch.int32, device=cuda)
+
+    def run(b):
+        return moe_mod.moe_ffn_quant(
+            xg, b["w_gate"], b["w_up"], b["w_down"], b["w_gate_scale"],
+            b["w_up_scale"], b["w_down_scale"], slots, act=full.act,
+            out_dtype=torch.float32)
+    old = {k: v.clone() for k, v in bufs.items()}
+    y_old = run(bufs)                         # enqueued, maybe in flight
+    cache.evict((0, 0))
+    cache.prefetch([(0, 2)])
+    assert int(cache.slot_of[0, 2]) == s      # the freed slot is reused
+    y_new = run(cache.commit())
+    torch.cuda.synchronize()
+    want_old = run(old)
+    new = {k: v.clone() for k, v in cache.bufs.items()}
+    img = store.wire_expert(0, 2)
+    for k, v in img.items():
+        assert torch.equal(new[k][s].cpu(), v)
+    assert torch.equal(y_old, want_old)
+    assert torch.equal(y_new, run(new))
+    assert not torch.equal(y_old, y_new)
+
+
+@pytest.mark.parametrize("wire", ["fp32", "fp16", "int8"])
+def test_streaming_server_on_card_matches_cpu(cuda, wire):
+    """rf=0.5 through the slot runtime on the card (B1 or B2 over slot
+    buffers, real uploads on the copy stream) against the same weights on
+    the CPU: equal tokens and slot counters."""
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    gpu = Model(cfg, device=cuda).init(3)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (3, 9))
+
+    def serve(model, device):
+        srv = TorchModelServer(
+            EngineConfig(arch=cfg, gpu_cache_experts=3, dram_cache_experts=6,
+                         resident_fraction=0.5, transfer_dtype=wire),
+            copy.deepcopy(model), cache_len=32, device=device)
+        return srv.generate(prompts.astype(np.int32), 6)
+    g_out, g_stats = serve(gpu, cuda)
+    c_out, c_stats = serve(cpu, "cpu")
+    np.testing.assert_array_equal(g_out, c_out)
+    assert g_stats["demand_uploads"] == c_stats["demand_uploads"] > 0
+    assert g_stats["upload_bytes"] == c_stats["upload_bytes"]

@@ -110,6 +110,22 @@ def test_engine_step_loop_is_the_reference_copy():
         assert port[name] == ref[name], name
 
 
+def test_resolve_weight_slots_is_the_reference_copy():
+    """The slot-count rule (fraction, explicit count, one-layer floor) is
+    ``JaxModelServer._resolve_weight_slots``'s code."""
+    def method(text, cls):
+        tree = _code(text)
+        klass = next(n for n in tree.body
+                     if isinstance(n, ast.ClassDef) and n.name == cls)
+        return next(ast.dump(n) for n in klass.body
+                    if isinstance(n, ast.FunctionDef)
+                    and n.name == "_resolve_weight_slots")
+    assert method((PORT / "serving/engine.py").read_text(),
+                  "TorchModelServer") == \
+        method((SRC / "repro/serving/engine.py").read_text(),
+               "JaxModelServer")
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("qwen3-moe-235b-a22b").reduced()

@@ -109,12 +109,3 @@ def test_launcher_report_lines_match_reference(models):
     assert len(want) == 3 + 4
     assert got == want
 
-
-def test_server_refuses_weight_streaming(models):
-    """Streaming expert weights through a device slot cache is the next
-    slice: the server says so instead of serving all-resident."""
-    _, _, tm = models
-    ec = TorchEngineConfig(arch=tm.cfg, gpu_cache_experts=3,
-                           dram_cache_experts=6, resident_fraction=0.5)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TorchModelServer(ec, tm, device="cpu")
