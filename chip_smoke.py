@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
      the plain version, a library call (a yardstick only) and the bound:
      3a moe_ffn (B1, also through a permuted slot table), 3b flash_decode
-     (B3), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers);
+     (B3), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers), 3d wkv6 (B4,
+     the RWKV6 recurrence at the decode, prefill and ragged shapes);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -26,7 +27,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   5b the streaming server on the card (reduced, fp32): a slot for every
      expert gives the fused server's tokens; rf 0.5 over each wire, overlap
      and fenced, gives the CPU port's tokens;
-  6. one JSON line of per-kernel numbers, then the result line.
+  6. rwkv6-7b at full width and all 32 layers (bf16) through the model's
+     serving entry points: 4 prompts of 16-512 tokens prefilled at B=1 and
+     written into a pool of 4, then pooled decode steps under an ``active``
+     mask that retires rows at different budgets; check finite logits,
+     frozen inactive rows and B4's launch count; time each prefill and
+     decode step with CUDA events and the host's enqueue time of each step, and
+     profile one more step (device busy time, kernels, aten ops);
+  6b the same port on the card against the CPU (reduced rwkv6-7b, fp32):
+     equal greedy tokens, logits within fp32 limits;
+  7. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -45,6 +55,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
+SLEEP_CYCLES = 50_000_000                     # ~25 ms at the H100's clocks
 
 # tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|):
 #  fp32 -- both sides accumulate in fp32, in different orders over
@@ -54,6 +65,9 @@ MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
 #          rounded to bf16 (ulp 2^-8 relative), so an fp32-order difference
 #          can flip one rounding step; 5e-2 as in the CPU kernel tests.
 TOL = {"torch.float32": (2e-5, 1e-4), "torch.bfloat16": (5e-2, 5e-2)}
+# B4's fp32 limit: tests/test_kernels.py's wkv6 test (sums over K = hd
+# terms in another order, carried through T steps of the state)
+WKV_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (5e-2, 5e-2)}
 
 
 def sh(cmd):
@@ -61,24 +75,53 @@ def sh(cmd):
                           text=True).stdout.strip()
 
 
-def time_ms(fn, iters):
-    """Mean ms per call between CUDA events, after two warm-up calls."""
+def time_ms(fn, iters, ahead=True):
+    """Mean ms per call between CUDA events, after two warm-up calls.
+
+    ahead=True (kernels and library calls): a device sleep queued first lets
+    the host enqueue every timed call before the card reaches them, so a
+    kernel shorter than its wrapper's host cost is timed on the device, not
+    at the host's issue rate. The host's enqueue time is held against the
+    sleep's device time; when it outlasts the sleep the card may have waited
+    on the host, so the sleep is lengthened and the timing repeated, and
+    after three tries it raises. ahead=False (the plain versions: chains of
+    many small launches that would fill the launch queue): back-to-back
+    calls, the host's issue included."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    sleep0, start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(3))
+    if not ahead:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    cycles = SLEEP_CYCLES
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sleep0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        sleep_ms = sleep0.elapsed_time(start)
+        if enqueue_ms < sleep_ms:
+            return start.elapsed_time(end) / iters
+        cycles = int(cycles * 2 * enqueue_ms / sleep_ms)
+    raise SystemExit(f"time_ms: the host's enqueue ({enqueue_ms:.1f} ms) "
+                     f"outlasts the device sleep ({sleep_ms:.1f} ms)")
 
 
-def compare(name, got, want):
+def compare(name, got, want, tol=TOL):
     import torch
-    atol, rtol = TOL[str(want.dtype)]
+    atol, rtol = tol[str(want.dtype)]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     ok = bool(torch.all(err <= atol + rtol * w.abs())) and \
@@ -128,7 +171,8 @@ def check_moe_ffn(gen, card):
                 continue
             ms = time_ms(lambda: moe_ffn(xg, wg, wu, wd, act=act), 10)
             plain_ms = time_ms(
-                lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act), 5)
+                lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act), 5,
+                ahead=False)
 
             def library():
                 h = torch.nn.functional.silu(torch.bmm(xg, wg)) \
@@ -211,7 +255,7 @@ def check_moe_ffn_quant(gen, card):
                 ms = time_ms(lambda: moe_ffn_quant(*args, act=act,
                                                    out_dtype=out), 10)
                 plain_ms = time_ms(lambda: ref.moe_ffn_quant_ref(
-                    *args, act=act, out_dtype=out), 3)
+                    *args, act=act, out_dtype=out), 3, ahead=False)
                 idx = slots.long()
 
                 def deq(w, s):
@@ -276,7 +320,8 @@ def check_flash_decode(gen, card):
             if S != 64:
                 continue
             ms = time_ms(lambda: flash_decode(q, k, v, cl), 200)
-            plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl), 50)
+            plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl), 50,
+                               ahead=False)
             rep = H // Hkv
             kk = k.transpose(1, 2).repeat_interleave(rep, dim=1)
             vv = v.transpose(1, 2).repeat_interleave(rep, dim=1)
@@ -284,7 +329,7 @@ def check_flash_decode(gen, card):
                     )[:, None, None, :]
             qq = q[:, :, None, :]
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask), 200)
+                qq, kk, vv, attn_mask=mask), 50)
             n_valid = sum(min(n, S) for n in lens)
             esz = q.element_size()
             nbytes = esz * (2 * q.numel() + 2 * n_valid * Hkv * hd)
@@ -300,6 +345,63 @@ def check_flash_decode(gen, card):
                            replaces="src/repro/kernels/flash_decode.py:83",
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    return row
+
+
+def check_wkv6(gen, card):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+
+    print("phase 3d: wkv6 kernel vs plain (wkv6_ref)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    row, prefill = None, None
+    for BH, T, hd, dtype, w_dtype, what in [
+            (256, 1, 64, bf16, f32, "decode"),        # 4 rows x 64 heads
+            (64, 512, 64, bf16, f32, "prefill"),      # one 512-token prompt
+            (256, 1, 64, f32, f32, ""), (64, 512, 64, f32, f32, ""),
+            (3, 37, 32, f32, f32, ""), (3, 37, 32, bf16, f32, ""),
+            (3, 37, 32, bf16, bf16, "")]:
+        def rnd(shape, std, dt=f32):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        r, k, v = (rnd((BH, T, hd), 0.5, dtype) for _ in range(3))
+        w = torch.sigmoid(rnd((BH, T, hd), 1.0)).to(w_dtype)
+        u, s0 = rnd((BH, hd), 0.1), rnd((BH, hd, hd), 0.1)
+        args = (r, k, v, w, u, s0)
+        o, sN = wkv6(*args)
+        o_ref, sN_ref = ref.wkv6_ref(*args)
+        torch.cuda.synchronize()
+        name = f"BH={BH} T={T} hd={hd} r/k/v {dtype} w {w_dtype}"
+        err = compare(f"{name} o", o, o_ref, WKV_TOL)
+        compare(f"{name} sN", sN, sN_ref, WKV_TOL)
+        if not what:
+            continue
+        ms = time_ms(lambda: wkv6(*args), 200 if T == 1 else 20)
+        plain_ms = time_ms(lambda: ref.wkv6_ref(*args), 50 if T == 1 else 3,
+                           ahead=False)
+        nbytes = (sum(t.numel() * t.element_size() for t in args)
+                  + o.numel() * o.element_size() + sN.numel() * 4)
+        # per step and row: hd*hd state elements, each k*v (1), w*S + a
+        # (2) and its share of r^T S (2); the bonus (r*u*k)^T v is O(hd)
+        bound_ms, by = bound(nbytes, 5 * BH * T * hd * (hd + 1), f32)
+        print(f"  time {what} BH={BH} T={T}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library none (no single PyTorch call "
+              f"computes the recurrence), bound {bound_ms:.6f} ms ({by}) "
+              f"(L2-warm, back-to-back launches) [{card}]")
+        nums = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=None)
+        if what == "decode":
+            row = dict(name="wkv6", route="cuda",
+                       source="src/repro_torch/kernels/csrc/wkv6.cu",
+                       replaces="src/repro/kernels/wkv6.py:63", **nums,
+                       shape=f"BH={BH} T={T} hd={hd} r/k/v bf16 w fp32",
+                       library_note="no single PyTorch call computes the "
+                                    "recurrence")
+        else:
+            prefill = {f"prefill_{key}": val for key, val in nums.items()
+                       if key in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    row.update(prefill)
     return row
 
 
@@ -337,15 +439,19 @@ def _full_cfg(what):
 def _reset_counts():
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
+    from repro_torch.kernels import wkv6 as wkv_mod
     moe_mod.launches = moe_mod.quant_launches = fd_mod.launches = 0
+    wkv_mod.launches = 0
 
 
 def _counts():
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
+    from repro_torch.kernels import wkv6 as wkv_mod
     return {"moe_ffn": moe_mod.launches,
             "moe_ffn_quant": moe_mod.quant_launches,
-            "flash_decode": fd_mod.launches}
+            "flash_decode": fd_mod.launches,
+            "wkv6": wkv_mod.launches}
 
 
 def main_path(card):
@@ -376,7 +482,7 @@ def main_path(card):
     want = {"moe_ffn": n_moe * (out["n_warmup"] + srv.n_prefills
                                 + srv.n_decode_steps),
             "moe_ffn_quant": 0,
-            "flash_decode": n_layers * srv.n_decode_steps}
+            "flash_decode": n_layers * srv.n_decode_steps, "wkv6": 0}
     print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
           f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
           f"prefills + {srv.n_decode_steps} decode steps) = "
@@ -451,7 +557,7 @@ def streaming_path(card):
     _check_budgets(out, cfg)
     want = {"moe_ffn": n_moe * out["n_warmup"],
             "moe_ffn_quant": n_moe * (srv.n_prefills + srv.n_decode_steps),
-            "flash_decode": n_layers * srv.n_decode_steps}
+            "flash_decode": n_layers * srv.n_decode_steps, "wkv6": 0}
     print(f"  launches: moe_ffn_quant {launches['moe_ffn_quant']} (expected "
           f"{n_moe} MoE layers x ({srv.n_prefills} prefills + "
           f"{srv.n_decode_steps} decode steps) = {want['moe_ffn_quant']}); "
@@ -608,6 +714,197 @@ def streaming_vs_cpu():
                                  "with the CPU")
 
 
+def profile_step(fn):
+    """Run ``fn`` once under torch.profiler. -> (device busy ms: the summed
+    durations of its kernels and copies, their count, the number of
+    top-level aten ops dispatched). Zeros if the profiler sees no device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.name.startswith("aten::") and e.cpu_parent is None]
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
+            len(ops))
+
+
+RWKV_PROMPTS = (16, 100, 256, 512)     # 512 takes the two-chunk length rule
+RWKV_BUDGETS = (16, 9, 12, 4)          # decode steps each pool row is active
+
+
+def rwkv_path(card):
+    """Phase 6: full-width, full-depth rwkv6-7b through prefill, write_slot
+    and pooled serve_step, every recurrence in B4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("rwkv6-7b")
+    print(f"phase 6: {cfg.name} at full width and depth (d_model "
+          f"{cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} heads x "
+          f"{cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_layers} layers, {cfg.dtype})")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init: {n_params / 1e9:.3f}e9 params, "
+          f"{torch.cuda.memory_allocated()} B on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    B = len(RWKV_PROMPTS)
+    rng = np.random.default_rng(6)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    _reset_counts()
+    with torch.inference_mode():
+        pool = model.init_cache(B, 8)
+        tok = torch.zeros(B, dtype=torch.long, device="cuda")
+        prefill_ms = []
+        for slot, S in enumerate(RWKV_PROMPTS):
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))) \
+                .cuda()
+            start.record()
+            logits, one, _ = model.prefill({"tokens": prompt},
+                                           model.init_cache(1, 8))
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            if logits.shape != (1, cfg.vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise SystemExit(f"prefill of {S} tokens: logits not finite")
+            model.write_slot(pool, one, slot)
+            tok[slot] = logits[0].argmax()
+        steps_ms, enqueue_ms = [], []
+        for step in range(max(RWKV_BUDGETS)):
+            active = torch.tensor([step < b for b in RWKV_BUDGETS],
+                                  device="cuda")
+            before = [{k: v.clone() for k, v in layer.items()}
+                      for layer in pool["layers"]]
+            t0 = time.perf_counter()
+            start.record()
+            logits, pool, _ = model.serve_step(pool, tok, active=active)
+            end.record()
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            steps_ms.append(start.elapsed_time(end))
+            if not bool(torch.isfinite(logits).all()):
+                raise SystemExit(f"decode step {step}: logits not finite")
+            idle = ~active
+            for old, new in zip(before, pool["layers"]):
+                if not all(torch.equal(new[k][idle], old[k][idle])
+                           for k in old):
+                    raise SystemExit(f"decode step {step}: an inactive "
+                                     "row's state/tm/cm changed")
+            tok = torch.where(active, logits.argmax(-1), tok)
+        torch.cuda.synchronize()
+        launches = _counts()
+        # one more step with every row inactive (the pool is unchanged)
+        # under the profiler: what the device does in a step
+        idle_rows = torch.zeros(B, dtype=torch.bool, device="cuda")
+        busy_ms, n_kernels, n_ops = profile_step(
+            lambda: model.serve_step(pool, tok, active=idle_rows))
+    n_steps = len(steps_ms)
+    want = dict.fromkeys(launches, 0)
+    want["wkv6"] = cfg.n_layers * (B + n_steps)
+    pos = [int(p) for p in pool["pos"]]
+    print(f"  prompts {list(RWKV_PROMPTS)} prefilled at B=1 into a pool of "
+          f"{B}; {n_steps} pooled decode steps, budgets "
+          f"{list(RWKV_BUDGETS)}; positions {pos}; inactive rows unchanged")
+    print(f"  launches: wkv6 {launches['wkv6']} (expected {cfg.n_layers} "
+          f"layers x ({B} prefills + {n_steps} decode steps) = "
+          f"{want['wkv6']}); others {launches}")
+    if launches != want:
+        raise SystemExit("launch counts differ from the rwkv path's calls")
+    if pos != [S + b for S, b in zip(RWKV_PROMPTS, RWKV_BUDGETS)]:
+        raise SystemExit("pool positions differ from prompts + budgets")
+    steps = np.asarray(steps_ms)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name != "embed")
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print("  prefill (B=1, CUDA events): " + ", ".join(
+        f"{S} tokens {ms:.3f} ms" for S, ms in zip(RWKV_PROMPTS, prefill_ms))
+        + f" [{card}]")
+    print(f"  decode step (pool of {B}, CUDA events): mean {steps.mean():.3f}"
+          f" ms, median {np.median(steps):.3f} ms, min {steps.min():.3f} ms "
+          f"over {n_steps} steps; weight-read floor {floor_ms:.3f} ms "
+          f"({weight_bytes} B of weights but the embedding table, which a "
+          f"step reads {B} rows of, over 3.35 TB/s) [{card}]")
+    print(f"  host enqueue of a decode step (perf_counter around the call, "
+          f"no sync inside): median {np.median(enqueue_ms):.3f} ms; "
+          f"torch.profiler over one more step: {n_ops} top-level aten ops, "
+          f"{n_kernels} device kernels/copies, device busy {busy_ms:.3f} ms"
+          f" = {busy_ms / np.median(steps):.1%} of the median step [{card}]")
+    print(f"  card memory: peak {torch.cuda.max_memory_allocated()} B, pool "
+          f"state {sum(t.nbytes for l in pool['layers'] for t in l.values())}"
+          f" B")
+    del model, pool, before, logits, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rwkv_vs_cpu():
+    """Phase 6b: reduced rwkv6-7b in fp32 on the card (B4) against the same
+    weights on the CPU (plain version)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    print("phase 6b: rwkv port on the card vs the same weights on the CPU "
+          "(rwkv6-7b reduced, fp32)")
+    cfg = get_config("rwkv6-7b").reduced()
+    gpu = Model(cfg, device="cuda").init(5)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    worst = 0.0
+
+    def close(name, got, want):
+        nonlocal worst
+        err = (got.cpu() - want).abs()
+        worst = max(worst, float(err.max()))
+        if not bool(torch.all(err <= 1e-4 + 1e-4 * want.abs())):
+            raise SystemExit(f"{name}: card and CPU differ (max_abs_err "
+                             f"{float(err.max()):.3e})")
+    with torch.inference_mode():
+        toks = torch.randint(0, cfg.vocab, (2, 37), generator=gen)
+        close("forward logits", gpu.forward({"tokens": toks.cuda()})[0],
+              cpu.forward({"tokens": toks})[0])
+        caches = [m.init_cache(2, 8) for m in (gpu, cpu)]
+        first = torch.zeros((2, 2), dtype=torch.long)    # (model, slot)
+        for slot, S in enumerate((40, 512)):
+            prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen)
+            outs = [m.prefill({"tokens": prompt.to(m.device)},
+                              m.init_cache(1, 8)) for m in (gpu, cpu)]
+            close(f"prefill of {S} logits", outs[0][0], outs[1][0])
+            for i, (m, c, o) in enumerate(zip((gpu, cpu), caches, outs)):
+                m.write_slot(c, o[1], slot)
+                first[i, slot] = int(o[0][0].argmax())
+        if not torch.equal(first[0], first[1]):
+            raise SystemExit("prefill: greedy tokens differ")
+        tok = [first[0], first[1]]
+        for step in range(8):
+            active = torch.tensor([True, step < 5])
+            outs = [m.serve_step(c, t.to(m.device), active=active.to(m.device))
+                    for m, c, t in zip((gpu, cpu), caches, tok)]
+            close(f"decode step {step} logits", outs[0][0], outs[1][0])
+            tok = [torch.where(active.to(o[0].device), o[0].argmax(-1),
+                               t.to(o[0].device))
+                   for o, t in zip(outs, tok)]
+            if not torch.equal(tok[0].cpu(), tok[1]):
+                raise SystemExit(f"decode step {step}: greedy tokens differ")
+    print(f"  forward, prefill (40 and 512 tokens) and 8 pooled decode steps:"
+          f" greedy tokens equal, max_abs_err={worst:.3e} (atol 1e-4, rtol "
+          f"1e-4)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -636,24 +933,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_moe_ffn(gen, card), check_moe_ffn_quant(gen, card),
-            check_flash_decode(gen, card)]
-    resident = main_path(card)
-    streaming = streaming_path(card)
-    for path, counts in (("all-resident", resident),
-                         ("streaming", streaming)):
-        for name in ("flash_decode",) + (
-                ("moe_ffn",) if path == "all-resident" else
-                ("moe_ffn_quant",)):
-            if counts[name] <= 0:
-                raise SystemExit(f"{name} was not launched on the "
-                                 f"{path} path")
+            check_flash_decode(gen, card), check_wkv6(gen, card)]
+    paths = {"all_resident": main_path(card),
+             "streaming": streaming_path(card)}
     port_vs_cpu()
     streaming_vs_cpu()
+    paths["rwkv"] = rwkv_path(card)
+    rwkv_vs_cpu()
+    for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
+                        ("streaming", ("flash_decode", "moe_ffn_quant")),
+                        ("rwkv", ("wkv6",))):
+        for name in names:
+            if paths[path][name] <= 0:
+                raise SystemExit(f"{name} was not launched on the "
+                                 f"{path} path")
     for row in rows:
-        # launches over both main-path runs, and per run
-        row["launches"] = resident[row["name"]] + streaming[row["name"]]
-        row["launches_by_path"] = {"all_resident": resident[row["name"]],
-                                   "streaming": streaming[row["name"]]}
+        # launches over every main-path run, and per run
+        by_path = {path: counts[row["name"]]
+                   for path, counts in paths.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

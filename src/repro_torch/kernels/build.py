@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode")
+KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode", "wkv6")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of csrc/common.cuh
 WIRE_DTYPES = {torch.float16: 2, torch.int8: 3}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +39,8 @@ _SIGNATURES = {
     # q, k, v, lens, out, B, S, Hkv, rep, hd, scale, dtype, stream
     "flash_decode": ("flash_decode_launch",
                      [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+    # r, k, v, w, u, s0, o, sN, BH, T, hd, dtype, w_dtype, stream
+    "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -7,6 +7,7 @@ from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_quant
+from repro_torch.kernels.wkv6 import wkv6
 
 
 def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
@@ -40,3 +41,11 @@ def decode_attention(q, k, v, cache_len):
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, cache_len)
     return flash_decode(q, k, v, cache_len)
+
+
+def wkv_scan(r, k, v, w, u, s0):
+    """RWKV6 recurrence over (BH, T, hd) rows from state s0 (BH, hd, hd).
+    -> (o in r's dtype, sN fp32)."""
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
+    return wkv6(r, k, v, w, u, s0)

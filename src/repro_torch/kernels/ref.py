@@ -2,7 +2,7 @@
 oracle). Same arithmetic as ``repro.kernels.ref`` and the Pallas kernels:
 fp32 accumulation, the expert FFN's hidden activation rounded to the input
 dtype before the down-projection (kept in fp32 over dequantized wire
-weights), masked decode positions at -1e30."""
+weights), masked decode positions at -1e30, the RWKV6 state in fp32."""
 from __future__ import annotations
 
 import torch
@@ -87,3 +87,19 @@ def flash_decode_ref(q, k, v, cache_len):
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     wts = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bshd->bhd", wts, vf).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, s0):
+    """RWKV6 recurrence, a sequential fp32 loop over T. r/k/v/w: (BH, T,
+    hd); u: (BH, hd); s0: (BH, hd, hd). Per step
+    ``o_t = r_t (S + diag(u) k_t v_t^T)``, ``S = diag(w_t) S + k_t v_t^T``.
+    -> (o (BH, T, hd) in r's dtype, sN (BH, hd, hd) fp32)."""
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[..., None]                                # (BH, K, 1)
+    s = s0.float()
+    out = []
+    for t in range(r.shape[1]):
+        a = kf[:, t, :, None] * vf[:, t, None, :]            # (BH, K, V)
+        out.append(torch.einsum("bk,bkv->bv", rf[:, t], s + uf * a))
+        s = wf[:, t, :, None] * s + a
+    return torch.stack(out, 1).to(r.dtype), s

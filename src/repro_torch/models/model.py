@@ -1,7 +1,8 @@
-"""Attention + MoE decoder (the serving model), in PyTorch.
+"""Attention + MoE decoders and RWKV6 stacks (the serving model), in PyTorch.
 
 Port of ``repro.models.model.Model`` for stacks of GQA attention blocks
-with routed-MoE or dense FFNs. The reference scans periodic layer groups;
+with routed-MoE or dense FFNs, and of RWKV6 blocks (time-mix recurrence +
+channel-mix). The reference scans periodic layer groups;
 here the layers are a ``ModuleList`` walked by a Python loop.
 ``split_periodic`` is kept so that ``params.from_reference`` can unstack
 the reference's scan-group axis.
@@ -14,7 +15,7 @@ Entry points (all under ``torch.inference_mode()`` when serving)
   serve_step(cache, token, active=...) -> (logits, cache, aux)
 
 ``aux["counts"]`` is (n_moe_layers, B, E) int32: the rows of the paper's
-Expert Activation Matrix, equal to the reference's.
+Expert Activation Matrix, equal to the reference's (None without MoE).
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.config import ArchConfig, BLOCK_ATTN
+from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
 from repro_torch.models.attention import Attention, attn_decode, attn_forward
 from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
 from repro_torch.models.moe import MoE, moe_ffn
+from repro_torch.models.rwkv6 import RWKV, rwkv_channel_mix, rwkv_time_mix
 
 
 @dataclass(frozen=True)
@@ -74,8 +76,8 @@ def split_periodic(descs):
 def _unsupported(cfg: ArchConfig):
     """Why the port cannot run ``cfg`` yet, or None."""
     a = cfg.attn
-    if any(cfg.block_kind(i) != BLOCK_ATTN for i in range(cfg.n_layers)):
-        return "mamba / rwkv blocks"
+    if any(cfg.block_kind(i) == BLOCK_MAMBA for i in range(cfg.n_layers)):
+        return "mamba blocks"
     checks = [(a.mla is not None, "MLA attention"),
               (cfg.is_encoder_decoder, "encoder-decoder models"),
               (bool(a.mrope_sections), "M-RoPE"),
@@ -95,11 +97,14 @@ class Block(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.norm1 = Norm(cfg.norm, d, device)
-        self.attn = Attention(cfg, dtype, device)
+        if desc.kind == BLOCK_RWKV:      # its channel-mix is the FFN half
+            self.rwkv = RWKV(cfg, dtype, device)
+        else:
+            self.attn = Attention(cfg, dtype, device)
         self.norm2 = Norm(cfg.norm, d, device)
         if desc.is_moe:
             self.moe = MoE(cfg, dtype, device)
-        else:
+        elif desc.kind != BLOCK_RWKV:
             self.ffn = FFN(cfg, cfg.d_ff, dtype, device)
         if cfg.post_block_norm:
             self.post_norm1 = Norm(cfg.norm, d, device)
@@ -153,22 +158,33 @@ class Model(nn.Module):
 
     # -- full-sequence blocks -------------------------------------------------
     def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions):
-        """Mixer half. Returns (x_mid, h2, aux) with aux["kv"] = (k, v)."""
+        """Mixer half. Returns (x_mid, h2, aux): aux["kv"] = (k, v) for
+        attention; aux["rwkv_state"] and aux["rwkv_tm"] (the last normed
+        block input) for rwkv, which prefill seeds its cache with."""
         h = p.norm1(x)
-        y, kv = attn_forward(p.attn, self.cfg, h, positions,
-                             window=desc.window)
+        if desc.kind == BLOCK_RWKV:
+            y, (state, last_tm) = rwkv_time_mix(p.rwkv, self.cfg, h)
+            aux = {"rwkv_state": state, "rwkv_tm": last_tm}
+        else:
+            y, kv = attn_forward(p.attn, self.cfg, h, positions,
+                                 window=desc.window)
+            aux = {"kv": kv}
         if self.cfg.post_block_norm:
             y = p.post_norm1(y)
         x = x + y
-        return x, p.norm2(x), {"kv": kv}
+        return x, p.norm2(x), aux
 
     def _apply_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
                           capacity_factor=None, token_mask=None, routing=None,
                           slot_weights=None, slot_ids=None):
-        """FFN half. Returns (x_out, aux) with MoE counts/aux_loss.
+        """FFN half. Returns (x_out, aux) with MoE counts/aux_loss, or with
+        aux["rwkv_cm"] (the last h2 row: rwkv's channel-mix shift).
         ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
         aux = {}
-        if desc.is_moe:
+        if desc.kind == BLOCK_RWKV:
+            y2, _ = rwkv_channel_mix(p.rwkv, self.cfg, h2)
+            aux["rwkv_cm"] = h2[:, -1]
+        elif desc.is_moe:
             y2, moe_aux = moe_ffn(p.moe, self.cfg, h2,
                                   capacity_factor=capacity_factor,
                                   token_mask=token_mask, routing=routing,
@@ -232,15 +248,27 @@ class Model(nn.Module):
     # -- caches ---------------------------------------------------------------
     def init_cache(self, B: int, cache_len: int):
         """Zeroed decode cache: ``pos`` is a (B,) per-slot position vector,
-        ``layers`` one {"k", "v"} pair of (B, cache_len, Hkv, hd) per layer."""
+        ``layers`` one dict per layer: {"k", "v"} of (B, cache_len, Hkv, hd)
+        for attention; for rwkv {"state" (B, H, hd, hd) fp32, "tm" and
+        "cm" (B, d)}, the token-shift inputs of time- and channel-mix (no
+        ``cache_len``: the state is constant in context length)."""
         cfg = self.cfg
-        shape = (B, cache_len, cfg.n_kv_heads, cfg.head_dim_)
 
-        def zeros():
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        return {"pos": torch.zeros(B, dtype=torch.int32, device=self.device),
-                "layers": [{"k": zeros(), "v": zeros()} for _ in self.descs]}
+        def layer(desc):
+            if desc.kind == BLOCK_RWKV:
+                hd = cfg.rwkv.head_dim
+                return {"state": zeros(B, cfg.d_model // hd, hd, hd,
+                                       dtype=torch.float32),
+                        "tm": zeros(B, cfg.d_model),
+                        "cm": zeros(B, cfg.d_model)}
+            kv = (B, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+            return {"k": zeros(*kv), "v": zeros(*kv)}
+
+        return {"pos": zeros(B, dtype=torch.int32),
+                "layers": [layer(desc) for desc in self.descs]}
 
     def write_slot(self, pool, one, slot: int):
         """Copy a B=1 cache ``one`` into row ``slot`` of the pooled cache
@@ -255,24 +283,37 @@ class Model(nn.Module):
     def _decode_block_pre(self, p: Block, desc: LayerDesc, bc, x, pos,
                           active=None):
         """Mixer half of one-token decode (norm1 -> attention over the
-        cache -> norm2). The new K/V rows are written in place, for active
-        slots only. Returns (x_mid, h2, bc)."""
+        cache, or rwkv time-mix from its state -> norm2). The new K/V rows
+        are written in place, for active slots only; rwkv's new "state"
+        and "tm" replace the old ones on active rows only. Returns (x_mid,
+        h2, bc)."""
         h = p.norm1(x)
-        y, bc["k"], bc["v"] = attn_decode(p.attn, self.cfg, h, bc["k"],
-                                          bc["v"], pos, window=desc.window,
-                                          active=active)
+        if desc.kind == BLOCK_RWKV:
+            y, (state, tm) = rwkv_time_mix(p.rwkv, self.cfg, h, bc["state"],
+                                           bc["tm"])
+            _gate_into(bc, active, state=state, tm=tm)
+        else:
+            y, bc["k"], bc["v"] = attn_decode(
+                p.attn, self.cfg, h, bc["k"], bc["v"], pos,
+                window=desc.window, active=active)
         if self.cfg.post_block_norm:
             y = p.post_norm1(y)
         x = x + y
         return x, p.norm2(x), bc
 
     def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
-                           routing=None, slot_weights=None, slot_ids=None):
+                           bc=None, active=None, routing=None,
+                           slot_weights=None, slot_ids=None):
         """FFN half of one-token decode. Returns (x_out, counts or None).
+        rwkv reads its channel-mix shift from the block cache ``bc`` and
+        replaces ``bc["cm"]`` on ``active`` rows (all when None).
         ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
         cfg = self.cfg
         counts = None
-        if desc.is_moe:
+        if desc.kind == BLOCK_RWKV:
+            y2, cm = rwkv_channel_mix(p.rwkv, cfg, h2, bc["cm"])
+            _gate_into(bc, active, cm=cm)
+        elif desc.is_moe:
             # dropless (C >= T) by default: an inactive slot's token can
             # never displace an active one's
             cf = (cfg.decode_capacity_factor
@@ -293,7 +334,9 @@ class Model(nn.Module):
         logits. ``true_len``: optional per-row real prompt length for a
         right-padded prompt: pad tokens are causally invisible to real
         ones, take no MoE capacity, add no counts, and the logits come from
-        each row's last real token. Returns (logits (B,V), cache, aux)."""
+        each row's last real token. As in the reference, recurrent (rwkv)
+        state is not pad-corrected: prefill those at exact lengths.
+        Returns (logits (B,V), cache, aux)."""
         tokens = batch["tokens"]
         x, positions = self._embed(tokens)
         B, S = tokens.shape
@@ -309,7 +352,12 @@ class Model(nn.Module):
             x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
                                                 capacity_factor=2.0,
                                                 token_mask=token_mask)
-            self._store_kv(bc, aux["kv"])
+            if desc.kind == BLOCK_RWKV:
+                bc["state"].copy_(aux["rwkv_state"])
+                bc["tm"].copy_(aux["rwkv_tm"])
+                bc["cm"].copy_(aux_ffn["rwkv_cm"])
+            else:
+                self._store_kv(bc, aux["kv"])
             if "counts" in aux_ffn:
                 counts.append(aux_ffn["counts"])
         if true_len is None:
@@ -337,7 +385,8 @@ class Model(nn.Module):
         for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
             x_mid, h2, bc = self._decode_block_pre(p, desc, bc, x, pos,
                                                    active=active)
-            x, cnt = self._decode_block_post(p, desc, x_mid, h2)
+            x, cnt = self._decode_block_post(p, desc, x_mid, h2, bc=bc,
+                                             active=active)
             if cnt is not None:
                 counts.append(cnt)
         cache["pos"] = (pos + 1 if active is None
@@ -353,3 +402,10 @@ def _gate_rows(active, new, old):
     """Per-row select: keep ``old`` rows where ``active`` is False."""
     a = active.reshape((-1,) + (1,) * (new.dim() - 1))
     return torch.where(a, new, old)
+
+
+def _gate_into(bc, active, **new):
+    """Replace block-cache entries with ``new``, keeping the old rows where
+    ``active`` is False (all rows replaced when ``active`` is None)."""
+    for key, val in new.items():
+        bc[key] = val if active is None else _gate_rows(active, val, bc[key])

@@ -17,6 +17,7 @@ from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
 from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import moe_ffn as moe_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch.models import Model
 from repro_torch.serving import EngineConfig, TorchModelServer
 
@@ -247,3 +248,89 @@ def test_streaming_server_on_card_matches_cpu(cuda, wire):
     np.testing.assert_array_equal(g_out, c_out)
     assert g_stats["demand_uploads"] == c_stats["demand_uploads"] > 0
     assert g_stats["upload_bytes"] == c_stats["upload_bytes"]
+
+
+def _wkv_inputs(rng, BH, T, hd, dtype, w_dtype, dev):
+    r, k, v = (_rand(rng, (BH, T, hd), 0.5, dtype, dev) for _ in "rkv")
+    w = torch.sigmoid(_rand(rng, (BH, T, hd), 1.0, "float32", dev))
+    return (r, k, v, w.to(DTYPES[w_dtype]),
+            _rand(rng, (BH, hd), 0.1, "float32", dev),
+            _rand(rng, (BH, hd, hd), 0.1, "float32", dev))
+
+
+# decode (4 rows x 64 heads, T = 1), prefill (64 heads, T = 512), ragged
+@pytest.mark.parametrize("BH,T,hd", [(256, 1, 64), (64, 512, 64),
+                                     (3, 37, 32)])
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
+                                           ("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16")])
+def test_wkv6_kernel_matches_plain(cuda, BH, T, hd, dtype, w_dtype):
+    rng = np.random.default_rng(8)
+    args = _wkv_inputs(rng, BH, T, hd, dtype, w_dtype, cuda)
+    before = wkv_mod.launches
+    o, sN = wkv_mod.wkv6(*args)
+    assert wkv_mod.launches == before + 1
+    assert o.dtype == DTYPES[dtype] and sN.dtype == torch.float32
+    o_ref, sN_ref = ref.wkv6_ref(*args)
+    # fp32: the limit of tests/test_kernels.py's wkv6 test (sums over K in
+    # another order); o in bf16 rounds once at the end
+    tol = dict(atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_f32(o), _f32(o_ref),
+                               **(tol if dtype == "float32" else _tol(dtype)))
+    np.testing.assert_allclose(_f32(sN), _f32(sN_ref), **tol)
+
+
+def test_wkv6_wrapper_validates_inputs(cuda):
+    rng = np.random.default_rng(9)
+    r, k, v, w, u, s0 = _wkv_inputs(rng, 2, 3, 64, "float32", "float32",
+                                    cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        wkv_mod.wkv6(r, k, v, w, u, s0.cpu())
+    with pytest.raises(TypeError, match="fp32/bf16"):
+        wkv_mod.wkv6(r.half(), k.half(), v.half(), w, u, s0)
+    with pytest.raises(TypeError, match="w must be"):
+        wkv_mod.wkv6(r, k, v, w.to(torch.bfloat16), u, s0)
+    with pytest.raises(TypeError, match="dtype"):
+        wkv_mod.wkv6(r, k, v, w, u.double(), s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_mod.wkv6(r, k.transpose(0, 1).contiguous().transpose(0, 1), v,
+                     w, u, s0)
+    r48, k48, v48, w48, u48, s48 = _wkv_inputs(rng, 2, 3, 48, "float32",
+                                               "float32", cuda)
+    with pytest.raises(ValueError, match="hd in"):
+        wkv_mod.wkv6(r48, k48, v48, w48, u48, s48)
+
+
+def test_rwkv_model_on_card_matches_cpu(cuda):
+    """Reduced rwkv6-7b in fp32 on the card (B4) against the same weights
+    on the CPU (plain version): forward logits, prefill, and greedy tokens
+    of a pooled decode with a row retired halfway; B4 runs once per layer
+    per forward, prefill and decode step."""
+    cfg = get_config("rwkv6-7b").reduced()
+    gpu = Model(cfg, device=cuda).init(3)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 37)))
+    before = wkv_mod.launches
+    with torch.inference_mode():
+        lg, _ = gpu.forward({"tokens": toks.to(cuda)})
+        lc, _ = cpu.forward({"tokens": toks})
+        np.testing.assert_allclose(_f32(lg), lc.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        caches = [m.init_cache(2, 8) for m in (gpu, cpu)]
+        outs = [m.prefill({"tokens": toks.to(m.device)}, c)
+                for m, c in zip((gpu, cpu), caches)]
+        tok = [o[0].argmax(-1) for o in outs]
+        for i in range(8):
+            active = torch.tensor([True, i < 4])
+            outs = [m.serve_step(c, t.to(m.device), active=active.to(m.device))
+                    for m, c, t in zip((gpu, cpu), caches, tok)]
+            tok = [o[0].argmax(-1) for o in outs]
+            assert torch.equal(tok[0].cpu(), tok[1])
+            np.testing.assert_allclose(_f32(outs[0][0]), _f32(outs[1][0]),
+                                       atol=1e-4, rtol=1e-4)
+        for lg_, lc_ in zip(caches[0]["layers"], caches[1]["layers"]):
+            np.testing.assert_allclose(_f32(lg_["state"]), _f32(lc_["state"]),
+                                       atol=1e-4, rtol=1e-4)
+    assert wkv_mod.launches - before == cfg.n_layers * (1 + 1 + 8)

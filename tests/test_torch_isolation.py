@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.examples import long_context_rwkv
 from repro_torch.launch import serve as torch_serve
 from repro_torch.models import Model
 from repro_torch.serving import EngineConfig, TorchModelServer
@@ -143,3 +144,23 @@ def test_default_device_raises_without_cuda(monkeypatch):
     srv = TorchModelServer(ec, model, device="cpu")
     out, _ = srv.generate(np.ones((1, 4), np.int32), 2)
     assert out.shape == (1, 2)
+
+
+def test_rwkv_modules_are_scanned_and_default_to_cuda(monkeypatch):
+    """The RWKV6 slice's modules are among those the import checks above
+    cover; its entry points refuse to run without CUDA unless asked for
+    the CPU; mamba blocks are still refused."""
+    mods = _port_modules()
+    for m in ("repro_torch.models.rwkv6", "repro_torch.kernels.wkv6",
+              "repro_torch.examples.long_context_rwkv"):
+        assert m in mods
+    assert (PORT / "kernels/csrc/wkv6.cu").exists()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("rwkv6-7b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        long_context_rwkv.main([])
+    assert Model(cfg, device="cpu").init(0).layers[0].rwkv is not None
+    with pytest.raises(NotImplementedError, match="mamba"):
+        Model(get_config("jamba-1.5-large-398b").reduced(), device="cpu")

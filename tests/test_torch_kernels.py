@@ -15,6 +15,7 @@ from repro.kernels.moe_ffn import moe_ffn as pallas_moe_ffn
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import moe_ffn
+from repro_torch.kernels.wkv6 import wkv6
 
 torch.set_num_threads(2)
 
@@ -120,3 +121,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     kv = torch.zeros(1, 16, 2, 8)
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode(q, kv, kv, 16)
+    r = torch.zeros(2, 3, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6(r, r, r, r, torch.zeros(2, 64), torch.zeros(2, 64, 64))
