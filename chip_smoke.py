@@ -9,14 +9,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   3. hold each kernel against its plain PyTorch version on the card at the
      served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
      the plain version, a library call (a yardstick only) and the bound:
-     3a moe_ffn (B1, also through a permuted slot table), 3b flash_decode
-     (B3), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers), 3d wkv6 (B4,
-     the RWKV6 recurrence at the decode, prefill and ragged shapes);
+     3a moe_ffn (B1, also through a permuted slot table, and at decode
+     occupancy: 4 tokens x top-8, the other rows and experts zero), 3b
+     flash_decode (B3, also over a 32768-position cache split across
+     blocks), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers), 3d wkv6
+     (B4, the RWKV6 recurrence at the decode, prefill and ragged shapes);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
      the kernels' launch counts; time each pooled decode step with CUDA
-     events; finite full-width logits;
+     events, and the host's enqueue and the device's busy time of one more
+     step (torch.profiler); finite full-width logits;
   4b the same through the streaming path (--resident-fraction 0.5
      --transfer-dtype int8): experts in page-locked host memory, 256
      device slots, real uploads; check budgets, slot counters, upload
@@ -55,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
+LONG_CACHE = (4, 64, 4, 128, 32768)           # B3: B, H, Hkv, hd, S (> L2)
 SLEEP_CYCLES = 50_000_000                     # ~25 ms at the H100's clocks
 
 # tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|):
@@ -203,7 +207,76 @@ def check_moe_ffn(gen, card):
                     "slot_ids", got, want)
             del xg, wg, wu, wd, got, want
             torch.cuda.empty_cache()
+    row.update(check_moe_ffn_occupancy(gen, card, make))
     return row
+
+
+def check_moe_ffn_occupancy(gen, card, make):
+    """B1 at decode occupancy: xg filled as the dispatch fills it for a pool
+    of 4 tokens, each routed to 8 distinct experts at its expert's first
+    free row; every other row (and every expert no token chose) is exactly
+    zero. -> the ``occupancy_*`` keys of B1's row (bf16)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+
+    E, C, d, f = MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"]
+    tokens, top_k = 4, 8
+    nums = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xg, wg, wu, wd = make(E, C, d, f, "swiglu", dtype)
+        x = xg[0, :tokens].clone()               # the pool's hidden rows
+        xg.zero_()
+        fill = [0] * E
+        for t in range(tokens):
+            for e in torch.randperm(E, generator=gen,
+                                    device="cuda")[:top_k].tolist():
+                xg[e, fill[e]] = x[t]
+                fill[e] += 1
+        routed = (xg != 0).any(-1)
+        n_experts = int(routed.any(-1).sum())
+        got = moe_ffn(xg, wg, wu, wd, act="swiglu")
+        want = ref.moe_ffn_ref(xg, wg, wu, wd, act="swiglu")
+        torch.cuda.synchronize()
+        err = compare(f"decode occupancy: {tokens} tokens x top-{top_k}, "
+                      f"{n_experts} of {E} experts non-empty, {dtype}",
+                      got, want)
+        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not bool((got[~routed].view(ints) == 0).all()):
+            raise SystemExit("decode occupancy: a zero row of xg gave a "
+                             "non-zero (or -0.0) row of y")
+        print(f"  rows without a token: all {int((~routed).sum())} are "
+              f"+0.0 in every bit")
+        if dtype != torch.bfloat16:
+            continue
+        ms = time_ms(lambda: moe_ffn(xg, wg, wu, wd, act="swiglu"), 20)
+        plain_ms = time_ms(
+            lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act="swiglu"), 5,
+            ahead=False)
+
+        def library():
+            h = torch.nn.functional.silu(torch.bmm(xg, wg)) \
+                * torch.bmm(xg, wu)
+            return torch.bmm(h, wd)
+        lib_ms = time_ms(library, 10)
+        esz = xg.element_size()
+        # what these inputs need: xg and y once, and the weights of the
+        # experts with a routed row; flops of the routed rows
+        nbytes = esz * (2 * xg.numel() + n_experts * 3 * d * f)
+        bound_ms, by = bound(nbytes, 2 * int(routed.sum()) * d * f * 3,
+                             dtype)
+        print(f"  time decode occupancy {dtype}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (3x torch.bmm + silu over all "
+              f"{E} experts) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}:"
+              f" {n_experts} experts' weights), kernel/library "
+              f"{ms / lib_ms:.3f}, roofline {bound_ms / ms:.1%} [{card}]")
+        nums = dict(occupancy_experts=n_experts, occupancy_max_abs_err=err,
+                    occupancy_ms=ms, occupancy_plain_ms=plain_ms,
+                    occupancy_bound_ms=bound_ms, occupancy_bound_by=by,
+                    occupancy_library_ms=lib_ms)
+        del xg, wg, wu, wd, got, want
+        torch.cuda.empty_cache()
+    return nums
 
 
 def check_moe_ffn_quant(gen, card):
@@ -301,11 +374,13 @@ def check_flash_decode(gen, card):
     from repro_torch.kernels.flash_decode import flash_decode
 
     print("phase 3b: flash_decode kernel vs plain (flash_decode_ref)")
-    row = None
+    row, long = None, {}
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, Hkv, hd, S, lens in [(4, 64, 4, 128, 64, [1, 17, 40, 64]),
                                        (2, 8, 2, 64, 300, [300, 7]),
-                                       (3, 16, 1, 128, 1000, [1000, 513, 1])]:
+                                       (3, 16, 1, 128, 1000, [1000, 513, 1]),
+                                       (*LONG_CACHE, [32768, 16384, 8192, 1])
+                                       ]:
             q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
             k = torch.randn((B, S, Hkv, hd), generator=gen,
                             device="cuda").to(dtype)
@@ -317,6 +392,8 @@ def check_flash_decode(gen, card):
             torch.cuda.synchronize()
             err = compare(f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens={lens} "
                           f"{dtype}", got, want)
+            if (B, H, Hkv, hd, S) == LONG_CACHE and dtype == torch.bfloat16:
+                long = time_long_cache(q, k, v, cl, err, card)
             if S != 64:
                 continue
             ms = time_ms(lambda: flash_decode(q, k, v, cl), 200)
@@ -345,7 +422,44 @@ def check_flash_decode(gen, card):
                            replaces="src/repro/kernels/flash_decode.py:83",
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+    row.update(long)
     return row
+
+
+def time_long_cache(q, k, v, cl, err, card):
+    """B3 over a cache larger than L2, split across blocks. -> the
+    ``long_*`` keys of B3's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import ref
+
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split, split_len = fd_mod.splits(B, Hkv, H // Hkv, S, n_sm)
+    ms = time_ms(lambda: fd_mod.flash_decode(q, k, v, cl), 100)
+    plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl), 3,
+                       ahead=False)
+    mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None]
+            )[:, None, None, :]
+    qq, kk, vv = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, enable_gqa=True), 10)
+    n_valid = sum(min(int(n), S) for n in cl.tolist())
+    esz = q.element_size()
+    bound_ms, by = bound(esz * (2 * q.numel() + 2 * n_valid * Hkv * hd),
+                         4 * H * hd * n_valid, q.dtype)
+    print(f"  time long cache {q.dtype} ({n_split} splits of {split_len} "
+          f"positions, {2 * n_valid * Hkv * hd * esz} B of valid K/V): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(F.scaled_dot_product_attention, enable_gqa) {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({by}), roofline {bound_ms / ms:.1%} "
+          f"[{card}]")
+    return dict(long_shape=f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens="
+                           f"{cl.tolist()} bf16", long_max_abs_err=err,
+                long_ms=ms, long_plain_ms=plain_ms, long_bound_ms=bound_ms,
+                long_bound_by=by, long_library_ms=lib_ms)
 
 
 def check_wkv6(gen, card):
@@ -455,6 +569,7 @@ def _counts():
 
 
 def main_path(card):
+    import numpy as np
     import torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
@@ -493,7 +608,24 @@ def main_path(card):
           f"{wall:.1f} s")
     if launches != want:
         raise SystemExit("launch counts differ from the main path's calls")
-    _steps(srv, "all-resident", card)
+    steps = _steps(srv, "all-resident", card)
+    # one more pooled step over the server's cache (every row active): the
+    # host's enqueue of it (no sync inside) and what the device does in it
+    with torch.inference_mode():
+        tok = torch.zeros(srv.n_slots, dtype=torch.long, device="cuda")
+        act = torch.ones(srv.n_slots, dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.serve_step(srv._cache, tok, active=act)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        busy_ms, n_kernels, n_ops = profile_step(
+            lambda: model.serve_step(srv._cache, tok, active=act))
+    print(f"  one more decode step: host enqueue {enqueue_ms:.3f} ms; "
+          f"torch.profiler: {n_ops} top-level aten ops, {n_kernels} device "
+          f"kernels/copies, device busy {busy_ms:.3f} ms = "
+          f"{busy_ms / float(np.median(steps)):.1%} of the median step "
+          f"[{card}]")
     with torch.inference_mode():
         toks = torch.as_tensor(out["requests"][0].prompt[None],
                                dtype=torch.long, device="cuda")

@@ -30,15 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # xg, w_gate, w_up, w_down, slot_ids, h, y, E, C, d, f, act, dtype,
-    # stream
-    "moe_ffn": ("moe_ffn_launch", [_P] * 7 + [_I] * 6 + [_P]),
+    # xg, w_gate, w_up, w_down, slot_ids, flags, h, y, E, C, d, f, act,
+    # dtype, stream
+    "moe_ffn": ("moe_ffn_launch", [_P] * 8 + [_I] * 6 + [_P]),
     # xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids, h, y, E, C,
     # d, f, act, x_dtype, w_dtype, out_dtype, stream
     "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 10 + [_I] * 8 + [_P]),
-    # q, k, v, lens, out, B, S, Hkv, rep, hd, scale, dtype, stream
+    # q, k, v, lens, out, part, B, S, Hkv, rep, hd, splits, split_len,
+    # scale, dtype, stream
     "flash_decode": ("flash_decode_launch",
-                     [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+                     [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     # r, k, v, w, u, s0, o, sN, BH, T, hd, dtype, w_dtype, stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 5 + [_P]),
 }

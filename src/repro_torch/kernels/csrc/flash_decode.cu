@@ -2,190 +2,479 @@
 //
 // Replaces: repro/kernels/flash_decode.py::flash_decode (the Pallas
 // `_kernel`). Computes, for each batch row b and query head h,
-// softmax(q . K^T * hd^-0.5 over positions < cache_len[b]) . V with an
-// fp32 online softmax (running max m, denominator l, accumulator acc).
+// softmax(q . K^T * hd^-0.5 over positions < cache_len[b]) . V with an fp32
+// online softmax (running max m, denominator l, accumulator acc). Masked
+// positions score -1e30, so a row with cache_len <= 0 takes a uniform
+// softmax over all S positions, as the reference does. In bf16, P is
+// rounded to V's dtype before P.V, as the Pallas kernel does (its
+// `p.astype(v.dtype)`); l sums the fp32 P.
 //
-// What bounds it on this card: reading the KV cache. Each cached K/V
-// element is used by the rep = H / Hkv query heads that share its KV head,
-// i.e. 2*rep flops per element, far below the H100's ~295 flop/B; the least
-// time is the valid K/V prefix's bytes over 3.35 TB/s. At the served decode
-// shapes (B=4, Hkv=4, S=64) the whole cache is a few hundred KB, so a
-// launch is dominated by its fixed cost rather than by either bound.
+// What bounds it on this card: reading the KV cache. Each K/V element
+// feeds 2 * rep flops (rep = H / Hkv query heads share a KV head), far below
+// the ~295 flop/B at which the H100's bf16 tensor cores become the limit,
+// so the least time is the valid K/V prefix's bytes over the H100 SXM's
+// 3.35 TB/s. At the served decode shape (B=4, Hkv=4, S=64) that is ~0.1 us:
+// what a launch costs there is latency (dependent loads and arithmetic
+// inside few blocks), and at long caches it is how many SMs stream K/V at
+// once and how many bytes each keeps in flight.
 //
-// What the design does about it: one block per (kv head, batch row), so
-// the rep query heads of a group share every K/V tile a block loads (the
-// GQA repetition is never materialised). A loop over S in tiles of 32
-// positions inside the block replaces the TPU's sequential grid axis; only
-// the tiles below cache_len[b] are read at all. K/V rows are loaded with
-// consecutive threads on consecutive head-dim elements (coalesced), staged
-// in fp32 in shared memory (K padded by one column so the per-position dot
-// products are bank-conflict free). Splitting S across blocks
-// (flash-decoding) for long caches is left to a later change.
-#include "common.cuh"
+// What the design does about it:
+//  - Tensor cores for both products in bf16 (mma.sync m16n8k16, fp32
+//    accumulation): the rep heads of one KV group are the M side (16 a
+//    block; fewer are padded, more take further blocks), 16 positions the
+//    N side of the scores and the K side of P.V; the score accumulators are
+//    reused in registers as P's fragments. fp32 keeps CUDA-core FMAs (TF32
+//    would break the fp32 tolerance): lanes split hd and shuffle-reduce.
+//  - Each warp owns its own 16-position chunks, brought into a private
+//    three-stage shared-memory ring with 16-byte cp.async (zero-filled past
+//    the valid prefix, swizzled for conflict-free ldmatrix), and keeps its
+//    own (m, l, acc). The block merges its four warps once at the end: no
+//    block-wide barrier per tile.
+//  - S is split across blocks (flash-decoding) when B * Hkv blocks would
+//    leave SMs idle: grid (Hkv * M tiles, B, splits), each split a fixed
+//    run of positions (the wrapper picks it from S and the grid, since the
+//    lengths live on the device); splits past a row's prefix exit at once.
+//    Each split writes fp32 (m, l, acc) partials and a second small kernel
+//    combines them. One split runs straight to the output.
+#include "sm90.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 32;        // positions per tile (one per lane in softmax)
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeads = 16;               // query heads per block (mma's M)
+constexpr int kChunk = 16;               // positions a warp takes at a time
+constexpr int kStages = 3;               // per-warp K/V ring depth
 constexpr float kMasked = -1e30f;
 
-struct Smem {
-  // layout offsets (in floats) of the dynamic shared-memory carve-up
-  int qs, ks, vs, ps, acc, m, l, alpha, total;
-  __host__ __device__ Smem(int rep, int hd) {
-    const int ld = hd + 1;
-    qs = 0;
-    ks = qs + rep * ld;
-    vs = ks + kTile * ld;
-    ps = vs + kTile * hd;
-    acc = ps + rep * kTile;
-    m = acc + rep * hd;
-    l = m + rep;
-    alpha = l + rep;
-    total = alpha + rep;
+struct Args {
+  const void* q;        // (B, H, hd)
+  const void* k;        // (B, S, Hkv, hd)
+  const void* v;
+  const int* lens;      // (B,)
+  void* out;            // (B, H, hd)
+  float* part;          // (B, H, splits, hd + 2): acc, m, l; null if splits == 1
+  int S, Hkv, rep, splits, split_len;
+  float scale;
+};
+
+template <typename T, int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  // bf16: the per-warp K/V rings; the merge buffer reuses them
+  const size_t ring = sizeof(T) == 2 ? (size_t)kWarps * kStages * 2 * kChunk * HD * 2 : 0;
+  const size_t obuf = (size_t)kWarps * kHeads * HD * sizeof(float);
+  return (ring > obuf ? ring : obuf) + (size_t)kWarps * kHeads * 2 * sizeof(float);
+}
+
+// One warp's running softmax over its chunks, tensor-core version: the
+// thread holds rows g = lane/4 and g + 8, and o's columns nt*8 + 2t, +1.
+template <int HD>
+struct WarpBf16 {
+  uint32_t qa[HD / 16][4];
+  float m[2], l[2];
+  float o[HD / 8][4];
+
+  __device__ void init(const __nv_bfloat16* qb, int rows, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + (i & 1) * 8;
+        const int col = kk * 16 + (i >> 1) * 8 + 2 * t;
+        qa[kk][i] = r < rows
+            ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * HD + col) : 0u;
+      }
+    }
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  }
+
+  // positions c0 .. c0+15 from the ring stage (ks, vs: 16 x HD, swizzled)
+  __device__ void step(const __nv_bfloat16* ks, const __nv_bfloat16* vs, int c0,
+                       int p_end, int len, float scale, int lane) {
+    const int t = lane & 3, q4 = lane >> 3, r8 = lane & 7;
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      // matrices: (pos 0-7, k lo), (pos 0-7, k hi), (pos 8-15, k lo), (pos 8-15, k hi)
+      const int row = r8 + (q4 >> 1) * 8;
+      uint32_t b[4];
+      ldsm_x4(b, ks + swizzle<__nv_bfloat16>(row, 2 * kk + (q4 & 1), HD / 8));
+      mma_bf16(s[0], qa[kk], b[0], b[1]);
+      mma_bf16(s[1], qa[kk], b[2], b[3]);
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = c0 + j * 8 + 2 * t + (e & 1);
+        const float x = pos >= p_end ? -INFINITY : (pos >= len ? kMasked : s[j][e] * scale);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);    // finite: c0 < p_end
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+    // the score accumulators are P's A fragment (k = the 16 positions)
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      // matrices: (pos 0-7, cols 16np..), (pos 8-15, same), (pos 0-7, +8), (pos 8-15, +8)
+      const int row = r8 + (q4 & 1) * 8;
+      uint32_t b[4];
+      ldsm_x4_trans(b, vs + swizzle<__nv_bfloat16>(row, 2 * np + (q4 >> 1), HD / 8));
+      mma_bf16(o[2 * np], pa, b[0], b[1]);
+      mma_bf16(o[2 * np + 1], pa, b[2], b[3]);
+    }
+  }
+
+  // unnormalised acc, m and l of this warp into the merge buffers
+  __device__ void store(float* ob, float* ml, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ob[(g + (e >> 1) * 8) * HD + nt * 8 + 2 * t + (e & 1)] = o[nt][e];
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ml[(g + i * 8) * 2] = m[i];
+        ml[(g + i * 8) * 2 + 1] = l[i];
+      }
+    }
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lens,
-                    T* __restrict__ out, int S, int Hkv, int rep, int hd,
-                    float scale) {
-  extern __shared__ float smem[];
-  const Smem L(rep, hd);
-  const int ld = hd + 1;
-  float* qs = smem + L.qs;
-  float* ks = smem + L.ks;
-  float* vs = smem + L.vs;
-  float* ps = smem + L.ps;
-  float* acc = smem + L.acc;
-  float* m = smem + L.m;
-  float* l = smem + L.l;
-  float* alpha = smem + L.alpha;
+// The fp32 version: lanes split hd (HD / 32 elements each), every lane
+// holds all 16 rows' (m, l) after a butterfly reduction of each score.
+template <int HD>
+struct WarpF32 {
+  static constexpr int kV = HD / 32;
+  float q[kHeads][kV];
+  float m[kHeads], l[kHeads];
+  float acc[kHeads][kV];
 
-  const int g = blockIdx.x;            // kv head
-  const int b = blockIdx.y;            // batch row
-  const int H = Hkv * rep;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int len = lens[b];
+  __device__ void init(const float* qb, int rows, int lane) {
+#pragma unroll
+    for (int r = 0; r < kHeads; ++r) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        q[r][j] = r < rows ? qb[(size_t)r * HD + lane * kV + j] : 0.f;
+        acc[r][j] = 0.f;
+      }
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+    }
+  }
+
+  // positions c0 .. c0+15 read straight from global memory, the next
+  // position's K/V row loaded while this one is scored; all 16 rows are
+  // scored (padded rows have q = 0) so their shuffle chains interleave
+  __device__ void step(const float* k, const float* v, size_t row_stride, int c0,
+                       int p_end, int len, float scale, int lane) {
+    const int end = min(c0 + kChunk, p_end);
+    float kn[kV], vn[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      kn[j] = k[(size_t)c0 * row_stride + lane * kV + j];
+      vn[j] = v[(size_t)c0 * row_stride + lane * kV + j];
+    }
+    for (int pos = c0; pos < end; ++pos) {
+      float kv[kV], vv[kV];
+#pragma unroll
+      for (int j = 0; j < kV; ++j) {
+        kv[j] = kn[j];
+        vv[j] = vn[j];
+      }
+      if (pos + 1 < end) {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          kn[j] = k[(size_t)(pos + 1) * row_stride + lane * kV + j];
+          vn[j] = v[(size_t)(pos + 1) * row_stride + lane * kV + j];
+        }
+      }
+      float dot[kHeads];
+#pragma unroll
+      for (int r = 0; r < kHeads; ++r) {
+        dot[r] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kV; ++j) dot[r] = fmaf(q[r][j], kv[j], dot[r]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < kHeads; ++r) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+#pragma unroll
+      for (int r = 0; r < kHeads; ++r) {
+        const float x = pos >= len ? kMasked : dot[r] * scale;
+        const float m_new = fmaxf(m[r], x);
+        const float alpha = expf(m[r] - m_new);
+        const float p = expf(x - m_new);
+        m[r] = m_new;
+        l[r] = fmaf(l[r], alpha, p);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) acc[r][j] = fmaf(acc[r][j], alpha, p * vv[j]);
+      }
+    }
+  }
+
+  __device__ void store(float* ob, float* ml, int lane) {
+#pragma unroll
+    for (int r = 0; r < kHeads; ++r) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) ob[r * HD + lane * kV + j] = acc[r][j];
+      if (lane == 0) {
+        ml[r * 2] = m[r];
+        ml[r * 2 + 1] = l[r];
+      }
+    }
+  }
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kTensor = sizeof(T) == 2;
+  const int mtiles = (a.rep + kHeads - 1) / kHeads;
+  const int g = blockIdx.x / mtiles, mt = blockIdx.x - g * mtiles;
+  const int b = blockIdx.y, sp = blockIdx.z;
+  const int H = a.Hkv * a.rep;
+  const int h0 = g * a.rep + mt * kHeads;        // first query head of the block
+  const int rows = min(kHeads, a.rep - mt * kHeads);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int len = a.lens[b];
   // positions that can contribute: the valid prefix; with no valid position
   // every score is masked and (as in the reference) the softmax is uniform
-  const int n = len >= 1 ? min(len, S) : S;
-
-  const T* qb = q + ((size_t)b * H + (size_t)g * rep) * hd;
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    const int r = i / hd, dd = i - r * hd;
-    qs[r * ld + dd] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < rep; r += kThreads) {
-    m[r] = kMasked;
-    l[r] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < n; s0 += kTile) {
-    __syncthreads();
-    for (int i = tid; i < kTile * hd; i += kThreads) {
-      const int t = i / hd, dd = i - t * hd;
-      const int s = s0 + t;
-      float kv = 0.f, vv = 0.f;
-      if (s < S) {
-        const size_t off = (((size_t)b * S + s) * Hkv + g) * hd + dd;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-      }
-      ks[t * ld + dd] = kv;
-      vs[t * hd + dd] = vv;
+  const int n = len >= 1 ? min(len, a.S) : a.S;
+  const int p_begin = sp * a.split_len;
+  const int p_end = min(n, p_begin + a.split_len);
+  if (p_begin >= p_end) {              // a split past this row's prefix
+    if (threadIdx.x < rows) {
+      float* pr = a.part + (((size_t)b * H + h0 + threadIdx.x) * a.splits + sp) * (HD + 2);
+      pr[HD] = -INFINITY;
+      pr[HD + 1] = 0.f;
     }
-    __syncthreads();
-    // scores: one (head, position) pair per thread-iteration
-    for (int i = tid; i < rep * kTile; i += kThreads) {
-      const int r = i / kTile, t = i - r * kTile;
-      const int s = s0 + t;
-      float sc;
-      if (s >= S) {
-        sc = -INFINITY;                // no such position
-      } else {
-        const float* qr = qs + r * ld;
-        const float* kt = ks + t * ld;
-        float dot = 0.f;
-        for (int dd = 0; dd < hd; ++dd) dot = fmaf(qr[dd], kt[dd], dot);
-        sc = s < len ? dot * scale : kMasked;
+    return;
+  }
+
+  const size_t row_stride = (size_t)a.Hkv * HD;   // between positions
+  const T* kb = static_cast<const T*>(a.k) + ((size_t)b * a.S * a.Hkv + g) * HD;
+  const T* vb = static_cast<const T*>(a.v) + ((size_t)b * a.S * a.Hkv + g) * HD;
+  const T* qb = static_cast<const T*>(a.q) + ((size_t)b * H + h0) * HD;
+  const int first = p_begin + warp * kChunk, stride = kWarps * kChunk;
+
+  using Warp = typename std::conditional<kTensor, WarpBf16<HD>, WarpF32<HD>>::type;
+  Warp w;
+  w.init(qb, rows, lane);
+  if constexpr (kTensor) {
+    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
+                          (size_t)warp * kStages * 2 * kChunk * HD;
+    constexpr int kCpr = HD / 8;            // 16-byte chunks per K/V row
+    auto issue = [&](int stage, int c0) {
+      __nv_bfloat16* ks = ring + (size_t)stage * 2 * kChunk * HD;
+      __nv_bfloat16* vs = ks + kChunk * HD;
+#pragma unroll
+      for (int i = lane; i < kChunk * kCpr; i += 32) {
+        const int r = i / kCpr, ch = i - r * kCpr;
+        const int pos = c0 + r;
+        const bool ok = pos < p_end;
+        const size_t off = (size_t)(ok ? pos : 0) * row_stride + ch * 8;
+        const int dst = swizzle<__nv_bfloat16>(r, ch, kCpr);
+        cp_async16(ks + dst, kb + off, ok);
+        cp_async16(vs + dst, vb + off, ok);
       }
-      ps[i] = sc;
+    };
+    // kStages - 1 chunks in flight ahead of the one being scored; every
+    // iteration commits one group (empty past the end) so the wait count holds
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (first + i * stride < p_end) issue(i, first + i * stride);
+      cp_async_commit();
     }
-    __syncthreads();
-    // online softmax update, one warp per head row, one lane per position
-    for (int r = warp; r < rep; r += kThreads / 32) {
-      const float sc = ps[r * kTile + lane];
-      float mx = sc;
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = expf(sc - m_new);
-      float sum = p;
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      ps[r * kTile + lane] = p;
+    int it = 0;
+    for (int c0 = first; c0 < p_end; c0 += stride, ++it) {
+      const int ahead = c0 + (kStages - 1) * stride;
+      if (ahead < p_end) issue((it + kStages - 1) % kStages, ahead);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
       __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        alpha[r] = a;
-        l[r] = a * l[r] + sum;
-        m[r] = m_new;
+      const __nv_bfloat16* ks = ring + (size_t)(it % kStages) * 2 * kChunk * HD;
+      w.step(ks, ks + kChunk * HD, c0, p_end, len, a.scale, lane);
+      __syncwarp();                         // the stage is refilled next
+    }
+    cp_async_wait<0>();
+  } else {
+    for (int c0 = first; c0 < p_end; c0 += stride)
+      w.step(reinterpret_cast<const float*>(kb), reinterpret_cast<const float*>(vb),
+             row_stride, c0, p_end, len, a.scale, lane);
+  }
+  __syncthreads();                          // the rings become the merge buffer
+  float* obuf = reinterpret_cast<float*>(smem);
+  float* ml = reinterpret_cast<float*>(smem + smem_bytes<T, HD>()) - kWarps * kHeads * 2;
+  w.store(obuf + (size_t)warp * kHeads * HD, ml + warp * kHeads * 2, lane);
+  __syncthreads();
+
+  // merge the warps: warps that saw no position hold m = -inf, l = 0
+  for (int i = threadIdx.x; i < rows * HD; i += kThreads) {
+    const int r = i / HD, c = i - r * HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int x = 0; x < kWarps; ++x) M = fmaxf(M, ml[(x * kHeads + r) * 2]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int x = 0; x < kWarps; ++x) {
+      const float mx = ml[(x * kHeads + r) * 2];
+      if (mx == -INFINITY) continue;
+      const float wgt = expf(mx - M);
+      L = fmaf(ml[(x * kHeads + r) * 2 + 1], wgt, L);
+      O = fmaf(obuf[((size_t)x * kHeads + r) * HD + c], wgt, O);
+    }
+    const size_t row = (size_t)b * H + h0 + r;
+    if (a.splits == 1) {
+      static_cast<T*>(a.out)[row * HD + c] = from_f32<T>(O / L);
+    } else {
+      float* pr = a.part + (row * a.splits + sp) * (HD + 2);
+      pr[c] = O;
+      if (c == 0) {
+        pr[HD] = M;
+        pr[HD + 1] = L;
       }
     }
-    __syncthreads();
-    for (int i = tid; i < rep * hd; i += kThreads) {
-      const int r = i / hd, dd = i - r * hd;
-      const float* pr = ps + r * kTile;
-      float a = acc[i] * alpha[r];
-#pragma unroll 8
-      for (int t = 0; t < kTile; ++t) a = fmaf(pr[t], vs[t * hd + dd], a);
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-  T* ob = out + ((size_t)b * H + (size_t)g * rep) * hd;
-  for (int i = tid; i < rep * hd; i += kThreads) {
-    const int r = i / hd;
-    ob[i] = from_f32<T>(acc[i] / l[r]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
-                   void* out, int B, int S, int Hkv, int rep, int hd, float scale,
-                   cudaStream_t s) {
-  const size_t smem = (size_t)Smem(rep, hd).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hkv, B);
-  flash_decode_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lens, static_cast<T*>(out), S, Hkv, rep, hd, scale);
+// out[row] = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M) over the splits
+// of each (b, h) row; one block of HD threads per row. The split weights
+// are found by all threads at once (reductions over the splits), then each
+// thread sums its column over the splits with independent loads.
+template <int N>
+__device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, u) : v + u;
+  }
+  __syncthreads();                          // red is reused between calls
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int x = 1; x < N / 32; ++x) v = is_max ? fmaxf(v, red[x]) : v + red[x];
+  return v;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+combine_kernel(const float* __restrict__ part, T* __restrict__ out, int splits) {
+  extern __shared__ float wgt[];            // (splits,) weights e^(m_s - M)
+  __shared__ float red[HD / 32];
+  const size_t row = blockIdx.x;
+  const float* pr = part + row * splits * (HD + 2);
+  float M = -INFINITY;
+  for (int s = threadIdx.x; s < splits; s += HD) M = fmaxf(M, pr[(size_t)s * (HD + 2) + HD]);
+  M = block_reduce<HD>(M, true, red);       // finite: split 0 is never empty
+  float L = 0.f;
+  for (int s = threadIdx.x; s < splits; s += HD) {
+    const float* ps = pr + (size_t)s * (HD + 2);
+    const float w = ps[HD] == -INFINITY ? 0.f : expf(ps[HD] - M);   // empty split
+    wgt[s] = w;
+    L = fmaf(ps[HD + 1], w, L);
+  }
+  L = block_reduce<HD>(L, false, red);      // its barriers publish wgt too
+  float O = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float w = wgt[s];
+    const float v = pr[(size_t)s * (HD + 2) + threadIdx.x];   // unwritten if w == 0
+    O = w != 0.f ? fmaf(v, w, O) : O;
+  }
+  out[row * HD + threadIdx.x] = from_f32<T>(O / L);
+}
+
+template <typename T, int HD>
+cudaError_t launch(const Args& a, int B, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<T, HD>();
+  // once per instantiation (thread-safe static initialisation)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const int mtiles = (a.rep + kHeads - 1) / kHeads;
+  const dim3 grid(a.Hkv * mtiles, B, a.splits);
+  flash_decode_kernel<T, HD><<<grid, kThreads, smem, s>>>(a);
+  if (a.splits > 1) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    combine_kernel<T, HD><<<B * a.Hkv * a.rep, HD, a.splits * sizeof(float), s>>>(
+        a.part, static_cast<T*>(a.out), a.splits);
+  }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
+  if (hd == 64) return launch<T, 64>(a, B, s);
+  if (hd == 128) return launch<T, 128>(a, B, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, H, hd); k, v (B, S, Hkv, hd); lens (B,) int32; out (B, H, hd). All
-// contiguous, q/k/v/out one dtype. Launches on `stream`; returns
+// q (B, H, hd); k, v (B, S, Hkv, hd); lens (B,) int32; out (B, H, hd); all
+// contiguous, q/k/v/out one dtype, hd 64 or 128. part: fp32 scratch of
+// B * H * splits * (hd + 2) floats, or null when splits == 1. Split sp takes
+// positions [sp * split_len, (sp + 1) * split_len) of each row's prefix;
+// splits * split_len must cover S. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const void* lens, void* out, int B, int S,
-                                   int Hkv, int rep, int hd, float scale, int dtype,
+                                   const void* lens, void* out, void* part, int B,
+                                   int S, int Hkv, int rep, int hd, int splits,
+                                   int split_len, float scale, int dtype,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Hkv <= 0 || rep <= 0 || hd <= 0 || S <= 0) return cudaErrorInvalidValue;
-  const int* lp = static_cast<const int*>(lens);
-  if (dtype == kFloat32)
-    return launch<float>(q, k, v, lp, out, B, S, Hkv, rep, hd, scale, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, lp, out, B, S, Hkv, rep, hd, scale, s);
+  if (B <= 0 || Hkv <= 0 || rep <= 0 || S <= 0 || splits <= 0 || split_len <= 0 ||
+      (long long)splits * split_len < S || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int*>(lens), out, static_cast<float*>(part),
+               S, Hkv, rep, splits, split_len, scale};
+  if (dtype == kFloat32) return launch_hd<float>(a, B, hd, s);
+  if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(a, B, hd, s);
   return cudaErrorInvalidValue;
 }

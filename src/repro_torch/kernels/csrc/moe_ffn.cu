@@ -1,4 +1,5 @@
-// Grouped expert FFN for Hopper (sm_90a), CUDA-core FMA.
+// Grouped expert FFN for Hopper (sm_90a): tensor cores in bf16, cp.async
+// weight ring, experts and rows with nothing routed to them skipped.
 //
 // Replaces: repro/kernels/moe_ffn.py::moe_ffn (the Pallas `_kernel`).
 // Computes, per expert e:  h = act(x @ W_gate, x @ W_up) rounded to x's
@@ -10,52 +11,76 @@
 //
 // What bounds it on this card: reading the expert weights. At decode the
 // dispatch capacity C is a handful of rows per expert (C = 8 at the served
-// shapes), so every weight byte feeds 2*C flops: ~16 flop/B in bf16 against
-// the ~295 flop/B the H100 needs before compute is the limit. The bound is
-// 3*E*d*f weight elements over 3.35 TB/s (4.83 GB, 1.44 ms per launch for
-// E=128, d=4096, f=1536 in bf16).
+// shape), so each 2-byte weight feeds 2 * C = 16 flops against the ~295
+// flop/B at which the bf16 tensor cores would become the limit. Reading
+// every expert (E=128, d=4096, f=1536) is 4.83 GB, 1.44 ms at 3.35 TB/s.
+// But at decode the pool routes 4 tokens to top-8 experts, so at most 32 of
+// the 128 experts have a routed row: the rows of the rest are exact zeros
+// (the dispatch fills them from a zero row), and their weights need not be
+// read at all. What is left, ~29 experts x 37.7 MB, is ~0.33 ms.
 //
-// What the design does about it (grouped_gemm.cuh): every weight element is
-// read from device memory exactly once per block row of C, by threads that
-// walk the contiguous axis (each warp load is one fully used 64 B (bf16) or
-// 128 B (fp32) segment). The C rows of x are staged in shared memory in fp32
-// and broadcast, so each loaded weight is reused C times from a register.
-// Two launches: up+activation into a scratch h (E, C, f) in x's dtype, then
-// down-projection into y. Ragged C and f are masked; nothing needs to divide
-// a tile. Experts with no routed rows are still computed (their x rows are
-// zero, so their y rows are zero): skipping them is left to a later change.
-#include "grouped_gemm.cuh"
+// What the design does about it (moe_ffn_tc.cuh):
+//  - A first small launch marks the non-zero rows of xg and the experts
+//    that have one (reading xg, 8 MB at decode, on the device: no host
+//    sync). Blocks of an unmarked expert write zeros and exit before any
+//    weight is read; rows marked zero are written as +0.0. The function is
+//    unchanged: every activation maps a zero row to zero.
+//  - The weights stream as 16-byte cp.async copies into a shared-memory
+//    ring (4 stages in bf16, 3 in fp32), so each block keeps several 16 KB
+//    stages in flight.
+//  - bf16 multiplies on the tensor cores with the operands swapped
+//    (y^T = W^T x^T, mma.sync m16n8k16): the weight tile is the M side, the
+//    few routed rows the N side, fp32 accumulation. No per-element widening
+//    or FMA issue is left to bound the SM. fp32 weights (the streaming fp32
+//    wire) keep CUDA-core FMAs, fed from the same ring.
+//  - Two launches after the scan: up+activation into a scratch h (E, C, f)
+//    in x's dtype (3 MB at decode, L2-resident), then the down-projection.
+//    Fusing them would need a block to own all of f for its rows, or a
+//    cross-block reduction over f; at decode the split costs one more
+//    launch and a read of h from L2, so they stay apart. Ragged C, d and f
+//    are masked; nothing needs to divide a tile.
+#include "moe_ffn_tc.cuh"
 
 namespace {
 
 template <typename T>
 cudaError_t moe_ffn_typed(const void* xg, const void* w_gate, const void* w_up,
-                          const void* w_down, const int* slot_ids, void* h,
-                          void* y, int E, int C, int d, int f, int act,
+                          const void* w_down, const int* slot_ids, int* flags,
+                          void* h, void* y, int E, int C, int d, int f, int act,
                           cudaStream_t s) {
-  cudaError_t err = grouped::launch_act<T, T, T, false>(
-      act, xg, w_up, w_gate, nullptr, nullptr, slot_ids, h, E, C, d, f, s);
+  int* row_nz = flags;
+  int* expert_nz = flags + (size_t)E * C;
+  const T* x = static_cast<const T*>(xg);
+  cudaError_t err = moe_tc::scan<T>(x, E, C, d, row_nz, expert_nz, s);
   if (err != cudaSuccess) return err;
-  return grouped::launch<T, T, T, grouped::kNone, false>(
-      h, w_down, nullptr, nullptr, nullptr, slot_ids, y, E, C, f, d, s);
+  err = moe_tc::launch_act<T>(act, x, static_cast<const T*>(w_up),
+                              static_cast<const T*>(w_gate), slot_ids, row_nz,
+                              expert_nz, static_cast<T*>(h), E, C, d, f, s);
+  if (err != cudaSuccess) return err;
+  return moe_tc::launch<T, moe_tc::kNone>(
+      static_cast<const T*>(h), static_cast<const T*>(w_down), nullptr, slot_ids,
+      row_nz, expert_nz, static_cast<T*>(y), E, C, f, d, s);
 }
 
 }  // namespace
 
 // xg (E, C, d); w_gate, w_up (n, d, f) (w_gate may be null for ungated
 // activations); w_down (n, f, d); slot_ids (E,) int32 in [0, n) or null
-// (then n = E); h (E, C, f) scratch; y (E, C, d). All contiguous, one dtype.
-// Launches on `stream`; returns cudaGetLastError().
+// (then n = E); flags int32 scratch of E * C + E; h (E, C, f) scratch;
+// y (E, C, d). All contiguous, one dtype. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int moe_ffn_launch(const void* xg, const void* w_gate, const void* w_up,
-                              const void* w_down, const void* slot_ids, void* h,
-                              void* y, int E, int C, int d, int f, int act,
+                              const void* w_down, const void* slot_ids, void* flags,
+                              void* h, void* y, int E, int C, int d, int f, int act,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* slots = static_cast<const int*>(slot_ids);
+  int* fl = static_cast<int*>(flags);
   if (E <= 0 || C <= 0 || d <= 0 || f <= 0) return cudaSuccess;
   if (dtype == kFloat32)
-    return moe_ffn_typed<float>(xg, w_gate, w_up, w_down, slots, h, y, E, C, d, f, act, s);
+    return moe_ffn_typed<float>(xg, w_gate, w_up, w_down, slots, fl, h, y, E, C, d, f, act, s);
   if (dtype == kBFloat16)
-    return moe_ffn_typed<__nv_bfloat16>(xg, w_gate, w_up, w_down, slots, h, y, E, C, d, f, act, s);
+    return moe_ffn_typed<__nv_bfloat16>(xg, w_gate, w_up, w_down, slots, fl, h, y, E, C, d, f,
+                                        act, s);
   return cudaErrorInvalidValue;
 }

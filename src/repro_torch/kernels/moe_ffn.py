@@ -8,8 +8,8 @@ dequantized in the kernel, with the expert -> slot table folded into its
 addressing. Both take CUDA tensors only; the CPU paths are
 ``ref.moe_ffn_ref`` / ``ref.moe_ffn_quant_ref`` (dispatch lives in
 ``ops``). ``launches`` / ``quant_launches`` count calls that launched each
-kernel (one per call, although each runs as two launches: up+activation,
-then down).
+kernel (one per call, although ``moe_ffn`` runs as three launches: a scan
+of xg's non-zero rows, up+activation, then down; ``moe_ffn_quant`` as two).
 """
 from __future__ import annotations
 
@@ -58,7 +58,9 @@ def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu",
     gelu); w_down: (E, f, d); all on one CUDA device, fp32 or bf16.
     ``slot_ids``: optional (E,) int32 on the device; the weights are then
     slot buffers (n_slots, ...) and expert e reads slot ``slot_ids[e]``
-    (each must lie in [0, n_slots): the kernel does not check).
+    (each must lie in [0, n_slots): the kernel does not check). Rows of
+    ``xg`` that are all zero give +0.0 rows, and an expert with no non-zero
+    row has none of its weights read.
     -> (E, C, d) in xg's dtype."""
     global launches
     if xg.device.type != "cuda":
@@ -70,15 +72,17 @@ def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu",
     dev, dt = xg.device, xg.dtype
     build.check_tensor("xg", xg, tuple(xg.shape), dt, dev)
     E, C, d, f, _ = _check_weights(xg, w_gate, w_up, w_down, dt, slot_ids)
+    # row and expert marks of xg's non-zero rows (E*C + E), then h
+    flags = torch.empty((E * C + E,), dtype=torch.int32, device=dev)
     h = torch.empty((E, C, f), dtype=dt, device=dev)
     y = torch.empty((E, C, d), dtype=dt, device=dev)
     fn = build.load("moe_ffn")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xg.data_ptr(), _ptr(w_gate), w_up.data_ptr(),
-                 w_down.data_ptr(), _ptr(slot_ids), h.data_ptr(),
-                 y.data_ptr(), E, C, d, f, ACTS[act], build.DTYPES[dt],
-                 stream)
+                 w_down.data_ptr(), _ptr(slot_ids), flags.data_ptr(),
+                 h.data_ptr(), y.data_ptr(), E, C, d, f, ACTS[act],
+                 build.DTYPES[dt], stream)
     build.check("moe_ffn", err)
     launches += 1
     return y

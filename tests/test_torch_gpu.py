@@ -85,6 +85,97 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype):
         q, k, v, lens)), **_tol(dtype))
 
 
+def _bits_zero(t):
+    """Every element is +0.0 (all bits clear)."""
+    ints = torch.int16 if t.element_size() == 2 else torch.int32
+    return bool((t.contiguous().view(ints) == 0).all())
+
+
+# which rows of each expert carry a token; every other row is exactly zero:
+# a full expert, an empty one, one routed row, a scattered pair, and empty
+ROUTED = [list(range(13)), [], [5], [0, 12], []]
+
+
+@pytest.mark.parametrize("E,C,d,f", [(5, 13, 520, 700),    # ragged: no tile
+                                     (5, 13, 512, 384)])   # 16-byte rows
+@pytest.mark.parametrize("slots", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_ffn_kernel_skips_unrouted_rows(cuda, E, C, d, f, slots, dtype,
+                                            act):
+    """Sparse occupancy as the dispatch makes it at decode: empty experts,
+    one-row experts, zero rows between routed ones; through a slot table
+    too. The kernel matches the plain version, and every zero row of xg
+    gives a +0.0 row of y."""
+    rng = np.random.default_rng(11)
+    n = E + 2 if slots else E
+    xg = _rand(rng, (E, C, d), 1.0, dtype, cuda)
+    routed = torch.zeros((E, C), dtype=torch.bool, device=cuda)
+    for e, rows in enumerate(ROUTED):
+        routed[e, rows] = True
+    xg = xg * routed[..., None].to(xg.dtype)
+    wg = (_rand(rng, (n, d, f), d ** -0.5, dtype, cuda)
+          if act in ("swiglu", "geglu") else None)
+    wu = _rand(rng, (n, d, f), d ** -0.5, dtype, cuda)
+    wd = _rand(rng, (n, f, d), f ** -0.5, dtype, cuda)
+    ids = (torch.tensor([6, 0, 3, 1, 5], dtype=torch.int32, device=cuda)
+           if slots else None)
+    y = moe_mod.moe_ffn(xg, wg, wu, wd, act=act, slot_ids=ids)
+    idx = ids.long() if slots else torch.arange(E, device=cuda)
+    want = ref.moe_ffn_ref(xg, None if wg is None else wg[idx], wu[idx],
+                           wd[idx], act=act)
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol(dtype))
+    assert _bits_zero(y[~routed])
+    assert not bool((y[routed] == 0).all(dim=-1).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_kernel_with_every_expert_empty(cuda, dtype):
+    xg = torch.zeros((4, 8, 256), dtype=DTYPES[dtype], device=cuda)
+    w = torch.full((4, 256, 128), float("nan"), dtype=DTYPES[dtype],
+                   device=cuda)
+    wd = torch.full((4, 128, 256), float("nan"), dtype=DTYPES[dtype],
+                    device=cuda)
+    # no weight is read: the NaN weights never reach the output
+    y = moe_mod.moe_ffn(xg, w, w, wd, act="swiglu")
+    assert y.shape == xg.shape and _bits_zero(y)
+
+
+@pytest.mark.parametrize("rep", [1, 4, 16, 32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_head_groups(cuda, rep, hd, dtype):
+    """Query heads per KV head below, at and above the tensor-core tile's
+    16, both head dims; lengths 0 (uniform softmax), 1, S and ragged."""
+    rng = np.random.default_rng(12)
+    B, Hkv, S = 4, 2, 200
+    q = _rand(rng, (B, Hkv * rep, hd), 1.0, dtype, cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    lens = torch.tensor([0, 1, S, 77], dtype=torch.int32, device=cuda)
+    y = fd_mod.flash_decode(q, k, v, lens)
+    np.testing.assert_allclose(_f32(y), _f32(ref.flash_decode_ref(
+        q, k, v, lens)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("rep,hd", [(16, 128), (4, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_splits_long_cache(cuda, rep, hd, dtype):
+    """A long cache over few KV heads is split across blocks and the splits
+    combined; rows of length 0, 1, S and in between."""
+    rng = np.random.default_rng(13)
+    B, Hkv, S = 4, 1, 4096
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fd_mod.splits(B, Hkv, rep, S, n_sm)[0] > 1
+    q = _rand(rng, (B, Hkv * rep, hd), 1.0, dtype, cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    lens = torch.tensor([S, 0, 1, 2049], dtype=torch.int32, device=cuda)
+    y = fd_mod.flash_decode(q, k, v, lens)
+    np.testing.assert_allclose(_f32(y), _f32(ref.flash_decode_ref(
+        q, k, v, lens)), **_tol(dtype))
+
+
 def test_kernel_wrappers_validate_inputs(cuda):
     x = torch.zeros(2, 4, 8, device=cuda)
     w = torch.zeros(2, 8, 16, device=cuda)
@@ -102,6 +193,8 @@ def test_kernel_wrappers_validate_inputs(cuda):
     kv = torch.zeros(1, 16, 2, 8, device=cuda)
     with pytest.raises(ValueError, match="on cpu"):
         fd_mod.flash_decode(q, kv, kv.cpu(), 16)
+    with pytest.raises(ValueError, match="hd in"):
+        fd_mod.flash_decode(q, kv, kv, 16)
 
 
 def test_model_and_server_on_card_match_cpu(cuda):

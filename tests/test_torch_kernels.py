@@ -13,7 +13,10 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_decode import flash_decode as pallas_flash_decode
 from repro.kernels.moe_ffn import moe_ffn as pallas_moe_ffn
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_decode import BLOCKS_PER_SM
+from repro_torch.kernels.flash_decode import TILE as FD_TILE
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import splits as fd_splits
 from repro_torch.kernels.moe_ffn import moe_ffn
 from repro_torch.kernels.wkv6 import wkv6
 
@@ -90,6 +93,89 @@ def test_flash_decode_plain_matches_reference_and_pallas(B, H, Hkv, hd, S,
                                        interpret=True)
         np.testing.assert_allclose(_f32(y), _f32(y_ref), **_tol(dtype))
         np.testing.assert_allclose(_f32(y), _f32(y_pallas), **_tol(dtype))
+
+
+# rows of each expert that carry a token (the rest of xg is exactly zero):
+# a full expert, an empty one, one row, a scattered pair, empty again
+ROUTED = [list(range(16)), [], [3], [0, 15], []]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_ffn_zero_rows_give_zero_rows(dtype, act):
+    """The invariant B1's kernel skips on: with no bias every activation
+    maps a zero row of xg to a zero row of y, so a zero row (and an expert
+    with only zero rows) needs no weight. Held by the port's plain version,
+    the reference's oracle and the Pallas kernel in interpret mode on the
+    same numpy-seeded inputs."""
+    E, C, d, f = len(ROUTED), 16, 128, 256
+    rng = np.random.default_rng(21)
+    mask = np.zeros((E, C, 1), np.float32)
+    for e, rows in enumerate(ROUTED):
+        mask[e, rows] = 1.0
+    xg = rng.standard_normal((E, C, d), np.float32) * mask
+    ws = [rng.standard_normal(s, np.float32) * 0.05
+          for s in ((E, d, f), (E, d, f), (E, f, d))]
+    if act not in ("swiglu", "geglu"):
+        ws[0] = None
+    pairs = [_both(xg, dtype)] + [(None, None) if w is None else
+                                  _both(w, dtype) for w in ws]
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    zero = mask[..., 0] == 0
+    ys = {"port": ref.moe_ffn_ref(*tx, act=act),
+          "reference": jref.moe_ffn_ref(*jx, act=act),
+          "pallas": pallas_moe_ffn(*jx, act=act, block_c=16, block_f=128,
+                                   interpret=True)}
+    for name, y in ys.items():
+        y = _f32(y)
+        assert (y[zero] == 0).all(), name
+        assert (y[~zero] != 0).any(axis=-1).all(), name
+
+
+@pytest.mark.parametrize("rep", [1, 4, 16, 32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_head_groups_and_lengths(rep, hd, dtype):
+    """Query heads per KV head around the card kernel's tile of 16, both
+    head dims, and per-row lengths 0 (every score masked: a uniform
+    softmax), 1, S and between, against the reference's oracle and the
+    Pallas kernel in interpret mode."""
+    B, Hkv, S = 4, 2, 256
+    rng = np.random.default_rng(22)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.standard_normal(s, np.float32), dtype)
+        for s in ((B, Hkv * rep, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    lens = [0, 1, S, 97]
+    y = ref.flash_decode_ref(tq, tk, tv, torch.tensor(lens, dtype=torch.int32))
+    jl = jnp.asarray(lens, jnp.int32)
+    y_ref = jref.flash_decode_ref(jq, jk, jv, jl)
+    y_pallas = pallas_flash_decode(jq, jk, jv, jl, block_s=128,
+                                   interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(y_ref), **_tol(dtype))
+    np.testing.assert_allclose(_f32(y), _f32(y_pallas), **_tol(dtype))
+    # length 0: the mean of V over all S positions, per KV head
+    mean_v = _f32(tv[0]).mean(axis=0)                       # (Hkv, hd)
+    np.testing.assert_allclose(_f32(y[0]).reshape(Hkv, rep, hd),
+                               np.repeat(mean_v[:, None], rep, axis=1),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("B,Hkv,rep,S,want", [
+    (4, 4, 16, 64, 1),          # the served decode shape: no split
+    (4, 4, 16, 32768, 32),      # the long-cache row: 32 runs of 1024
+    (3, 1, 16, 1000, 16),       # few blocks: every tile its own split
+    (1, 64, 1, 100000, 9),      # many blocks: long runs
+    (2, 2, 32, 4096, 64),       # two head tiles per KV head
+])
+def test_flash_decode_split_policy(B, Hkv, rep, S, want):
+    """The split of S across blocks follows from S and the grid alone: whole
+    tiles per split, the splits cover S, and a split exists only where the
+    grid would leave SMs idle."""
+    n, L = fd_splits(B, Hkv, rep, S, n_sm=132)
+    assert n == want
+    assert L % FD_TILE == 0 and n * L >= S > (n - 1) * L
+    blocks = B * Hkv * -(-rep // 16)
+    assert n == 1 or blocks * n <= 2 * BLOCKS_PER_SM * 132
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
