@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      3a moe_ffn (B1, also through a permuted slot table, and at decode
      occupancy: 4 tokens x top-8, the other rows and experts zero), 3b
      flash_decode (B3, also over a 32768-position cache split across
-     blocks), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers), 3d wkv6
-     (B4, the RWKV6 recurrence at the decode, prefill and ragged shapes);
+     blocks), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers, every
+     expert filled and at B1's decode occupancy), 3d wkv6 (B4, the RWKV6
+     recurrence at decode, at each of phase 6's prompt lengths and at
+     ragged shapes);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -211,6 +213,41 @@ def check_moe_ffn(gen, card):
     return row
 
 
+TOKENS, TOP_K = 4, 8          # the decode pool and the routing width
+
+
+def route_decode(xg, seed=1):
+    """Fill xg (E, C, d) in place as the dispatch fills it for a pool of
+    TOKENS tokens, each routed to TOP_K distinct experts (a seeded draw) at
+    its expert's first free row: the tokens are xg[0, :TOKENS] as made;
+    every other row, and every expert no token chose, is exactly zero.
+    -> ((E, C) bool mask of the routed rows, number of routed experts)."""
+    import torch
+    E = xg.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = xg[0, :TOKENS].clone()               # the pool's hidden rows
+    xg.zero_()
+    fill = [0] * E
+    for t in range(TOKENS):
+        for e in torch.randperm(E, generator=gen,
+                                device="cuda")[:TOP_K].tolist():
+            xg[e, fill[e]] = x[t]
+            fill[e] += 1
+    routed = (xg != 0).any(-1)
+    return routed, int(routed.any(-1).sum())
+
+
+def check_zero_rows(y, routed):
+    """Every row of y without a token is +0.0 in every bit."""
+    import torch
+    ints = torch.int16 if y.element_size() == 2 else torch.int32
+    if not bool((y[~routed].view(ints) == 0).all()):
+        raise SystemExit("decode occupancy: a zero row of xg gave a "
+                         "non-zero (or -0.0) row of y")
+    print(f"  rows without a token: all {int((~routed).sum())} are +0.0 in "
+          f"every bit")
+
+
 def check_moe_ffn_occupancy(gen, card, make):
     """B1 at decode occupancy: xg filled as the dispatch fills it for a pool
     of 4 tokens, each routed to 8 distinct experts at its expert's first
@@ -221,32 +258,17 @@ def check_moe_ffn_occupancy(gen, card, make):
     from repro_torch.kernels.moe_ffn import moe_ffn
 
     E, C, d, f = MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"]
-    tokens, top_k = 4, 8
     nums = {}
     for dtype in (torch.bfloat16, torch.float32):
         xg, wg, wu, wd = make(E, C, d, f, "swiglu", dtype)
-        x = xg[0, :tokens].clone()               # the pool's hidden rows
-        xg.zero_()
-        fill = [0] * E
-        for t in range(tokens):
-            for e in torch.randperm(E, generator=gen,
-                                    device="cuda")[:top_k].tolist():
-                xg[e, fill[e]] = x[t]
-                fill[e] += 1
-        routed = (xg != 0).any(-1)
-        n_experts = int(routed.any(-1).sum())
+        routed, n_experts = route_decode(xg)
         got = moe_ffn(xg, wg, wu, wd, act="swiglu")
         want = ref.moe_ffn_ref(xg, wg, wu, wd, act="swiglu")
         torch.cuda.synchronize()
-        err = compare(f"decode occupancy: {tokens} tokens x top-{top_k}, "
+        err = compare(f"decode occupancy: {TOKENS} tokens x top-{TOP_K}, "
                       f"{n_experts} of {E} experts non-empty, {dtype}",
                       got, want)
-        ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        if not bool((got[~routed].view(ints) == 0).all()):
-            raise SystemExit("decode occupancy: a zero row of xg gave a "
-                             "non-zero (or -0.0) row of y")
-        print(f"  rows without a token: all {int((~routed).sum())} are "
-              f"+0.0 in every bit")
+        check_zero_rows(got, routed)
         if dtype != torch.bfloat16:
             continue
         ms = time_ms(lambda: moe_ffn(xg, wg, wu, wd, act="swiglu"), 20)
@@ -279,13 +301,14 @@ def check_moe_ffn_occupancy(gen, card, make):
     return nums
 
 
-def check_moe_ffn_quant(gen, card):
+def quant_inputs(gen, E, C, d, f, n, act, kind, xdt):
+    """B2's operands: xg (E, C, d) in xdt, fp16 or int8 slot buffers (n
+    slots; int8 with (n, out) fp32 scales) and an (E,) slot table: E
+    distinct slots of n, or [3, 0, 0] at E = 3.
+    -> (xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids)."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.moe_ffn import moe_ffn_quant
 
-    def wire(n, shape, kind):
-        """(n, *shape) fp16 or int8 slot buffer + (n, out) fp32 scales."""
+    def wire(shape):
         std = shape[0] ** -0.5
         if kind == "fp16":
             w = torch.randn((n,) + shape, generator=gen, device="cuda") * std
@@ -295,76 +318,126 @@ def check_moe_ffn_quant(gen, card):
         s = (torch.rand((n, shape[-1]), generator=gen, device="cuda") + 0.5) \
             * (2 * std / 127)
         return q, s
+    xg = torch.randn((E, C, d), generator=gen, device="cuda").to(xdt)
+    wg, sg = wire((d, f)) if act == "swiglu" else (None, None)
+    wu, su = wire((d, f))
+    wd, sd = wire((f, d))
+    if E == 3:
+        slots = torch.tensor([3, 0, 0], device="cuda")
+    else:             # E distinct slots of n, as at rf 0.5
+        slots = torch.randperm(n, generator=gen, device="cuda")[:E]
+    return xg, wg, wu, wd, sg, su, sd, slots.to(torch.int32)
+
+
+def quant_bound(args, routed, out_dtype):
+    """B2's bound from these inputs: xg, y and the slot table once, and the
+    weights (and int8 scales) of the slots that experts with a routed row
+    read; the routed rows' fp32 flops. -> (bound ms, by)."""
+    import torch
+    xg, wg, wu, wd, sg, su, sd, slots = args
+    E, C, d = xg.shape
+    f = wu.shape[-1]
+    busy = routed.any(-1)
+    n_read = len(set(slots[busy].tolist()))
+    n_proj = 3 if wg is not None else 2
+    wbytes = n_proj * d * f * wu.element_size()
+    sbytes = 4 * ((n_proj - 1) * f + d) if su is not None else 0
+    nbytes = (xg.numel() * xg.element_size() + n_read * (wbytes + sbytes)
+              + 4 * E + E * C * d * torch.finfo(out_dtype).bits // 8)
+    return bound(nbytes, 2 * int(routed.sum()) * d * f * n_proj,
+                 torch.float32)
+
+
+def time_quant(args, act, out, plain=True):
+    """B2's kernel, plain and library times on these inputs.
+    -> dict(ms, plain_ms, library_ms)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn_quant
+    xg, wg, wu, wd, sg, su, sd, slots = args
+    ms = time_ms(lambda: moe_ffn_quant(*args, act=act, out_dtype=out), 10)
+    if not plain:
+        return dict(ms=ms)
+    plain_ms = time_ms(lambda: ref.moe_ffn_quant_ref(
+        *args, act=act, out_dtype=out), 3, ahead=False)
+    idx = slots.long()
+
+    def deq(w, s):
+        w = w[idx].to(torch.bfloat16)
+        return w if s is None else w * s[idx][:, None, :].to(torch.bfloat16)
+
+    def library():
+        x = xg.to(torch.bfloat16)
+        h = torch.nn.functional.silu(torch.bmm(x, deq(wg, sg))) \
+            * torch.bmm(x, deq(wu, su))
+        return torch.bmm(h, deq(wd, sd))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library, 10))
+
+
+def check_moe_ffn_quant(gen, card):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn_quant
 
     print("phase 3c: moe_ffn_quant kernel vs plain (moe_ffn_quant_ref)")
-    row = None
-    cases = [(MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"], 2 * MAIN["E"],
-              "swiglu", torch.float32)]
+    E, C, d, f = MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"]
+    row = {}
+    cases = [(E, C, d, f, 2 * E, "swiglu", torch.float32)]
     cases += [(3, 13, 520, 700, 4, act, out) for act in ("swiglu", "gelu")
               for out in (torch.float32, torch.bfloat16)]
     for kind in ("int8", "fp16"):
         for xdt in (torch.bfloat16, torch.float32):
-            for E, C, d, f, n, act, out in cases:
-                xg = (torch.randn((E, C, d), generator=gen, device="cuda")
-                      ).to(xdt)
-                wg, sg = wire(n, (d, f), kind) if act == "swiglu" \
-                    else (None, None)
-                wu, su = wire(n, (d, f), kind)
-                wd, sd = wire(n, (f, d), kind)
-                if E == 3:
-                    slots = torch.tensor([3, 0, 0], device="cuda")
-                else:     # E distinct slots of 2E, as at rf 0.5
-                    slots = torch.randperm(n, generator=gen,
-                                           device="cuda")[:E]
-                slots = slots.to(torch.int32)
-                args = (xg, wg, wu, wd, sg, su, sd, slots)
+            for E_, C_, d_, f_, n, act, out in cases:
+                args = quant_inputs(gen, E_, C_, d_, f_, n, act, kind, xdt)
                 got = moe_ffn_quant(*args, act=act, out_dtype=out)
                 want = ref.moe_ffn_quant_ref(*args, act=act, out_dtype=out)
                 torch.cuda.synchronize()
-                err = compare(f"E={E} C={C} d={d} f={f} n_slots={n} {act} "
+                err = compare(f"E={E_} C={C_} d={d_} f={f_} n_slots={n} {act} "
                               f"{kind} x {xdt} out {out}", got, want)
-                if E == 3:
+                if E_ == 3 or xdt != torch.bfloat16:
                     continue
-                ms = time_ms(lambda: moe_ffn_quant(*args, act=act,
-                                                   out_dtype=out), 10)
-                plain_ms = time_ms(lambda: ref.moe_ffn_quant_ref(
-                    *args, act=act, out_dtype=out), 3, ahead=False)
-                idx = slots.long()
-
-                def deq(w, s):
-                    w = w[idx].to(torch.bfloat16)
-                    return w if s is None else \
-                        w * s[idx][:, None, :].to(torch.bfloat16)
-
-                def library():
-                    x = xg.to(torch.bfloat16)
-                    h = torch.nn.functional.silu(torch.bmm(x, deq(wg, sg))) \
-                        * torch.bmm(x, deq(wu, su))
-                    return torch.bmm(h, deq(wd, sd))
-                lib_ms = time_ms(library, 10)
-                n_read = len(set(slots.tolist()))
-                wbytes = 3 * d * f * wu.element_size()
-                sbytes = 4 * (2 * f + d) if kind == "int8" else 0
-                nbytes = (xg.numel() * xg.element_size()
-                          + n_read * (wbytes + sbytes) + 4 * E
-                          + got.numel() * got.element_size())
-                bound_ms, by = bound(nbytes, 2 * E * C * d * f * 3,
-                                     torch.float32)
-                print(f"  time {kind} x {xdt}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, library (dequantize to bf16 + 3x "
-                      f"torch.bmm + silu) {lib_ms:.4f} ms, bound "
-                      f"{bound_ms:.4f} ms ({by}) [{card}]")
-                if kind == "int8" and xdt == torch.bfloat16:
-                    row = dict(name="moe_ffn_quant", route="cuda",
-                               source="src/repro_torch/kernels/csrc/"
-                                      "moe_ffn_quant.cu",
-                               replaces="src/repro/kernels/moe_ffn.py:177",
-                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=by,
-                               library_ms=lib_ms)
-                del xg, wg, wu, wd, sg, su, sd, args, got, want
+                # every row of every expert filled
+                nums = time_quant(args, act, out)
+                bound_ms, by = quant_bound(
+                    args, torch.ones((E, C), dtype=torch.bool,
+                                     device="cuda"), out)
+                print(f"  time {kind} x {xdt}, every expert: kernel "
+                      f"{nums['ms']:.4f} ms, plain {nums['plain_ms']:.4f} ms, "
+                      f"library (dequantize to bf16 + 3x torch.bmm + silu) "
+                      f"{nums['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({by}), roofline {bound_ms / nums['ms']:.1%} [{card}]")
+                pre = "" if kind == "int8" else "fp16_"
+                row.update({pre + k: v for k, v in dict(
+                    max_abs_err=err, bound_ms=bound_ms, bound_by=by,
+                    **nums).items()})
+                # decode occupancy: the routing draw of B1's row
+                routed, n_experts = route_decode(args[0])
+                got = moe_ffn_quant(*args, act=act, out_dtype=out)
+                want = ref.moe_ffn_quant_ref(*args, act=act, out_dtype=out)
+                torch.cuda.synchronize()
+                err = compare(f"decode occupancy: {TOKENS} tokens x top-"
+                              f"{TOP_K}, {n_experts} of {E} experts "
+                              f"non-empty, {kind} x {xdt} out {out}", got,
+                              want)
+                check_zero_rows(got, routed)
+                nums = time_quant(args, act, out)
+                bound_ms, by = quant_bound(args, routed, out)
+                print(f"  time {kind} x {xdt}, decode occupancy: kernel "
+                      f"{nums['ms']:.4f} ms, plain {nums['plain_ms']:.4f} ms, "
+                      f"library (as above, all {E} experts) "
+                      f"{nums['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({by}: {n_experts} experts' weights and scales), "
+                      f"roofline {bound_ms / nums['ms']:.1%} [{card}]")
+                row.update({pre + "occupancy_" + k: v for k, v in dict(
+                    experts=n_experts, max_abs_err=err, bound_ms=bound_ms,
+                    bound_by=by, **nums).items()})
+                del args, got, want
                 torch.cuda.empty_cache()
-    return row
+    return dict(name="moe_ffn_quant", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
+                replaces="src/repro/kernels/moe_ffn.py:177",
+                shape=f"E={E} C={C} d={d} f={f} swiglu, {2 * E} slots, x "
+                      "bf16, out fp32; int8 unless fp16_", **row)
 
 
 def check_flash_decode(gen, card):
@@ -469,10 +542,12 @@ def check_wkv6(gen, card):
 
     print("phase 3d: wkv6 kernel vs plain (wkv6_ref)")
     f32, bf16 = torch.float32, torch.bfloat16
-    row, prefill = None, None
+    row, prefill = None, {}
     for BH, T, hd, dtype, w_dtype, what in [
             (256, 1, 64, bf16, f32, "decode"),        # 4 rows x 64 heads
-            (64, 512, 64, bf16, f32, "prefill"),      # one 512-token prompt
+            # one prompt of each of phase 6's lengths, 512 last (the row's
+            # prefill_* keys)
+            *((64, T, 64, bf16, f32, "prefill") for T in RWKV_PROMPTS),
             (256, 1, 64, f32, f32, ""), (64, 512, 64, f32, f32, ""),
             (3, 37, 32, f32, f32, ""), (3, 37, 32, bf16, f32, ""),
             (3, 37, 32, bf16, bf16, "")]:
@@ -491,20 +566,13 @@ def check_wkv6(gen, card):
         compare(f"{name} sN", sN, sN_ref, WKV_TOL)
         if not what:
             continue
-        ms = time_ms(lambda: wkv6(*args), 200 if T == 1 else 20)
-        plain_ms = time_ms(lambda: ref.wkv6_ref(*args), 50 if T == 1 else 3,
-                           ahead=False)
-        nbytes = (sum(t.numel() * t.element_size() for t in args)
-                  + o.numel() * o.element_size() + sN.numel() * 4)
-        # per step and row: hd*hd state elements, each k*v (1), w*S + a
-        # (2) and its share of r^T S (2); the bonus (r*u*k)^T v is O(hd)
-        bound_ms, by = bound(nbytes, 5 * BH * T * hd * (hd + 1), f32)
-        print(f"  time {what} BH={BH} T={T}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library none (no single PyTorch call "
-              f"computes the recurrence), bound {bound_ms:.6f} ms ({by}) "
-              f"(L2-warm, back-to-back launches) [{card}]")
-        nums = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=by, library_ms=None)
+        nums = dict(max_abs_err=err, **time_wkv6(args, o, sN))
+        print(f"  time {what} BH={BH} T={T}: kernel {nums['ms']:.4f} ms, "
+              f"plain {nums['plain_ms']:.4f} ms, library none (no single "
+              f"PyTorch call computes the recurrence), bound "
+              f"{nums['bound_ms']:.6f} ms ({nums['bound_by']}), roofline "
+              f"{nums['bound_ms'] / nums['ms']:.1%} (L2-warm, back-to-back "
+              f"launches) [{card}]")
         if what == "decode":
             row = dict(name="wkv6", route="cuda",
                        source="src/repro_torch/kernels/csrc/wkv6.cu",
@@ -513,10 +581,32 @@ def check_wkv6(gen, card):
                        library_note="no single PyTorch call computes the "
                                     "recurrence")
         else:
-            prefill = {f"prefill_{key}": val for key, val in nums.items()
-                       if key in ("ms", "plain_ms", "bound_ms", "bound_by")}
-    row.update(prefill)
+            prefill[T] = {key: val for key, val in nums.items()
+                          if key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")}
+    row.update({f"prefill_{key}": val for key, val in prefill[512].items()})
+    row["prefill_by_T"] = prefill
     return row
+
+
+def time_wkv6(args, o, sN, plain=True):
+    """B4's kernel and plain times and its bound on these inputs.
+    -> dict(ms, plain_ms, bound_ms, bound_by, library_ms=None)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6 import wkv6
+    BH, T, hd = args[0].shape
+    nums = dict(ms=time_ms(lambda: wkv6(*args), 200 if T == 1 else 20))
+    if plain:
+        nums["plain_ms"] = time_ms(lambda: ref.wkv6_ref(*args),
+                                   50 if T == 1 else 3, ahead=False)
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + o.numel() * o.element_size() + sN.numel() * 4)
+    # per step and row: hd*hd state elements, each k*v (1), w*S + a (2) and
+    # its share of r^T S (2); the bonus (r*u*k)^T v is O(hd)
+    nums["bound_ms"], nums["bound_by"] = bound(
+        nbytes, 5 * BH * T * hd * (hd + 1), "torch.float32")
+    nums["library_ms"] = None
+    return nums
 
 
 def _check_budgets(out, cfg):

@@ -33,15 +33,16 @@ _SIGNATURES = {
     # xg, w_gate, w_up, w_down, slot_ids, flags, h, y, E, C, d, f, act,
     # dtype, stream
     "moe_ffn": ("moe_ffn_launch", [_P] * 8 + [_I] * 6 + [_P]),
-    # xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids, h, y, E, C,
-    # d, f, act, x_dtype, w_dtype, out_dtype, stream
-    "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 10 + [_I] * 8 + [_P]),
+    # xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids, flags, h,
+    # y, E, C, d, f, act, x_dtype, w_dtype, out_dtype, stream
+    "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 11 + [_I] * 8 + [_P]),
     # q, k, v, lens, out, part, B, S, Hkv, rep, hd, splits, split_len,
     # scale, dtype, stream
     "flash_decode": ("flash_decode_launch",
                      [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
-    # r, k, v, w, u, s0, o, sN, BH, T, hd, dtype, w_dtype, stream
-    "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 5 + [_P]),
+    # r, k, v, w, u, s0, o, sN, BH, T, hd, rows, cols, dtype, w_dtype,
+    # stream
+    "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,11 +20,12 @@
 // read at all. What is left, ~29 experts x 37.7 MB, is ~0.33 ms.
 //
 // What the design does about it (moe_ffn_tc.cuh):
-//  - A first small launch marks the non-zero rows of xg and the experts
-//    that have one (reading xg, 8 MB at decode, on the device: no host
-//    sync). Blocks of an unmarked expert write zeros and exit before any
-//    weight is read; rows marked zero are written as +0.0. The function is
-//    unchanged: every activation maps a zero row to zero.
+//  - A first small launch marks the non-zero rows of xg (reading xg, 8 MB
+//    at decode, on the device: no host sync). A block whose rows are all
+//    unmarked (every block of an expert nothing was routed to) writes
+//    zeros and exits before any weight is read; rows marked zero are
+//    written as +0.0. The function is unchanged: every activation maps a
+//    zero row to zero.
 //  - The weights stream as 16-byte cp.async copies into a shared-memory
 //    ring (4 stages in bf16, 3 in fp32), so each block keeps several 16 KB
 //    stages in flight.
@@ -45,29 +46,27 @@ namespace {
 
 template <typename T>
 cudaError_t moe_ffn_typed(const void* xg, const void* w_gate, const void* w_up,
-                          const void* w_down, const int* slot_ids, int* flags,
+                          const void* w_down, const int* slot_ids, int* row_nz,
                           void* h, void* y, int E, int C, int d, int f, int act,
                           cudaStream_t s) {
-  int* row_nz = flags;
-  int* expert_nz = flags + (size_t)E * C;
   const T* x = static_cast<const T*>(xg);
-  cudaError_t err = moe_tc::scan<T>(x, E, C, d, row_nz, expert_nz, s);
+  cudaError_t err = moe_tc::scan<T>(x, E, C, d, row_nz, s);
   if (err != cudaSuccess) return err;
-  err = moe_tc::launch_act<T>(act, x, static_cast<const T*>(w_up),
-                              static_cast<const T*>(w_gate), slot_ids, row_nz,
-                              expert_nz, static_cast<T*>(h), E, C, d, f, s);
+  err = moe_tc::launch_act<T, T, T, false>(act, x, static_cast<const T*>(w_up),
+                                           static_cast<const T*>(w_gate), nullptr, nullptr,
+                                           slot_ids, row_nz, static_cast<T*>(h), E, C, d, f, s);
   if (err != cudaSuccess) return err;
-  return moe_tc::launch<T, moe_tc::kNone>(
-      static_cast<const T*>(h), static_cast<const T*>(w_down), nullptr, slot_ids,
-      row_nz, expert_nz, static_cast<T*>(y), E, C, f, d, s);
+  return moe_tc::launch<T, T, T, moe_tc::kNone, false>(
+      static_cast<const T*>(h), static_cast<const T*>(w_down), nullptr, nullptr, nullptr,
+      slot_ids, row_nz, static_cast<T*>(y), E, C, f, d, s);
 }
 
 }  // namespace
 
 // xg (E, C, d); w_gate, w_up (n, d, f) (w_gate may be null for ungated
 // activations); w_down (n, f, d); slot_ids (E,) int32 in [0, n) or null
-// (then n = E); flags int32 scratch of E * C + E; h (E, C, f) scratch;
-// y (E, C, d). All contiguous, one dtype. Launches on `stream`; returns
+// (then n = E); flags int32 scratch of E * C (row marks); h (E, C, f)
+// scratch; y (E, C, d). All contiguous, one dtype. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int moe_ffn_launch(const void* xg, const void* w_gate, const void* w_up,
                               const void* w_down, const void* slot_ids, void* flags,

@@ -8,8 +8,10 @@ dequantized in the kernel, with the expert -> slot table folded into its
 addressing. Both take CUDA tensors only; the CPU paths are
 ``ref.moe_ffn_ref`` / ``ref.moe_ffn_quant_ref`` (dispatch lives in
 ``ops``). ``launches`` / ``quant_launches`` count calls that launched each
-kernel (one per call, although ``moe_ffn`` runs as three launches: a scan
-of xg's non-zero rows, up+activation, then down; ``moe_ffn_quant`` as two).
+kernel (one per call, although each call runs as three launches: a scan
+of xg's non-zero rows, up+activation, then down). Both skip what nothing
+was routed to: a zero row of xg gives a +0.0 row, and an expert with no
+non-zero row has none of its weights (or scales) read.
 """
 from __future__ import annotations
 
@@ -72,8 +74,8 @@ def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu",
     dev, dt = xg.device, xg.dtype
     build.check_tensor("xg", xg, tuple(xg.shape), dt, dev)
     E, C, d, f, _ = _check_weights(xg, w_gate, w_up, w_down, dt, slot_ids)
-    # row and expert marks of xg's non-zero rows (E*C + E), then h
-    flags = torch.empty((E * C + E,), dtype=torch.int32, device=dev)
+    # marks of xg's non-zero rows, then h
+    flags = torch.empty((E * C,), dtype=torch.int32, device=dev)
     h = torch.empty((E, C, f), dtype=dt, device=dev)
     y = torch.empty((E, C, d), dtype=dt, device=dev)
     fn = build.load("moe_ffn")
@@ -97,6 +99,8 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
     gelu); s_gate/s_up: (n_slots, f) and s_down: (n_slots, d) fp32
     per-output-channel scales, given for int8 and None for fp16;
     slot_ids: (E,) int32, each in [0, n_slots) (the kernel does not check).
+    Rows of ``xg`` that are all zero give +0.0 rows, and an expert with no
+    non-zero row reads neither its slot's weights nor its scales.
     -> (E, C, d) in ``out_dtype`` (fp32 or bf16; default xg's dtype)."""
     global quant_launches
     if xg.device.type != "cuda":
@@ -126,6 +130,7 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
             build.check_tensor(name, s, (n, width), torch.float32, dev)
         elif s is not None:
             raise ValueError(f"{name} is taken only with int8 weights")
+    flags = torch.empty((E * C,), dtype=torch.int32, device=dev)
     h = torch.empty((E, C, f), dtype=torch.float32, device=dev)
     y = torch.empty((E, C, d), dtype=out_dtype, device=dev)
     fn = build.load("moe_ffn_quant")
@@ -133,7 +138,8 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(xg.data_ptr(), _ptr(w_gate), w_up.data_ptr(),
                  w_down.data_ptr(), _ptr(s_gate), _ptr(s_up), _ptr(s_down),
-                 slot_ids.data_ptr(), h.data_ptr(), y.data_ptr(),
+                 slot_ids.data_ptr(), flags.data_ptr(), h.data_ptr(),
+                 y.data_ptr(),
                  E, C, d, f, ACTS[act], build.DTYPES[xg.dtype],
                  build.WIRE_DTYPES[wdt], build.DTYPES[out_dtype], stream)
     build.check("moe_ffn_quant", err)

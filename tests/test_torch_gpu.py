@@ -265,6 +265,105 @@ def test_moe_ffn_quant_kernel_matches_plain(cuda, wire, dtype, act, out):
     np.testing.assert_allclose(_f32(y), _f32(want), **_tol(out))
 
 
+def _routed_xg(rng, E, C, d, dtype, dev):
+    """xg with the rows of ``ROUTED`` filled and every other row exactly
+    zero; -> (xg, (E, C) bool mask of the routed rows)."""
+    xg = _rand(rng, (E, C, d), 1.0, dtype, dev)
+    routed = torch.zeros((E, C), dtype=torch.bool, device=dev)
+    for e, rows in enumerate(ROUTED):
+        routed[e, rows] = True
+    return xg * routed[..., None].to(xg.dtype), routed
+
+
+def _quant_slots(rng, n, d, f, act, wire, dev):
+    """(w_gate, w_up, w_down, s_gate, s_up, s_down) slot buffers."""
+    wg, sg = (_wire(rng, n, (d, f), wire, dev) if act in ("swiglu", "geglu")
+              else (None, None))
+    wu, su = _wire(rng, n, (d, f), wire, dev)
+    wd, sd = _wire(rng, n, (f, d), wire, dev)
+    return wg, wu, wd, sg, su, sd
+
+
+def _poison(bufs, slot):
+    """Fill slot ``slot`` of every buffer with NaN: fp16 weights and int8
+    scales (int8 weights hold no NaN)."""
+    for b in bufs:
+        if b is not None and b.is_floating_point():
+            b[slot] = float("nan")
+
+
+@pytest.mark.parametrize("E,C,d,f", [(5, 13, 520, 700),    # ragged: no tile
+                                     (5, 13, 512, 384)])   # 16-byte rows
+@pytest.mark.parametrize("wire", ["int8", "fp16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_moe_ffn_quant_kernel_skips_unrouted_rows(cuda, E, C, d, f, wire,
+                                                  dtype, act, out):
+    """B2 at sparse occupancy as the dispatch makes it at decode: empty
+    experts, one-row experts, zero rows between routed ones, through a
+    permuted slot table. The kernel matches the plain version, and every
+    zero row of xg gives a +0.0 row of y."""
+    rng = np.random.default_rng(14)
+    n = E + 2
+    xg, routed = _routed_xg(rng, E, C, d, dtype, cuda)
+    ws = _quant_slots(rng, n, d, f, act, wire, cuda)
+    ids = torch.tensor([6, 0, 3, 1, 5], dtype=torch.int32, device=cuda)
+    before = moe_mod.quant_launches
+    y = moe_mod.moe_ffn_quant(xg, *ws, ids, act=act, out_dtype=DTYPES[out])
+    assert moe_mod.quant_launches == before + 1
+    want = ref.moe_ffn_quant_ref(xg, *ws, ids, act=act,
+                                 out_dtype=DTYPES[out])
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol(out))
+    assert _bits_zero(y[~routed])
+    assert not bool((y[routed] == 0).all(dim=-1).any())
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_quant_kernel_with_every_expert_empty(cuda, wire, dtype):
+    """Every slot holds NaN (fp16 weights, int8 scales) and xg is all zero:
+    the result is all +0.0, so no weight and no scale was read."""
+    rng = np.random.default_rng(15)
+    E, C, d, f = 4, 8, 256, 128
+    xg = torch.zeros((E, C, d), dtype=DTYPES[dtype], device=cuda)
+    ws = _quant_slots(rng, E, d, f, "swiglu", wire, cuda)
+    for slot in range(E):
+        _poison(ws, slot)
+    ids = torch.arange(E, dtype=torch.int32, device=cuda)
+    y = moe_mod.moe_ffn_quant(xg, *ws, ids, act="swiglu",
+                              out_dtype=torch.float32)
+    assert y.shape == xg.shape and _bits_zero(y)
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp16"])
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_moe_ffn_quant_kernel_unrouted_experts_on_a_nan_slot(cuda, wire,
+                                                            act):
+    """A slot table in which the experts with nothing routed point at a
+    NaN-filled slot (as a table may for experts not resident): their rows
+    are +0.0 and the routed experts match the plain version over a table
+    that points the unrouted ones at a finite slot."""
+    rng = np.random.default_rng(16)
+    E, C, d, f = 5, 13, 512, 384
+    n = E + 2
+    xg, routed = _routed_xg(rng, E, C, d, "bfloat16", cuda)
+    ws = _quant_slots(rng, n, d, f, act, wire, cuda)
+    busy, nan_slot = [6, 0, 3, 1, 5], 2       # slot 2 serves no expert
+    _poison(ws, nan_slot)
+    nan_ids = torch.tensor([s if ROUTED[e] else nan_slot
+                            for e, s in enumerate(busy)],
+                           dtype=torch.int32, device=cuda)
+    ok_ids = torch.tensor(busy, dtype=torch.int32, device=cuda)
+    y = moe_mod.moe_ffn_quant(xg, *ws, nan_ids, act=act,
+                              out_dtype=torch.float32)
+    want = ref.moe_ffn_quant_ref(xg, *ws, ok_ids, act=act,
+                                 out_dtype=torch.float32)
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol("float32"))
+    assert _bits_zero(y[~routed])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_ffn_kernel_with_slot_ids_matches_plain(cuda, dtype):
     rng = np.random.default_rng(7)
@@ -367,6 +466,25 @@ def test_wkv6_kernel_matches_plain(cuda, BH, T, hd, dtype, w_dtype):
     o_ref, sN_ref = ref.wkv6_ref(*args)
     # fp32: the limit of tests/test_kernels.py's wkv6 test (sums over K in
     # another order); o in bf16 rounds once at the end
+    tol = dict(atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_f32(o), _f32(o_ref),
+                               **(tol if dtype == "float32" else _tol(dtype)))
+    np.testing.assert_allclose(_f32(sN), _f32(sN_ref), **tol)
+
+
+@pytest.mark.parametrize("T", [1, 7, 37, 512, 1000])
+@pytest.mark.parametrize("BH", [1, 3, 64, 256, 300])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_kernel_splits_state(cuda, T, BH, hd, dtype):
+    """B4 under both of ``plan``'s state splits (8 rows x 16 columns, and
+    16 x 32 once B*H fills the card: BH = 256 at hd = 64, 300 at hd = 32)
+    over single steps, tiles of steps that do not divide T, and long
+    prompts: o and sN against the plain version."""
+    rng = np.random.default_rng(17)
+    args = _wkv_inputs(rng, BH, T, hd, dtype, "float32", cuda)
+    o, sN = wkv_mod.wkv6(*args)
+    o_ref, sN_ref = ref.wkv6_ref(*args)
     tol = dict(atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(_f32(o), _f32(o_ref),
                                **(tol if dtype == "float32" else _tol(dtype)))

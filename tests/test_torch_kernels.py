@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_decode import TILE as FD_TILE
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode import splits as fd_splits
 from repro_torch.kernels.moe_ffn import moe_ffn
+from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch.kernels.wkv6 import wkv6
 
 torch.set_num_threads(2)
@@ -176,6 +177,35 @@ def test_flash_decode_split_policy(B, Hkv, rep, S, want):
     assert L % FD_TILE == 0 and n * L >= S > (n - 1) * L
     blocks = B * Hkv * -(-rep // 16)
     assert n == 1 or blocks * n <= 2 * BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("BH,hd,want", [
+    (256, 64, (4, 32)),     # decode, 4 rows x 64 heads: 512 blocks
+    (64, 64, (8, 16)),      # a prompt at B = 1: 128 blocks would idle SMs
+    (1, 64, (8, 16)),
+    (132, 64, (4, 32)),     # two blocks of 32 columns per SM already
+    (3, 32, (4, 16)),
+    (300, 32, (2, 32)),
+])
+def test_wkv6_launch_plan(BH, hd, want):
+    """B4's split of each row's (hd, hd) state: column blocks of ``cols``
+    and row groups cover every (row, column) of the state exactly once,
+    whole warps or one, and fat threads only when the grid fills the
+    card."""
+    groups, cols = wkv_mod.plan(BH, hd, n_sm=132)
+    assert (groups, cols) == want
+    rows = hd // groups
+    assert groups * rows == hd and hd % cols == 0
+    assert rows in (wkv_mod.ROWS, wkv_mod.MANY_ROWS)
+    assert (groups * cols) % 32 == 0
+    cover = np.zeros((hd, hd), int)
+    for block in range(hd // cols):
+        for g in range(groups):
+            for j in range(cols):
+                cover[g * rows:(g + 1) * rows, block * cols + j] += 1
+    assert (cover == 1).all()
+    fills = BH * hd // min(wkv_mod.COLS, hd) >= wkv_mod.BLOCKS_PER_SM * 132
+    assert (rows == wkv_mod.MANY_ROWS) == fills
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

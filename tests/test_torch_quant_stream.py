@@ -21,6 +21,7 @@ import torch
 from repro.configs import get_config
 from repro.core import quant
 from repro.core.slot_cache import HostExpertStore as JaxHostExpertStore
+from repro.kernels.moe_ffn import moe_ffn_quant as pallas_moe_ffn_quant
 from repro.kernels.moe_ffn import moe_ffn_slots
 from repro.launch import serve as jax_serve
 from repro.models import Model as JaxModel
@@ -121,6 +122,64 @@ def test_moe_ffn_quant_plain_master_wire_is_moe_ffn_ref():
     assert torch.equal(y, ref.moe_ffn_ref(
         torch.from_numpy(xg), t["w_gate"][idx], t["w_up"][idx],
         t["w_down"][idx]))
+
+
+# rows of each expert that carry a token (the rest of xg is exactly zero):
+# a full expert, an empty one, one row, a scattered pair, empty again
+ROUTED = [list(range(16)), [], [3], [0, 15], []]
+
+
+@pytest.mark.parametrize("wire", ["fp16", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_ffn_quant_zero_rows_give_zero_rows(wire, dtype, act):
+    """The invariant B2's kernel skips on: over dequantized wire weights,
+    every activation maps a zero row of xg to a +0.0 row of y, so a zero
+    row (and an expert with only zero rows) needs no weight and no scale.
+    Held by the port's plain version and the Pallas ``moe_ffn_quant`` in
+    interpret mode on the same numpy-seeded inputs and slot table."""
+    E, C, d, f, n = len(ROUTED), 16, 128, 256, 7
+    rng = np.random.default_rng(23)
+    mask = np.zeros((E, C, 1), np.float32)
+    for e, rows in enumerate(ROUTED):
+        mask[e, rows] = 1.0
+    xg = rng.standard_normal((E, C, d), np.float32) * mask
+    slot_ids = np.array([6, 0, 3, 1, 5], np.int32)
+    bufs = {}
+    names = ("w_gate", "w_up", "w_down") if act in ("swiglu", "geglu") \
+        else ("w_up", "w_down")
+    for name in names:
+        shape = (f, d) if name == "w_down" else (d, f)
+        ws = [quant.quantize_weight(
+            rng.standard_normal(shape, np.float32) * 0.05, wire)
+            for _ in range(n)]
+        bufs[name] = np.stack([w for w, _ in ws])
+        if ws[0][1] is not None:
+            bufs[name + "_scale"] = np.stack([s for _, s in ws])
+    jd, td = DTYPES[dtype]
+
+    def taken(name):        # the gathered (E, ...) operand, or None
+        return (jnp.asarray(bufs[name][slot_ids]) if name in bufs
+                else None)
+    pallas = pallas_moe_ffn_quant(
+        jnp.asarray(xg).astype(jd), taken("w_gate"), taken("w_up"),
+        taken("w_down"), taken("w_gate_scale"), taken("w_up_scale"),
+        taken("w_down_scale"), act=act, block_c=16, block_f=128,
+        interpret=True)
+    t = {k: torch.from_numpy(v) for k, v in bufs.items()}
+    port = ref.moe_ffn_quant_ref(
+        torch.from_numpy(xg).to(td), t.get("w_gate"), t["w_up"],
+        t["w_down"], t.get("w_gate_scale"), t.get("w_up_scale"),
+        t.get("w_down_scale"), torch.from_numpy(slot_ids), act=act,
+        out_dtype=torch.float32)
+    zero = mask[..., 0] == 0
+    assert not np.signbit(port.numpy()[zero]).any()
+    for name, y in (("port", port.numpy()),
+                    ("pallas", np.asarray(pallas, np.float32))):
+        assert (y[zero] == 0).all(), name
+        assert (y[~zero] != 0).any(axis=-1).all(), name
+    np.testing.assert_allclose(port.to(td).float().numpy(),
+                               np.asarray(pallas, np.float32), **_tol(dtype))
 
 
 # ---------------------------------------------------------------------------
