@@ -10,12 +10,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
      the plain version, a library call (a yardstick only) and the bound:
      3a moe_ffn (B1, also through a permuted slot table, and at decode
-     occupancy: 4 tokens x top-8, the other rows and experts zero), 3b
-     flash_decode (B3, also over a 32768-position cache split across
+     occupancy: 4 tokens x top-8, the other rows and experts zero; and at
+     DeepSeek-V2's decode occupancy: 160 experts, C = 6, 4 tokens x top-6),
+     3b flash_decode (B3, also over a 32768-position cache split across
      blocks), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers, every
-     expert filled and at B1's decode occupancy), 3d wkv6 (B4, the RWKV6
-     recurrence at decode, at each of phase 6's prompt lengths and at
-     ragged shapes);
+     expert filled and at B1's decode occupancy; at DeepSeek-V2's over 240
+     slots), 3d wkv6 (B4, the RWKV6 recurrence at decode, at each of phase
+     6's prompt lengths and at ragged shapes);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -41,7 +42,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      profile one more step (device busy time, kernels, aten ops);
   6b the same port on the card against the CPU (reduced rwkv6-7b, fp32):
      equal greedy tokens, logits within fp32 limits;
-  7. one JSON line of per-kernel numbers, then the result line.
+  7. phase 4 for deepseek-v2-236b at full width (MLA, 160 experts top-6
+     plus 2 shared experts, a dense first layer), cut to 4 layers: B1 on
+     every MoE layer, B3 never (MLA decode is tensor ops over the latent
+     cache); plus the step's weight-read floor;
+  7b phase 4b for the same model (240 slots for 480 experts), with the
+     host's resident memory;
+  7c the launcher on the card against the CPU, same weights, fp32, every
+     report line equal but the wall-clock ones: reduced qwen3-moe and a
+     reduced DeepSeek-V2 of 1 dense + 2 MoE layers x 8 experts (forward
+     and 6 pooled decode steps first), all-resident and at rf 0.5 over each
+     wire;
+  8. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -60,6 +72,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
+DEEPSEEK = dict(E=160, C=6, d=5120, f=1536)   # DeepSeek-V2's, top-6
+DEEPSEEK_SLOTS = 240                          # rf 0.5 of 3 x 160 experts
 LONG_CACHE = (4, 64, 4, 128, 32768)           # B3: B, H, Hkv, hd, S (> L2)
 SLEEP_CYCLES = 50_000_000                     # ~25 ms at the H100's clocks
 
@@ -210,18 +224,23 @@ def check_moe_ffn(gen, card):
             del xg, wg, wu, wd, got, want
             torch.cuda.empty_cache()
     row.update(check_moe_ffn_occupancy(gen, card, make))
+    row.update(check_moe_ffn_occupancy(
+        gen, card, make, DEEPSEEK, DEEPSEEK_TOP_K, (torch.bfloat16,),
+        "deepseek_"))
     return row
 
 
 TOKENS, TOP_K = 4, 8          # the decode pool and the routing width
+DEEPSEEK_TOP_K = 6
 
 
-def route_decode(xg, seed=1):
+def route_decode(xg, seed=1, top_k=TOP_K):
     """Fill xg (E, C, d) in place as the dispatch fills it for a pool of
-    TOKENS tokens, each routed to TOP_K distinct experts (a seeded draw) at
-    its expert's first free row: the tokens are xg[0, :TOKENS] as made;
-    every other row, and every expert no token chose, is exactly zero.
-    -> ((E, C) bool mask of the routed rows, number of routed experts)."""
+    TOKENS tokens, each routed to ``top_k`` distinct experts (a seeded
+    draw) at its expert's first free row: the tokens are xg[0, :TOKENS] as
+    made; every other row, and every expert no token chose, is exactly
+    zero. -> ((E, C) bool mask of the routed rows, number of routed
+    experts)."""
     import torch
     E = xg.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -230,7 +249,7 @@ def route_decode(xg, seed=1):
     fill = [0] * E
     for t in range(TOKENS):
         for e in torch.randperm(E, generator=gen,
-                                device="cuda")[:TOP_K].tolist():
+                                device="cuda")[:top_k].tolist():
             xg[e, fill[e]] = x[t]
             fill[e] += 1
     routed = (xg != 0).any(-1)
@@ -248,25 +267,28 @@ def check_zero_rows(y, routed):
           f"every bit")
 
 
-def check_moe_ffn_occupancy(gen, card, make):
-    """B1 at decode occupancy: xg filled as the dispatch fills it for a pool
-    of 4 tokens, each routed to 8 distinct experts at its expert's first
-    free row; every other row (and every expert no token chose) is exactly
-    zero. -> the ``occupancy_*`` keys of B1's row (bf16)."""
+def check_moe_ffn_occupancy(gen, card, make, shape=MAIN, top_k=TOP_K,
+                            dtypes=None, prefix=""):
+    """B1 at decode occupancy: xg (``shape``) filled as the dispatch fills
+    it for a pool of 4 tokens, each routed to ``top_k`` distinct experts at
+    its expert's first free row; every other row (and every expert no token
+    chose) is exactly zero. -> the ``<prefix>occupancy_*`` keys of B1's row
+    (bf16)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.moe_ffn import moe_ffn
 
-    E, C, d, f = MAIN["E"], MAIN["C"], MAIN["d"], MAIN["f"]
+    E, C, d, f = shape["E"], shape["C"], shape["d"], shape["f"]
     nums = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes or (torch.bfloat16, torch.float32):
         xg, wg, wu, wd = make(E, C, d, f, "swiglu", dtype)
-        routed, n_experts = route_decode(xg)
+        routed, n_experts = route_decode(xg, top_k=top_k)
         got = moe_ffn(xg, wg, wu, wd, act="swiglu")
         want = ref.moe_ffn_ref(xg, wg, wu, wd, act="swiglu")
         torch.cuda.synchronize()
-        err = compare(f"decode occupancy: {TOKENS} tokens x top-{TOP_K}, "
-                      f"{n_experts} of {E} experts non-empty, {dtype}",
+        at = f" E={E} C={C} d={d} f={f}" if prefix else ""
+        err = compare(f"decode occupancy{at}: {TOKENS} tokens x top-{top_k}"
+                      f", {n_experts} of {E} experts non-empty, {dtype}",
                       got, want)
         check_zero_rows(got, routed)
         if dtype != torch.bfloat16:
@@ -287,15 +309,18 @@ def check_moe_ffn_occupancy(gen, card, make):
         nbytes = esz * (2 * xg.numel() + n_experts * 3 * d * f)
         bound_ms, by = bound(nbytes, 2 * int(routed.sum()) * d * f * 3,
                              dtype)
-        print(f"  time decode occupancy {dtype}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library (3x torch.bmm + silu over all "
-              f"{E} experts) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}:"
-              f" {n_experts} experts' weights), kernel/library "
+        print(f"  time decode occupancy{at} {dtype}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library (3x torch.bmm + silu over "
+              f"all {E} experts) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({by}: {n_experts} experts' weights), kernel/library "
               f"{ms / lib_ms:.3f}, roofline {bound_ms / ms:.1%} [{card}]")
-        nums = dict(occupancy_experts=n_experts, occupancy_max_abs_err=err,
-                    occupancy_ms=ms, occupancy_plain_ms=plain_ms,
-                    occupancy_bound_ms=bound_ms, occupancy_bound_by=by,
-                    occupancy_library_ms=lib_ms)
+        nums = {prefix + "occupancy_" + k: v for k, v in dict(
+            experts=n_experts, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms).items()}
+        if prefix:
+            nums[prefix + "occupancy_shape"] = (
+                f"E={E} C={C} d={d} f={f} swiglu bf16, {TOKENS} tokens x "
+                f"top-{top_k}")
         del xg, wg, wu, wd, got, want
         torch.cuda.empty_cache()
     return nums
@@ -374,6 +399,34 @@ def time_quant(args, act, out, plain=True):
     return dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library, 10))
 
 
+def quant_occupancy(args, act, out, top_k, what, card):
+    """B2 at decode occupancy: ``args``' xg refilled by ``route_decode``
+    (top-``top_k``), held against the plain version with every unrouted row
+    +0.0, then timed. -> the values of the row's ``occupancy_*`` keys."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn_quant
+    E = args[0].shape[0]
+    routed, n_experts = route_decode(args[0], top_k=top_k)
+    got = moe_ffn_quant(*args, act=act, out_dtype=out)
+    want = ref.moe_ffn_quant_ref(*args, act=act, out_dtype=out)
+    torch.cuda.synchronize()
+    err = compare(f"decode occupancy: {TOKENS} tokens x top-{top_k}, "
+                  f"{n_experts} of {E} experts non-empty, {what}", got, want)
+    check_zero_rows(got, routed)
+    del got, want
+    nums = time_quant(args, act, out)
+    bound_ms, by = quant_bound(args, routed, out)
+    print(f"  time {what}, decode occupancy: kernel {nums['ms']:.4f} ms, "
+          f"plain {nums['plain_ms']:.4f} ms, library (dequantize to bf16 + "
+          f"3x torch.bmm + silu over all {E} experts) "
+          f"{nums['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+          f"{n_experts} experts' weights and scales), roofline "
+          f"{bound_ms / nums['ms']:.1%} [{card}]")
+    return dict(experts=n_experts, max_abs_err=err, bound_ms=bound_ms,
+                bound_by=by, **nums)
+
+
 def check_moe_ffn_quant(gen, card):
     import torch
     from repro_torch.kernels import ref
@@ -411,28 +464,29 @@ def check_moe_ffn_quant(gen, card):
                     max_abs_err=err, bound_ms=bound_ms, bound_by=by,
                     **nums).items()})
                 # decode occupancy: the routing draw of B1's row
-                routed, n_experts = route_decode(args[0])
-                got = moe_ffn_quant(*args, act=act, out_dtype=out)
-                want = ref.moe_ffn_quant_ref(*args, act=act, out_dtype=out)
-                torch.cuda.synchronize()
-                err = compare(f"decode occupancy: {TOKENS} tokens x top-"
-                              f"{TOP_K}, {n_experts} of {E} experts "
-                              f"non-empty, {kind} x {xdt} out {out}", got,
-                              want)
-                check_zero_rows(got, routed)
-                nums = time_quant(args, act, out)
-                bound_ms, by = quant_bound(args, routed, out)
-                print(f"  time {kind} x {xdt}, decode occupancy: kernel "
-                      f"{nums['ms']:.4f} ms, plain {nums['plain_ms']:.4f} ms, "
-                      f"library (as above, all {E} experts) "
-                      f"{nums['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-                      f"({by}: {n_experts} experts' weights and scales), "
-                      f"roofline {bound_ms / nums['ms']:.1%} [{card}]")
-                row.update({pre + "occupancy_" + k: v for k, v in dict(
-                    experts=n_experts, max_abs_err=err, bound_ms=bound_ms,
-                    bound_by=by, **nums).items()})
-                del args, got, want
+                del got, want
+                row.update({pre + "occupancy_" + k: v for k, v in
+                            quant_occupancy(args, act, out, TOP_K,
+                                            f"{kind} x {xdt} out {out}",
+                                            card).items()})
+                del args
                 torch.cuda.empty_cache()
+    # DeepSeek-V2's decode occupancy over the streaming path's 240 slots
+    dE, dC, dd, df = (DEEPSEEK[k] for k in "ECdf")
+    for kind in ("int8", "fp16"):
+        args = quant_inputs(gen, dE, dC, dd, df, DEEPSEEK_SLOTS, "swiglu",
+                            kind, torch.bfloat16)
+        nums = quant_occupancy(
+            args, "swiglu", torch.float32, DEEPSEEK_TOP_K,
+            f"E={dE} C={dC} d={dd} f={df} n_slots={DEEPSEEK_SLOTS} {kind} x "
+            f"bf16 out fp32", card)
+        nums["shape"] = (f"E={dE} C={dC} d={dd} f={df} swiglu, "
+                         f"{DEEPSEEK_SLOTS} slots, x bf16, out fp32, "
+                         f"{TOKENS} tokens x top-{DEEPSEEK_TOP_K}")
+        pre = "deepseek_" if kind == "int8" else "deepseek_fp16_"
+        row.update({pre + "occupancy_" + k: v for k, v in nums.items()})
+        del args
+        torch.cuda.empty_cache()
     return dict(name="moe_ffn_quant", route="cuda",
                 source="src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
                 replaces="src/repro/kernels/moe_ffn.py:177",
@@ -628,15 +682,33 @@ def _steps(srv, what, card):
     return steps
 
 
-def _full_cfg(what):
+QWEN3, DEEPSEEK_V2 = "qwen3-moe-235b-a22b", "deepseek-v2-236b"
+
+
+def _full_cfg(what, arch=QWEN3):
+    """``arch`` at every published width, its depth cut to 4 layers."""
     from repro_torch.configs import get_config
-    full = get_config("qwen3-moe-235b-a22b")
+    full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=4)
-    print(f"{what}, {cfg.name} at full width (d_model "
-          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
-          f"{cfg.head_dim_}, {cfg.moe.n_experts} experts top-"
-          f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, vocab {cfg.vocab}, "
-          f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers")
+    m, mla = cfg.moe, cfg.attn.mla
+    attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim_}"
+            if mla is None else
+            f"{cfg.n_heads} heads, MLA q_lora {mla.q_lora_rank} kv_lora "
+            f"{mla.kv_lora_rank} qk {mla.qk_nope_head_dim} + "
+            f"{mla.qk_rope_head_dim} v {mla.v_head_dim}")
+    extra = ""
+    if m.n_shared_experts:
+        extra += (f" + {m.n_shared_experts} shared x "
+                  f"{m.d_shared or m.d_expert}")
+    if m.first_dense_layers:
+        extra += (f", first {m.first_dense_layers} layer(s) dense d_ff "
+                  f"{cfg.d_ff}")
+    print(f"{what}, {cfg.name} at full width (d_model {cfg.d_model}, {attn}, "
+          f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert}"
+          f"{extra}, vocab {cfg.vocab}"
+          f"{'' if cfg.tie_embeddings else ' (head not tied)'}, "
+          f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers"
+          f" ({sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))} MoE)")
     return cfg
 
 
@@ -658,13 +730,38 @@ def _counts():
             "wkv6": wkv_mod.launches}
 
 
-def main_path(card):
+def _b3_per_step(cfg):
+    """B3 launches a decode step makes: one a layer for GQA, none for MLA
+    (its decode is tensor ops over the latent cache)."""
+    return cfg.n_layers if cfg.attn.mla is None else 0
+
+
+def weight_floor(model, counts):
+    """The least HBM bytes a pooled decode step reads: every weight but the
+    embedding table (a step reads its B rows) and the routed experts, plus
+    the step's distinct routed experts (from its (n_moe, B, E) counts).
+    -> (bytes, the non-expert bytes, distinct experts, one expert's
+    bytes)."""
+    names = {f"layers.{i}.moe.{k}" for i in model.moe_layers
+             for k in ("w_gate", "w_up", "w_down")}
+    params = dict(model.named_parameters())
+    dense = sum(p.numel() * p.element_size() for n, p in params.items()
+                if n != "embed" and n not in names)
+    moe = model.layers[model.moe_layers[0]].moe
+    one = sum(getattr(moe, k)[0].numel() * getattr(moe, k).element_size()
+              for k in ("w_gate", "w_up", "w_down") if hasattr(moe, k))
+    distinct = int((counts.sum(dim=1) > 0).sum())
+    return dense + distinct * one, dense, distinct, one
+
+
+def main_path(card, arch=QWEN3,
+              what="phase 4: main path, every expert resident"):
     import numpy as np
     import torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
 
-    cfg = _full_cfg("phase 4: main path, every expert resident")
+    cfg = _full_cfg(what, arch)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
@@ -682,17 +779,17 @@ def main_path(card):
     wall = time.perf_counter() - t0
     launches = _counts()
     srv = out["server"]
-    n_moe, n_layers = len(model.moe_layers), cfg.n_layers
+    n_moe, n_b3 = len(model.moe_layers), _b3_per_step(cfg)
     _check_budgets(out, cfg)
     want = {"moe_ffn": n_moe * (out["n_warmup"] + srv.n_prefills
                                 + srv.n_decode_steps),
             "moe_ffn_quant": 0,
-            "flash_decode": n_layers * srv.n_decode_steps, "wkv6": 0}
+            "flash_decode": n_b3 * srv.n_decode_steps, "wkv6": 0}
     print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
           f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
           f"prefills + {srv.n_decode_steps} decode steps) = "
           f"{want['moe_ffn']}); flash_decode {launches['flash_decode']} "
-          f"(expected {n_layers} layers x {srv.n_decode_steps} decode steps "
+          f"(expected {n_b3} x {srv.n_decode_steps} decode steps "
           f"= {want['flash_decode']}); moe_ffn_quant "
           f"{launches['moe_ffn_quant']} (expected 0); serve wall "
           f"{wall:.1f} s")
@@ -706,15 +803,23 @@ def main_path(card):
         act = torch.ones(srv.n_slots, dtype=torch.bool, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.serve_step(srv._cache, tok, active=act)
+        _, _, aux = model.serve_step(srv._cache, tok, active=act)
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        busy_ms, n_kernels, n_ops = profile_step(
+        busy_ms, n_kernels, n_ops, top = profile_step(
             lambda: model.serve_step(srv._cache, tok, active=act))
     print(f"  one more decode step: host enqueue {enqueue_ms:.3f} ms; "
           f"torch.profiler: {n_ops} top-level aten ops, {n_kernels} device "
           f"kernels/copies, device busy {busy_ms:.3f} ms = "
           f"{busy_ms / float(np.median(steps)):.1%} of the median step "
+          f"[{card}]")
+    print("  host time by top-level op (profiled, nested ops included): "
+          + ", ".join(f"{name} {ms:.3f} ms in {n}" for name, n, ms in top))
+    nbytes, dense, distinct, one = weight_floor(model, aux["counts"])
+    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  that step's weight-read floor: {floor_ms:.3f} ms ({dense} B "
+          f"of weights but the embedding table and the routed experts + "
+          f"{distinct} distinct routed experts x {one} B, over 3.35 TB/s) "
           f"[{card}]")
     with torch.inference_mode():
         toks = torch.as_tensor(out["requests"][0].prompt[None],
@@ -752,13 +857,24 @@ def upload_gbps(stream, expert, reps=10):
     return nbytes * reps / (start.elapsed_time(end) * 1e-3) / 1e9, nbytes
 
 
-def streaming_path(card):
+def host_rss():
+    """This process's resident host memory in bytes (page-locked included)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise SystemExit("no VmRSS in /proc/self/status")
+
+
+def streaming_path(card, arch=QWEN3,
+                   what="phase 4b: main path, streaming experts at rf 0.5 "
+                        "over the int8 wire"):
     import torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
 
-    cfg = _full_cfg("phase 4b: main path, streaming experts at rf 0.5 "
-                    "over the int8 wire")
+    cfg = _full_cfg(what, arch)
+    rss0 = host_rss()
     model = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     resident_bytes = torch.cuda.memory_allocated()
@@ -775,11 +891,12 @@ def streaming_path(card):
     srv = out["server"]
     st = srv.stats()
     store = srv.slot_runtime.store
-    n_moe, n_layers = len(model.moe_layers), cfg.n_layers
+    n_moe = len(model.moe_layers)
     _check_budgets(out, cfg)
     want = {"moe_ffn": n_moe * out["n_warmup"],
             "moe_ffn_quant": n_moe * (srv.n_prefills + srv.n_decode_steps),
-            "flash_decode": n_layers * srv.n_decode_steps, "wkv6": 0}
+            "flash_decode": _b3_per_step(cfg) * srv.n_decode_steps,
+            "wkv6": 0}
     print(f"  launches: moe_ffn_quant {launches['moe_ffn_quant']} (expected "
           f"{n_moe} MoE layers x ({srv.n_prefills} prefills + "
           f"{srv.n_decode_steps} decode steps) = {want['moe_ffn_quant']}); "
@@ -817,6 +934,12 @@ def streaming_path(card):
           f"{stream_bytes} B streaming after serving; experts "
           f"{expert_total} B, slot buffers {slot_bytes} B, pooled KV cache "
           f"{kv_bytes} B")
+    n_total = n_moe * cfg.moe.n_experts
+    print(f"  host memory: resident {host_rss()} B after serving ({rss0} B "
+          f"before init); page-locked: {n_total} {cfg.dtype} masters "
+          f"{expert_total} B, {n_total} int8 wire images "
+          f"{n_total * store.wire_expert_bytes} B "
+          f"({int(store._have.sum())} quantized so far)")
     if resident_bytes + kv_bytes - stream_bytes < expert_total - slot_bytes:
         raise SystemExit("the card still holds experts beyond its slots")
     _steps(srv, "streaming rf 0.5 int8", card)
@@ -845,16 +968,17 @@ def streaming_path(card):
     return launches
 
 
-def port_vs_cpu():
+def port_vs_cpu(cfg=None, phase="5"):
     """The whole port on the card (kernels) against the same weights on
-    the CPU (plain versions): reduced config, fp32."""
+    the CPU (plain versions): a reduced config (default: qwen3-moe's),
+    fp32; forward logits and counts, then 6 decode steps."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    print("phase 5: port on the card vs the same weights on the CPU "
-          "(qwen3-moe-235b-a22b reduced, fp32)")
-    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    cfg = cfg or get_config(QWEN3).reduced()
+    print(f"phase {phase}: port on the card vs the same weights on the CPU "
+          f"({cfg.name}, {cfg.n_layers} layers, fp32)")
     gpu = Model(cfg, device="cuda").init(1)
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -866,7 +990,8 @@ def port_vs_cpu():
         err = float((lg.cpu() - lc).abs().max())
         same = bool(torch.equal(ag["counts"].cpu(), ac["counts"]))
         print(f"  forward logits max_abs_err={err:.3e} (limit 1e-3: fp32 "
-              f"sums in other orders through 2 layers), counts equal: {same}")
+              f"sums in other orders through {cfg.n_layers} layers), counts "
+              f"equal: {same}")
         if err > 1e-3 or not same:
             raise SystemExit("port on the card disagrees with the CPU")
         caches = [m.init_cache(2, 32) for m in (gpu, cpu)]
@@ -936,10 +1061,78 @@ def streaming_vs_cpu():
                                  "with the CPU")
 
 
+REPORT_LINES = ("req ", "total:", "tiers:", "slots:", "eamc:", "predictor:")
+
+
+def launcher_report(model, cfg, device, flags):
+    """The launcher's report lines for ``model`` (a copy is served: the
+    streaming server moves the experts of the model it is given), without
+    the ``compiles=`` tail and the wall-clock ``demand-stall=``."""
+    import contextlib
+    import copy
+    import io
+    import re
+    from repro_torch.launch import serve as serve_mod
+    args = serve_mod.parse_args(["--requests", "4", "--seed", "3",
+                                 "--device", device, *flags])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_mod.serve(args, cfg, copy.deepcopy(model))
+    lines = []
+    for line in buf.getvalue().splitlines():
+        if line.startswith(REPORT_LINES):
+            line = re.sub(r", compiles=.*$", "", line)
+            lines.append(re.sub(r"demand-stall=\S+ \(\S+\) ", "", line))
+    return lines
+
+
+def launcher_vs_cpu(cfg, seed):
+    """The launcher on the card against the same weights on the CPU,
+    all-resident and at rf 0.5 over each wire: every report line equal."""
+    from repro_torch.models import Model
+    gpu = Model(cfg, device="cuda").init(seed)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    for wire in (None, "fp32", "fp16", "int8"):
+        flags = [] if wire is None else ["--resident-fraction", "0.5",
+                                         "--transfer-dtype", wire]
+        got = launcher_report(gpu, cfg, "cuda", flags)
+        want = launcher_report(cpu, cfg, "cpu", flags)
+        what = "all-resident" if wire is None else f"rf 0.5 {wire}"
+        slots = [ln for ln in got if ln.startswith("slots:")]
+        print(f"  launcher {cfg.name} {what}: {len(got)} report lines, equal "
+              f"to the CPU's: {got == want}; {slots[0] if slots else ''}")
+        if got != want or len(got) != 4 + 5:
+            for g, c in zip(got, want):
+                if g != c:
+                    print(f"    card: {g}\n    cpu:  {c}")
+            raise SystemExit(f"launcher {cfg.name} {what}: the card's report "
+                             "differs from the CPU's")
+        if wire is not None and " demand-uploads=0 " in slots[0]:
+            raise SystemExit(f"launcher {cfg.name} {what}: nothing streamed")
+
+
+def deepseek_vs_cpu():
+    """Phase 7c: a reduced DeepSeek-V2 of 1 dense + 2 MoE layers x 8
+    experts (enough experts that rf 0.5 streams) and reduced qwen3-moe,
+    on the card against the same weights on the CPU, fp32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DEEPSEEK_V2).reduced()
+    cfg = dataclasses.replace(
+        cfg, n_layers=3, moe=dataclasses.replace(cfg.moe, n_experts=8))
+    port_vs_cpu(cfg, "7c")
+    print("  the launcher (4 requests, seed 3) on the card vs the CPU, "
+          "report lines without compiles= and demand-stall=")
+    launcher_vs_cpu(cfg, 7)
+    launcher_vs_cpu(get_config(QWEN3).reduced(), 8)
+
+
 def profile_step(fn):
     """Run ``fn`` once under torch.profiler. -> (device busy ms: the summed
     durations of its kernels and copies, their count, the number of
-    top-level aten ops dispatched). Zeros if the profiler sees no device."""
+    top-level aten ops dispatched, [(op name, calls, host ms)] of the five
+    top-level op names with the most host time, nested ops included).
+    Zeros if the profiler sees no device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -951,8 +1144,13 @@ def profile_step(fn):
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     ops = [e for e in events if e.device_type == DeviceType.CPU
            and e.name.startswith("aten::") and e.cpu_parent is None]
+    by_name = {}
+    for e in ops:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
-            len(ops))
+            len(ops), [(name, n, us / 1e3) for name, (n, us) in top])
 
 
 RWKV_PROMPTS = (16, 100, 256, 512)     # 512 takes the two-chunk length rule
@@ -1029,7 +1227,7 @@ def rwkv_path(card):
         # one more step with every row inactive (the pool is unchanged)
         # under the profiler: what the device does in a step
         idle_rows = torch.zeros(B, dtype=torch.bool, device="cuda")
-        busy_ms, n_kernels, n_ops = profile_step(
+        busy_ms, n_kernels, n_ops, _ = profile_step(
             lambda: model.serve_step(pool, tok, active=idle_rows))
     n_steps = len(steps_ms)
     want = dict.fromkeys(launches, 0)
@@ -1162,13 +1360,25 @@ def main() -> int:
     streaming_vs_cpu()
     paths["rwkv"] = rwkv_path(card)
     rwkv_vs_cpu()
+    paths["deepseek_all_resident"] = main_path(
+        card, DEEPSEEK_V2, "phase 7: DeepSeek-V2, every expert resident")
+    paths["deepseek_streaming"] = streaming_path(
+        card, DEEPSEEK_V2, "phase 7b: DeepSeek-V2, streaming experts at rf "
+                           "0.5 over the int8 wire")
+    deepseek_vs_cpu()
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
-                        ("rwkv", ("wkv6",))):
+                        ("rwkv", ("wkv6",)),
+                        ("deepseek_all_resident", ("moe_ffn",)),
+                        ("deepseek_streaming", ("moe_ffn_quant",))):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "
                                  f"{path} path")
+    for path in ("deepseek_all_resident", "deepseek_streaming"):
+        if paths[path]["flash_decode"]:
+            raise SystemExit(f"flash_decode was launched on the {path} path"
+                             " (MLA decode never reaches it)")
     for row in rows:
         # launches over every main-path run, and per run
         by_path = {path: counts[row["name"]]

@@ -1,10 +1,14 @@
-"""GQA attention (qk-norm, bias, softcap, sliding window) with an explicit
-per-slot KV cache. MLA and cross-attention are not ported yet.
+"""GQA attention (qk-norm, bias, softcap, sliding window) and DeepSeek-V2
+MLA, each with an explicit per-slot cache. Cross-attention is not ported
+yet.
 
 Prefill attention is plain tensor code (the reference leaves it to XLA);
-one-token decode goes through ``kernels.ops.decode_attention``, i.e. the
-hand-written flash-decode kernel on CUDA. Caches keep the reference layout
-``(B, S, Hkv, hd)``.
+GQA's one-token decode goes through ``kernels.ops.decode_attention``, i.e.
+the hand-written flash-decode kernel on CUDA. MLA decode is the
+reference's absorbed-matrix einsums over the latent cache (the reference
+has no kernel for it), as tensor ops on whichever device holds x. Caches
+keep the reference layouts: GQA ``(B, S, Hkv, hd)``, MLA ``c_kv`` ``(B, S,
+kv_lora_rank)`` and ``k_rope`` ``(B, S, qk_rope_head_dim)``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,13 @@ from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
 NEG_INF = -2.0e38
 
 
+def _param(shape, dtype, device, fill=None):
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
 class Attention(nn.Module):
     """GQA projection weights in the reference layout: w_q (d, H, hd),
     w_k/w_v (d, Hkv, hd), w_o (H, hd, d); qk-norm scales in fp32."""
@@ -27,10 +38,7 @@ class Attention(nn.Module):
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
         def param(*shape, dt=dtype, fill=None):
-            t = torch.empty(shape, dtype=dt, device=device)
-            if fill is not None:
-                t.fill_(fill)
-            return nn.Parameter(t, requires_grad=False)
+            return _param(shape, dt, device, fill)
 
         self.w_q = param(d, H, hd)
         self.w_k = param(d, Hkv, hd)
@@ -45,6 +53,37 @@ class Attention(nn.Module):
         if cfg.attn.qk_norm:
             self.q_norm_scale = param(hd, dt=torch.float32, fill=1.0)
             self.k_norm_scale = param(hd, dt=torch.float32, fill=1.0)
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention weights in the reference
+    layout: down-projections w_dq (d, q_lora), w_dkv (d, r) and w_kr (d,
+    rope); up-projections w_uq (q_lora, H, nope+rope), w_uk (r, H, nope),
+    w_uv (r, H, v); w_o (H, v, d); latent norm scales in fp32."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device):
+        super().__init__()
+        d, H, m = cfg.d_model, cfg.n_heads, cfg.attn.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+        def param(*shape, dt=dtype, fill=None):
+            return _param(shape, dt, device, fill)
+
+        self.w_dq = param(d, m.q_lora_rank)
+        self.w_uq = param(m.q_lora_rank, H, qk)
+        self.w_dkv = param(d, m.kv_lora_rank)
+        self.w_kr = param(d, m.qk_rope_head_dim)
+        self.w_uk = param(m.kv_lora_rank, H, m.qk_nope_head_dim)
+        self.w_uv = param(m.kv_lora_rank, H, m.v_head_dim)
+        self.w_o = param(H, m.v_head_dim, d)
+        self.q_norm_scale = param(m.q_lora_rank, dt=torch.float32, fill=1.0)
+        self.kv_norm_scale = param(m.kv_lora_rank, dt=torch.float32,
+                                   fill=1.0)
+        self.stds = {"w_dq": d ** -0.5, "w_uq": m.q_lora_rank ** -0.5,
+                     "w_dkv": d ** -0.5, "w_kr": d ** -0.5,
+                     "w_uk": m.kv_lora_rank ** -0.5,
+                     "w_uv": m.kv_lora_rank ** -0.5,
+                     "w_o": (H * m.v_head_dim) ** -0.5}
 
 
 # ---------------------------------------------------------------------------
@@ -162,3 +201,70 @@ def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
         out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
                                    pos + 1)[:, None]
     return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(p, cfg: ArchConfig, x, positions):
+    m = cfg.attn.mla
+    cq = rms_norm_headwise(x @ p.w_dq, p.q_norm_scale)
+    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.attn.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(p, cfg: ArchConfig, x, positions):
+    """-> (c_kv (B,S,r), k_rope (B,S,rope)): k_rope is roped as one head."""
+    c_kv = rms_norm_headwise(x @ p.w_dkv, p.kv_norm_scale)
+    k_rope = apply_rope((x @ p.w_kr)[..., None, :], positions,
+                        cfg.attn.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    m = cfg.attn.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def mla_forward(p, cfg: ArchConfig, x, positions):
+    """Full-sequence causal MLA (prefill): the latent KV is materialized
+    per head. Returns (out, (c_kv, k_rope)) so prefill can seed the
+    cache."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv)
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
+    mask = causal_mask(x.shape[1], x.shape[1], device=x.device)
+    w = torch.softmax(scores * _mla_scale(cfg) + mask, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", w, v)
+    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache_ckv, cache_kr, pos, *,
+               active=None):
+    """Absorbed-matrix one-token decode in the compressed latent space.
+    x (B,1,d); cache_ckv (B,T,r), cache_kr (B,T,rope); ``pos`` (B,)
+    per-slot index of the new token. The new latent rows are written into
+    the caches in place (only ``active`` rows when given). Returns (out,
+    cache_ckv, cache_kr)."""
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)            # (B,1,H,*)
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions)        # (B,1,r/rope)
+    update_rows(cache_ckv, c_kv, pos, active)
+    update_rows(cache_kr, k_rope, pos, active)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)   # absorb W_uk
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, cache_ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, cache_kr)).float()
+    mask = decode_mask(cache_ckv.shape[1], pos + 1)
+    w = torch.softmax(scores * _mla_scale(cfg) + mask, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, cache_ckv)       # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", ctx, p.w_uv)        # absorb W_uv
+    return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_ckv, cache_kr

@@ -1,9 +1,10 @@
 """Attention + MoE decoders and RWKV6 stacks (the serving model), in PyTorch.
 
-Port of ``repro.models.model.Model`` for stacks of GQA attention blocks
-with routed-MoE or dense FFNs, and of RWKV6 blocks (time-mix recurrence +
-channel-mix). The reference scans periodic layer groups;
-here the layers are a ``ModuleList`` walked by a Python loop.
+Port of ``repro.models.model.Model`` for stacks of GQA or MLA attention
+blocks with routed-MoE (optionally shared-expert) or dense FFNs, and of
+RWKV6 blocks (time-mix recurrence + channel-mix). The reference scans
+periodic layer groups; here the layers are a ``ModuleList`` walked by a
+Python loop.
 ``split_periodic`` is kept so that ``params.from_reference`` can unstack
 the reference's scan-group axis.
 
@@ -26,7 +27,9 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
-from repro_torch.models.attention import Attention, attn_decode, attn_forward
+from repro_torch.models.attention import (MLA, Attention, attn_decode,
+                                          attn_forward, mla_decode,
+                                          mla_forward)
 from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
 from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.models.rwkv6 import RWKV, rwkv_channel_mix, rwkv_time_mix
@@ -78,8 +81,7 @@ def _unsupported(cfg: ArchConfig):
     a = cfg.attn
     if any(cfg.block_kind(i) == BLOCK_MAMBA for i in range(cfg.n_layers)):
         return "mamba blocks"
-    checks = [(a.mla is not None, "MLA attention"),
-              (cfg.is_encoder_decoder, "encoder-decoder models"),
+    checks = [(cfg.is_encoder_decoder, "encoder-decoder models"),
               (bool(a.mrope_sections), "M-RoPE"),
               (bool(a.sliding_window), "sliding-window attention"),
               (not a.use_rope, "learned absolute positions"),
@@ -99,6 +101,8 @@ class Block(nn.Module):
         self.norm1 = Norm(cfg.norm, d, device)
         if desc.kind == BLOCK_RWKV:      # its channel-mix is the FFN half
             self.rwkv = RWKV(cfg, dtype, device)
+        elif cfg.attn.mla is not None:
+            self.attn = MLA(cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
         self.norm2 = Norm(cfg.norm, d, device)
@@ -159,12 +163,16 @@ class Model(nn.Module):
     # -- full-sequence blocks -------------------------------------------------
     def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions):
         """Mixer half. Returns (x_mid, h2, aux): aux["kv"] = (k, v) for
-        attention; aux["rwkv_state"] and aux["rwkv_tm"] (the last normed
-        block input) for rwkv, which prefill seeds its cache with."""
+        GQA, (c_kv, k_rope) for MLA; aux["rwkv_state"] and aux["rwkv_tm"]
+        (the last normed block input) for rwkv, which prefill seeds its
+        cache with."""
         h = p.norm1(x)
         if desc.kind == BLOCK_RWKV:
             y, (state, last_tm) = rwkv_time_mix(p.rwkv, self.cfg, h)
             aux = {"rwkv_state": state, "rwkv_tm": last_tm}
+        elif self.cfg.attn.mla is not None:
+            y, kv = mla_forward(p.attn, self.cfg, h, positions)
+            aux = {"kv": kv}
         else:
             y, kv = attn_forward(p.attn, self.cfg, h, positions,
                                  window=desc.window)
@@ -215,9 +223,11 @@ class Model(nn.Module):
 
     @staticmethod
     def _store_kv(bc, kv, rows=slice(None)):
-        """Write a prefill's full-sequence (k, v) into cache rows ``rows``
-        (the last ``cache_len`` positions when the prompt is longer)."""
-        for key, full in zip(("k", "v"), kv):
+        """Write a prefill's full-sequence (k, v), or MLA's (c_kv, k_rope),
+        into cache rows ``rows`` (the last ``cache_len`` positions when the
+        prompt is longer)."""
+        keys = ("ckv", "kr") if "ckv" in bc else ("k", "v")
+        for key, full in zip(keys, kv):
             S = full.shape[1]
             n = min(S, bc[key].shape[1])
             bc[key][rows, :n] = full[:, S - n:].to(bc[key].dtype)
@@ -249,9 +259,11 @@ class Model(nn.Module):
     def init_cache(self, B: int, cache_len: int):
         """Zeroed decode cache: ``pos`` is a (B,) per-slot position vector,
         ``layers`` one dict per layer: {"k", "v"} of (B, cache_len, Hkv, hd)
-        for attention; for rwkv {"state" (B, H, hd, hd) fp32, "tm" and
-        "cm" (B, d)}, the token-shift inputs of time- and channel-mix (no
-        ``cache_len``: the state is constant in context length)."""
+        for GQA; {"ckv" (B, cache_len, kv_lora_rank), "kr" (B, cache_len,
+        qk_rope_head_dim)} for MLA; for rwkv {"state" (B, H, hd, hd) fp32,
+        "tm" and "cm" (B, d)}, the token-shift inputs of time- and
+        channel-mix (no ``cache_len``: the state is constant in context
+        length)."""
         cfg = self.cfg
 
         def zeros(*shape, dtype=self.dtype):
@@ -264,6 +276,10 @@ class Model(nn.Module):
                                        dtype=torch.float32),
                         "tm": zeros(B, cfg.d_model),
                         "cm": zeros(B, cfg.d_model)}
+            m = cfg.attn.mla
+            if m is not None:
+                return {"ckv": zeros(B, cache_len, m.kv_lora_rank),
+                        "kr": zeros(B, cache_len, m.qk_rope_head_dim)}
             kv = (B, cache_len, cfg.n_kv_heads, cfg.head_dim_)
             return {"k": zeros(*kv), "v": zeros(*kv)}
 
@@ -283,15 +299,18 @@ class Model(nn.Module):
     def _decode_block_pre(self, p: Block, desc: LayerDesc, bc, x, pos,
                           active=None):
         """Mixer half of one-token decode (norm1 -> attention over the
-        cache, or rwkv time-mix from its state -> norm2). The new K/V rows
-        are written in place, for active slots only; rwkv's new "state"
-        and "tm" replace the old ones on active rows only. Returns (x_mid,
-        h2, bc)."""
+        cache, or rwkv time-mix from its state -> norm2). The new K/V (or
+        MLA latent) rows are written in place, for active slots only; rwkv's
+        new "state" and "tm" replace the old ones on active rows only.
+        Returns (x_mid, h2, bc)."""
         h = p.norm1(x)
         if desc.kind == BLOCK_RWKV:
             y, (state, tm) = rwkv_time_mix(p.rwkv, self.cfg, h, bc["state"],
                                            bc["tm"])
             _gate_into(bc, active, state=state, tm=tm)
+        elif self.cfg.attn.mla is not None:
+            y, bc["ckv"], bc["kr"] = mla_decode(
+                p.attn, self.cfg, h, bc["ckv"], bc["kr"], pos, active=active)
         else:
             y, bc["k"], bc["v"] = attn_decode(
                 p.attn, self.cfg, h, bc["k"], bc["v"], pos,

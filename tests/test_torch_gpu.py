@@ -442,6 +442,142 @@ def test_streaming_server_on_card_matches_cpu(cuda, wire):
     assert g_stats["upload_bytes"] == c_stats["upload_bytes"]
 
 
+# DeepSeek-V2's expert FFN at decode: 160 experts, capacity 6, d_model 5120,
+# d_expert 1536, a pool of 4 tokens each routed to 6 distinct experts
+DEEPSEEK_DECODE = dict(E=160, C=6, d=5120, f=1536, tokens=4, top_k=6)
+
+
+def _decode_occupancy_xg(gen, dtype, dev, E, C, d, tokens, top_k, **_):
+    """xg (E, C, d) as the dispatch fills it for a pool of ``tokens``
+    tokens, each routed to ``top_k`` distinct experts (a seeded draw) at
+    its expert's first free row; every other row is exactly zero.
+    -> (xg, (E, C) bool mask of the routed rows)."""
+    x = torch.randn((tokens, d), generator=gen, device=dev).to(dtype)
+    xg = torch.zeros((E, C, d), dtype=dtype, device=dev)
+    fill = [0] * E
+    for t in range(tokens):
+        for e in torch.randperm(E, generator=gen, device=dev)[:top_k].tolist():
+            xg[e, fill[e]] = x[t]
+            fill[e] += 1
+    return xg, (xg != 0).any(-1)
+
+
+def _randn(gen, shape, std, dtype, dev):
+    return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+
+def test_moe_ffn_kernel_at_deepseek_decode(cuda):
+    """B1 in bf16 at DeepSeek-V2's decode shape: the plain version's
+    result, and every unrouted row +0.0."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    E, d, f = (DEEPSEEK_DECODE[k] for k in ("E", "d", "f"))
+    xg, routed = _decode_occupancy_xg(gen, torch.bfloat16, cuda,
+                                      **DEEPSEEK_DECODE)
+    wg, wu = (_randn(gen, (E, d, f), d ** -0.5, torch.bfloat16, cuda)
+              for _ in range(2))
+    wd = _randn(gen, (E, f, d), f ** -0.5, torch.bfloat16, cuda)
+    y = moe_mod.moe_ffn(xg, wg, wu, wd, act="swiglu")
+    want = ref.moe_ffn_ref(xg, wg, wu, wd, act="swiglu")
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol("bfloat16"))
+    assert _bits_zero(y[~routed])
+    assert not bool((y[routed] == 0).all(dim=-1).any())
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp16"])
+def test_moe_ffn_quant_kernel_at_deepseek_decode(cuda, wire):
+    """B2 at DeepSeek-V2's decode shape over 240 slots (rf 0.5 of 3 MoE
+    layers x 160 experts) through a table of 160 distinct slots, x bf16,
+    fp32 out as on the streaming path: the plain version's result, and
+    every unrouted row +0.0."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    E, d, f, n = (*(DEEPSEEK_DECODE[k] for k in ("E", "d", "f")), 240)
+    xg, routed = _decode_occupancy_xg(gen, torch.bfloat16, cuda,
+                                      **DEEPSEEK_DECODE)
+
+    def slots(shape):
+        std = shape[0] ** -0.5
+        if wire == "fp16":
+            return _randn(gen, (n,) + shape, std, torch.float16, cuda), None
+        q = torch.randint(-127, 128, (n,) + shape, generator=gen,
+                          device=cuda, dtype=torch.int8)
+        return q, (torch.rand((n, shape[-1]), generator=gen, device=cuda)
+                   + 0.5) * (2 * std / 127)
+    (wg, sg), (wu, su), (wd, sd) = slots((d, f)), slots((d, f)), slots((f, d))
+    ids = torch.randperm(n, generator=gen, device=cuda)[:E].to(torch.int32)
+    args = (xg, wg, wu, wd, sg, su, sd, ids)
+    y = moe_mod.moe_ffn_quant(*args, act="swiglu", out_dtype=torch.float32)
+    want = ref.moe_ffn_quant_ref(*args, act="swiglu",
+                                 out_dtype=torch.float32)
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol("float32"))
+    assert _bits_zero(y[~routed])
+    assert not bool((y[routed] == 0).all(dim=-1).any())
+
+
+def _deepseek_reduced():
+    """deepseek-v2-236b reduced to 1 dense + 2 MoE layers of 8 experts."""
+    cfg = get_config("deepseek-v2-236b").reduced()
+    return dataclasses.replace(
+        cfg, n_layers=3, moe=dataclasses.replace(cfg.moe, n_experts=8))
+
+
+def test_deepseek_model_on_card_matches_cpu(cuda):
+    """Reduced DeepSeek-V2 (MLA, shared experts, a dense first layer) in
+    fp32 on the card against the same weights on the CPU: forward logits
+    and counts, then 4 pooled decode steps with a row retired halfway.
+    B1 runs once per MoE layer per call; MLA decode never reaches B3."""
+    cfg = _deepseek_reduced()
+    gpu = Model(cfg, device=cuda).init(3)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)))
+    n_moe = len(gpu.moe_layers)
+    moe_before, fd_before = moe_mod.launches, fd_mod.launches
+    with torch.inference_mode():
+        lg, ag = gpu.forward({"tokens": toks.to(cuda)})
+        lc, ac = cpu.forward({"tokens": toks})
+        np.testing.assert_allclose(_f32(lg), lc.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(ag["counts"].cpu(), ac["counts"])
+        caches = [m.init_cache(2, 32) for m in (gpu, cpu)]
+        outs = [m.prefill({"tokens": toks.to(m.device)}, c)
+                for m, c in zip((gpu, cpu), caches)]
+        tok = [o[0].argmax(-1) for o in outs]
+        for i in range(4):
+            active = torch.tensor([True, i < 2])
+            outs = [m.serve_step(c, t.to(m.device), active=active.to(m.device))
+                    for m, c, t in zip((gpu, cpu), caches, tok)]
+            np.testing.assert_allclose(_f32(outs[0][0]), _f32(outs[1][0]),
+                                       atol=1e-4, rtol=1e-4)
+            assert torch.equal(outs[0][2]["counts"].cpu(),
+                               outs[1][2]["counts"])
+            tok = [o[0].argmax(-1) for o in outs]
+            assert torch.equal(tok[0].cpu(), tok[1])
+        for g, c in zip(caches[0]["layers"], caches[1]["layers"]):
+            for key in ("ckv", "kr"):
+                np.testing.assert_allclose(_f32(g[key]), _f32(c[key]),
+                                           atol=1e-4, rtol=1e-4)
+    assert moe_mod.launches - moe_before == n_moe * (1 + 1 + 4)
+    assert fd_mod.launches == fd_before
+
+
+def test_deepseek_decode_step_never_launches_flash_decode(cuda):
+    """One pooled DeepSeek-V2 decode step on the card: B1 once per MoE
+    layer, B3 not at all (MLA decode is tensor ops over the latent
+    cache)."""
+    cfg = _deepseek_reduced()
+    model = Model(cfg, device=cuda).init(4)
+    with torch.inference_mode():
+        cache = model.init_cache(4, 16)
+        tok = torch.arange(4, device=cuda)
+        moe_before, fd_before = moe_mod.launches, fd_mod.launches
+        logits, cache, _ = model.serve_step(cache, tok)
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert fd_mod.launches == fd_before
+    assert moe_mod.launches - moe_before == len(model.moe_layers)
+
+
 def _wkv_inputs(rng, BH, T, hd, dtype, w_dtype, dev):
     r, k, v = (_rand(rng, (BH, T, hd), 0.5, dtype, dev) for _ in "rkv")
     w = torch.sigmoid(_rand(rng, (BH, T, hd), 1.0, "float32", dev))

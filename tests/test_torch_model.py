@@ -1,7 +1,10 @@
-"""The port's model (repro_torch.models) against the reference model on
-qwen3-moe-235b-a22b ``.reduced()`` in fp32, with the reference's weights
-loaded through ``repro_torch.params.from_reference`` and the same numpy
-inputs fed to both."""
+"""The port's model (repro_torch.models) against the reference model in
+fp32, with the reference's weights loaded through
+``repro_torch.params.from_reference`` and the same numpy inputs fed to
+both: the layers on qwen3-moe-235b-a22b ``.reduced()``, and the forward,
+padded prefill and pooled decode on the ``.reduced()`` form of every
+attention config the port's ``Model`` accepts (rwkv6-7b has its own
+file)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,16 +24,28 @@ from repro_torch.params import from_reference
 torch.set_num_threads(2)
 
 ARCH = "qwen3-moe-235b-a22b"
+ARCHS = [ARCH, "qwen2-1.5b", "qwen3-1.7b", "nemotron-4-15b",
+         "switch-base-128", "switch-base-256", "switch-large-128",
+         "nllb-moe-128", "deepseek-v2-236b"]
 TOL = dict(atol=1e-4, rtol=1e-4)     # fp32, sums in other orders
+
+
+def _pair(arch):
+    jm = JaxModel(get_config(arch).reduced())
+    params = jm.init(jax.random.PRNGKey(0))
+    tm = Model(torch_get_config(arch).reduced(), device="cpu")
+    from_reference(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
 
 
 @pytest.fixture(scope="module")
 def pair():
-    jm = JaxModel(get_config(ARCH).reduced())
-    params = jm.init(jax.random.PRNGKey(0))
-    tm = Model(torch_get_config(ARCH).reduced(), device="cpu")
-    from_reference(tm, jax.tree.map(np.asarray, params))
-    return jm, params, tm
+    return _pair(ARCH)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_pair(request):
+    return _pair(request.param)
 
 
 def _layer0(params, key):
@@ -40,6 +55,21 @@ def _layer0(params, key):
 def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def _jit_prefill(jm):
+    """The reference's prefill, compiled once per shape (its eager
+    op-by-op dispatch is far slower on the CPU)."""
+    return jax.jit(lambda p, b, c, true_len=None: jm.prefill(
+        p, b, c, true_len=true_len))
+
+
+def _same_counts(got, want):
+    """Equal MoE counts, or none on either side (a dense stack)."""
+    if want is None:
+        assert got is None
+    else:
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
 
 
 def test_from_reference_loads_every_parameter(pair):
@@ -131,21 +161,20 @@ def test_moe_ffn_matches_and_counts_equal(pair, case):
                                float(aux["aux_loss"]), rtol=1e-5)
 
 
-def test_forward_logits_and_counts(pair):
-    jm, params, tm = pair
+def test_forward_logits_and_counts(arch_pair):
+    jm, params, tm = arch_pair
     toks = np.random.default_rng(3).integers(0, jm.cfg.vocab, (2, 12))
     logits, aux = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(toks)})
     with torch.inference_mode():
         tlogits, taux = tm.forward({"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(_np(tlogits), np.asarray(logits), **TOL)
-    np.testing.assert_array_equal(_np(taux["counts"]),
-                                  np.asarray(aux["counts"]))
+    _same_counts(taux["counts"], aux["counts"])
 
 
-def test_padded_prefill_equals_exact_prefill(pair):
+def test_padded_prefill_equals_exact_prefill(arch_pair):
     """Right-padded prefill with ``true_len`` gives the exact-length
     logits, counts and cache rows; both match the reference's."""
-    jm, params, tm = pair
+    jm, params, tm = arch_pair
     S, P = 11, 16
     toks = np.random.default_rng(4).integers(0, jm.cfg.vocab, (1, S))
     padded = np.zeros((1, P), np.int64)
@@ -157,33 +186,34 @@ def test_padded_prefill_equals_exact_prefill(pair):
                          tm.init_cache(1, 32), true_len=S)
     np.testing.assert_allclose(_np(pad[0]), _np(exact[0]), atol=1e-5,
                                rtol=1e-5)
-    np.testing.assert_array_equal(_np(pad[2]["counts"]),
-                                  _np(exact[2]["counts"]))
+    _same_counts(pad[2]["counts"], exact[2]["counts"])
     assert int(pad[1]["pos"][0]) == S
     for a, b in zip(pad[1]["layers"], exact[1]["layers"]):
-        np.testing.assert_allclose(_np(a["k"])[:, :S], _np(b["k"])[:, :S],
-                                   atol=1e-5, rtol=1e-5)
-    jl, _, jaux = jm.prefill(params, {"tokens": jnp.asarray(padded)},
-                             jm.init_cache(1, 32), true_len=S)
+        for key in a:                    # k/v, or MLA's ckv/kr
+            np.testing.assert_allclose(_np(a[key])[:, :S],
+                                       _np(b[key])[:, :S], atol=1e-5,
+                                       rtol=1e-5)
+    jl, _, jaux = _jit_prefill(jm)(params, {"tokens": jnp.asarray(padded)},
+                                   jm.init_cache(1, 32), true_len=S)
     np.testing.assert_allclose(_np(pad[0]), np.asarray(jl), **TOL)
-    np.testing.assert_array_equal(_np(pad[2]["counts"]),
-                                  np.asarray(jaux["counts"]))
+    _same_counts(pad[2]["counts"], jaux["counts"])
 
 
-def test_serve_step_pool_matches_reference(pair):
+def test_serve_step_pool_matches_reference(arch_pair):
     """A 3-slot pool: two rows prefilled at different lengths, one idle;
     several gated decode steps give the reference's logits on active rows,
     equal greedy tokens and equal (gated) counts."""
-    jm, params, tm = pair
+    jm, params, tm = arch_pair
     rng = np.random.default_rng(5)
     B, L = 3, 32
     jpool, tpool = jm.init_cache(B, L), tm.init_cache(B, L)
     tok = np.zeros(B, np.int64)
+    prefill = _jit_prefill(jm)
     with torch.inference_mode():
         for slot, S in ((0, 7), (2, 12)):
             prompt = rng.integers(0, jm.cfg.vocab, (1, S))
-            jl, jone, _ = jm.prefill(params, {"tokens": jnp.asarray(prompt)},
-                                     jm.init_cache(1, L))
+            jl, jone, _ = prefill(params, {"tokens": jnp.asarray(prompt)},
+                                  jm.init_cache(1, L))
             jpool = jm.write_slot(jpool, jone, slot)
             tl, tone, _ = tm.prefill({"tokens": torch.from_numpy(prompt)},
                                      tm.init_cache(1, L))
@@ -199,8 +229,7 @@ def test_serve_step_pool_matches_reference(pair):
                                             active=torch.from_numpy(active))
             np.testing.assert_allclose(_np(tl)[active],
                                        np.asarray(jl)[active], **TOL)
-            np.testing.assert_array_equal(_np(taux["counts"]),
-                                          np.asarray(jaux["counts"]))
+            _same_counts(taux["counts"], jaux["counts"])
             jt = np.asarray(jnp.argmax(jl, -1))
             tt = _np(tl.argmax(-1))
             np.testing.assert_array_equal(tt[active], jt[active])

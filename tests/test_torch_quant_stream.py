@@ -3,7 +3,7 @@ the plain dequantizing slot-indexed expert FFN (``moe_ffn_quant_ref``)
 against the Pallas ``moe_ffn_slots`` in interpret mode, the host store's
 wire images against ``repro.core.slot_cache.HostExpertStore`` bit for bit,
 the staging discipline of ``ExpertSlotCache``, and the launcher's report
-at ``--resident-fraction 0.5 --transfer-dtype int8``.
+at ``--resident-fraction 0.5`` over each ``--transfer-dtype``.
 
 The CUDA kernel (B2) itself is held against the plain version on the card
 by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
@@ -268,7 +268,7 @@ def test_evicted_staged_upload_is_dropped(models):
 
 
 # ---------------------------------------------------------------------------
-# The launcher at rf 0.5 over the int8 wire
+# The launcher at rf 0.5 over each wire
 # ---------------------------------------------------------------------------
 
 def _report(fn):
@@ -284,10 +284,11 @@ def _report(fn):
     return out
 
 
-def test_launcher_streaming_report_matches_reference(models):
+@pytest.mark.parametrize("wire", ["fp32", "fp16", "int8"])
+def test_launcher_streaming_report_matches_reference(models, wire):
     _, params, _ = models
     flags = ["--arch", ARCH, "--reduced", "--requests", "3", "--seed", "3",
-             "--resident-fraction", "0.5", "--transfer-dtype", "int8"]
+             "--resident-fraction", "0.5", "--transfer-dtype", wire]
     want = _report(lambda: jax_serve.main(flags))
     cfg = torch_get_config(ARCH).reduced()
     model = from_reference(Model(cfg, device="cpu"),
