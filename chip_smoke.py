@@ -10,13 +10,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      served shapes, in bf16 and fp32, plus ragged shapes; time the kernel,
      the plain version, a library call (a yardstick only) and the bound:
      3a moe_ffn (B1, also through a permuted slot table, and at decode
-     occupancy: 4 tokens x top-8, the other rows and experts zero; and at
-     DeepSeek-V2's decode occupancy: 160 experts, C = 6, 4 tokens x top-6),
-     3b flash_decode (B3, also over a 32768-position cache split across
-     blocks), 3c moe_ffn_quant (B2, int8 and fp16 slot buffers, every
-     expert filled and at B1's decode occupancy; at DeepSeek-V2's over 240
-     slots), 3d wkv6 (B4, the RWKV6 recurrence at decode, at each of phase
-     6's prompt lengths and at ragged shapes);
+     occupancy: 4 tokens x top-8, the other rows and experts zero; at
+     DeepSeek-V2's decode occupancy: 160 experts, C = 6, 4 tokens x top-6;
+     and at Jamba's: 16 experts of d 8192 x f 24576, C = 4, 4 tokens x
+     top-2), 3b flash_decode (B3, also over a 32768-position cache split
+     across blocks, and at Jamba's 64/8 heads), 3c moe_ffn_quant (B2, int8
+     and fp16 slot buffers, every expert filled and at B1's decode
+     occupancy; at DeepSeek-V2's over 240 slots), 3d wkv6 (B4, the RWKV6
+     recurrence at decode, at each of phase 6's prompt lengths and at
+     ragged shapes), 3e selective_scan (B5, the Mamba scan at Jamba's
+     decode shape, at B = 1 for each of phase 8's prompt lengths and its
+     warm-up length, and at ragged shapes, bf16 and fp32 inputs);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -53,7 +57,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      reduced DeepSeek-V2 of 1 dense + 2 MoE layers x 8 experts (forward
      and 6 pooled decode steps first), all-resident and at rf 0.5 over each
      wire;
-  8. one JSON line of per-kernel numbers, then the result line.
+  8. jamba-1.5-large-398b at full width (Mamba d_in 16384, attention 64/8
+     heads x 128, 16 experts top-2 of d_expert 24576 on odd layers, dense
+     d_ff 24576 on even ones, vocab 65536), cut to 5 layers: (mamba,
+     dense), (mamba, MoE), (mamba, dense), (mamba, MoE), (attn, dense);
+     phase 4 for it all-resident: B5 in every Mamba layer at prefill and
+     decode, B1 on both MoE layers, B3 on the attention layer, B2 never;
+     inactive pool rows' conv/ssm bit-frozen; the step's weight-read floor;
+  8b phase 4b for the same model at rf 0.5 over the master-dtype (bf16)
+     wire: 16 slots for 32 experts of 1.208 GB, B1 through the slot table,
+     ~38.7 GB of page-locked host masters, no wire images;
+  8c the launcher on the card against the CPU, same weights, fp32, every
+     report line equal but the wall-clock ones, for a reduced Jamba whose
+     Mamba layers carry 8 experts ((mamba, dense), (mamba, MoE), (attn,
+     dense), (mamba, MoE)), all-resident and at rf 0.5 over each wire;
+  9. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -74,6 +92,7 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
 DEEPSEEK = dict(E=160, C=6, d=5120, f=1536)   # DeepSeek-V2's, top-6
 DEEPSEEK_SLOTS = 240                          # rf 0.5 of 3 x 160 experts
+JAMBA_MOE = dict(E=16, C=4, d=8192, f=24576)  # Jamba's, top-2, C = 4 at cf 8
 LONG_CACHE = (4, 64, 4, 128, 32768)           # B3: B, H, Hkv, hd, S (> L2)
 SLEEP_CYCLES = 50_000_000                     # ~25 ms at the H100's clocks
 
@@ -88,6 +107,11 @@ TOL = {"torch.float32": (2e-5, 1e-4), "torch.bfloat16": (5e-2, 5e-2)}
 # B4's fp32 limit: tests/test_kernels.py's wkv6 test (sums over K = hd
 # terms in another order, carried through T steps of the state)
 WKV_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (5e-2, 5e-2)}
+# B5: y and h_T are fp32 on both sides, computed in fp32 from the same
+# inputs (bf16 x/B/C are widened exactly), so bf16 inputs take the fp32
+# limit too: sums over N in another order, exp to an ulp, carried through
+# T steps of a decaying state
+SCAN_TOL = {"torch.float32": (1e-4, 1e-4)}
 
 
 def sh(cmd):
@@ -227,11 +251,14 @@ def check_moe_ffn(gen, card):
     row.update(check_moe_ffn_occupancy(
         gen, card, make, DEEPSEEK, DEEPSEEK_TOP_K, (torch.bfloat16,),
         "deepseek_"))
+    row.update(check_moe_ffn_occupancy(
+        gen, card, make, JAMBA_MOE, JAMBA_TOP_K, (torch.bfloat16,), "jamba_"))
     return row
 
 
 TOKENS, TOP_K = 4, 8          # the decode pool and the routing width
 DEEPSEEK_TOP_K = 6
+JAMBA_TOP_K = 2
 
 
 def route_decode(xg, seed=1, top_k=TOP_K):
@@ -506,6 +533,8 @@ def check_flash_decode(gen, card):
         for B, H, Hkv, hd, S, lens in [(4, 64, 4, 128, 64, [1, 17, 40, 64]),
                                        (2, 8, 2, 64, 300, [300, 7]),
                                        (3, 16, 1, 128, 1000, [1000, 513, 1]),
+                                       # Jamba's heads, phase 8's cache
+                                       (4, 64, 8, 128, 48, [1, 17, 40, 48]),
                                        (*LONG_CACHE, [32768, 16384, 8192, 1])
                                        ]:
             q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
@@ -663,6 +692,111 @@ def time_wkv6(args, o, sN, plain=True):
     return nums
 
 
+# phases 4, 4b, 7, 7b, 8 and 8b serve this request mix through the launcher
+SERVE_FLAGS = ["--device", "cuda", "--requests", "4", "--prompt-len", "32",
+               "--max-new", "16", "--slots", "4"]
+
+
+def served_scan_lengths():
+    """The B = 1 scan lengths phase 8 runs: the launcher's prompt lengths
+    for SERVE_FLAGS and its EAMC warm-up sequences (prompt-len + 4)."""
+    from repro_torch.launch import serve as serve_mod
+    args = serve_mod.parse_args(SERVE_FLAGS)
+    return sorted({n for n, _ in serve_mod.request_shapes(args)}
+                  | {args.prompt_len + 4})
+
+
+def check_selective_scan(gen, card):
+    """Phase 3e: B5 against ``selective_scan_ref`` at Jamba's decode shape
+    (a pool of 4, d_in 16384, N 16), at B = 1 for each of phase 8's prompt
+    lengths and its warm-up length, and at ragged shapes; bf16 and fp32
+    inputs. -> B5's row (decode; ``prefill_*`` at the longest prompt)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    print("phase 3e: selective_scan kernel vs plain (selective_scan_ref)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    d_in, N = 2 * 8192, 16
+    cases = [(4, 1, d_in, N, bf16, "decode")]
+    cases += [(1, T, d_in, N, bf16, "prefill")
+              for T in served_scan_lengths()]
+    cases += [(4, 1, d_in, N, f32, ""), (1, 32, d_in, N, f32, ""),
+              (3, 7, 1000, 16, bf16, ""), (3, 7, 1000, 16, f32, ""),
+              (1, 300, 1000, 16, bf16, ""), (1, 300, 1000, 16, f32, ""),
+              (2, 1, 100, 8, f32, ""), (1, 33, 70, 16, bf16, "")]
+    row, prefill = None, {}
+    for B, T, D, N_, dtype, what in cases:
+        def rnd(shape, std=1.0, dt=f32):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * std).to(dt)
+        dt = torch.nn.functional.softplus(rnd((B, T, D)))
+        A = -torch.arange(1, N_ + 1, dtype=f32,
+                          device="cuda").expand(D, N_).contiguous()
+        args = (rnd((B, T, D), dt=dtype), dt, A, rnd((B, T, N_), dt=dtype),
+                rnd((B, T, N_), dt=dtype), rnd((B, D, N_), 0.5))
+        y, hT = selective_scan(*args)
+        y_ref, hT_ref = ref.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        name = f"B={B} T={T} d_in={D} N={N_} x/B/C {dtype}"
+        err = compare(f"{name} y", y, y_ref, SCAN_TOL)
+        compare(f"{name} h_T", hT, hT_ref, SCAN_TOL)
+        if not what:
+            continue
+        nums = dict(max_abs_err=err, **time_scan(args))
+        print(f"  time {what} B={B} T={T}: kernel {nums['ms']:.4f} ms, "
+              f"plain {nums['plain_ms']:.4f} ms, library none (no single "
+              f"PyTorch call computes the scan), bound "
+              f"{nums['bound_ms']:.6f} ms ({nums['bound_by']}), roofline "
+              f"{nums['bound_ms'] / nums['ms']:.1%} (L2-warm, back-to-back "
+              f"launches) [{card}]")
+        if what == "decode":
+            row = dict(name="selective_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "selective_scan.cu",
+                       replaces="src/repro/models/mamba.py:65", **nums,
+                       replaces_note="no Pallas kernel: the reference's "
+                                     "lax.scan _scan_chunk (:65-75) over "
+                                     "_ssm_params (:52-62), and mamba_decode's"
+                                     " step (:112-127)",
+                       shape=f"B={B} T={T} d_in={D} N={N_} x/B/C bf16, "
+                             "dt/A/h fp32",
+                       library_note="no single PyTorch call computes the "
+                                    "scan")
+        else:
+            prefill[T] = {key: val for key, val in nums.items()
+                          if key in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")}
+    longest = max(prefill)
+    row.update({f"prefill_{key}": val
+                for key, val in prefill[longest].items()})
+    row["prefill_T"] = longest
+    row["prefill_by_T"] = prefill
+    return row
+
+
+def time_scan(args):
+    """B5's kernel and plain times and its bound on these inputs.
+    -> dict(ms, plain_ms, bound_ms, bound_by, library_ms=None)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    x, dt, A, Bm, Cm, h0 = args
+    B, T, D = x.shape
+    N = A.shape[-1]
+    nums = dict(ms=time_ms(lambda: selective_scan(*args), 200),
+                plain_ms=time_ms(lambda: ref.selective_scan_ref(*args),
+                                 20 if T == 1 else 5, ahead=False))
+    # inputs read once (x, B, C in their dtype; dt, A, h0 fp32), y and h_T
+    # written once (fp32); per state element and step 7 fp32 operations
+    # (dt*A, exp, dA*h, + dBx, dx*B, h*C, + y) and dt*x per channel
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + 4 * B * T * D + 4 * h0.numel())
+    nums["bound_ms"], nums["bound_by"] = bound(
+        nbytes, B * T * D * (7 * N + 1), "torch.float32")
+    nums["library_ms"] = None
+    return nums
+
+
 def _check_budgets(out, cfg):
     for r in out["requests"]:
         got = len(out["tokens"][r.rid])
@@ -683,13 +817,17 @@ def _steps(srv, what, card):
 
 
 QWEN3, DEEPSEEK_V2 = "qwen3-moe-235b-a22b", "deepseek-v2-236b"
+JAMBA = "jamba-1.5-large-398b"
+# the smallest cut of Jamba that holds every block kind: (mamba, dense),
+# (mamba, MoE), (mamba, dense), (mamba, MoE), (attn, dense)
+DEPTH = {QWEN3: 4, DEEPSEEK_V2: 4, JAMBA: 5}
 
 
 def _full_cfg(what, arch=QWEN3):
-    """``arch`` at every published width, its depth cut to 4 layers."""
+    """``arch`` at every published width, its depth cut to ``DEPTH``."""
     from repro_torch.configs import get_config
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=4)
+    cfg = dataclasses.replace(full, n_layers=DEPTH[arch])
     m, mla = cfg.moe, cfg.attn.mla
     attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim_}"
             if mla is None else
@@ -703,37 +841,90 @@ def _full_cfg(what, arch=QWEN3):
     if m.first_dense_layers:
         extra += (f", first {m.first_dense_layers} layer(s) dense d_ff "
                   f"{cfg.d_ff}")
+    if cfg.mamba is not None:
+        mb = cfg.mamba
+        extra += (f", mamba d_state {mb.d_state} d_conv {mb.d_conv} expand "
+                  f"{mb.expand} (d_in {mb.expand * cfg.d_model}, dt_rank "
+                  f"{mb.dt_rank or -(-cfg.d_model // 16)}), attention every "
+                  f"{cfg.attn_layer_period} at offset {cfg.attn_layer_offset}"
+                  f", MoE every {m.moe_layer_period}, dense d_ff {cfg.d_ff}")
     print(f"{what}, {cfg.name} at full width (d_model {cfg.d_model}, {attn}, "
           f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert}"
           f"{extra}, vocab {cfg.vocab}"
           f"{'' if cfg.tie_embeddings else ' (head not tied)'}, "
           f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers"
-          f" ({sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))} MoE)")
+          f": {_layer_kinds(cfg)}")
     return cfg
+
+
+def _layer_kinds(cfg):
+    return ", ".join(f"({cfg.block_kind(i)}, "
+                     f"{'MoE' if cfg.is_moe_layer(i) else 'dense'})"
+                     for i in range(cfg.n_layers))
 
 
 def _reset_counts():
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
+    from repro_torch.kernels import selective_scan as scan_mod
     from repro_torch.kernels import wkv6 as wkv_mod
     moe_mod.launches = moe_mod.quant_launches = fd_mod.launches = 0
-    wkv_mod.launches = 0
+    wkv_mod.launches = scan_mod.launches = 0
 
 
 def _counts():
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
+    from repro_torch.kernels import selective_scan as scan_mod
     from repro_torch.kernels import wkv6 as wkv_mod
     return {"moe_ffn": moe_mod.launches,
             "moe_ffn_quant": moe_mod.quant_launches,
             "flash_decode": fd_mod.launches,
-            "wkv6": wkv_mod.launches}
+            "wkv6": wkv_mod.launches,
+            "selective_scan": scan_mod.launches}
 
 
 def _b3_per_step(cfg):
-    """B3 launches a decode step makes: one a layer for GQA, none for MLA
-    (its decode is tensor ops over the latent cache)."""
-    return cfg.n_layers if cfg.attn.mla is None else 0
+    """B3 launches a decode step makes: one per GQA attention layer, none
+    for MLA (its decode is tensor ops over the latent cache) or for Mamba
+    layers."""
+    from repro_torch.config import BLOCK_ATTN
+    if cfg.attn.mla is not None:
+        return 0
+    return sum(cfg.block_kind(i) == BLOCK_ATTN for i in range(cfg.n_layers))
+
+
+def _n_mamba(cfg):
+    from repro_torch.config import BLOCK_MAMBA
+    return sum(cfg.block_kind(i) == BLOCK_MAMBA for i in range(cfg.n_layers))
+
+
+def frozen_rows_step(step, caches, pos, n_slots):
+    """Run ``step(active)`` (one more pooled decode step) with every other
+    row inactive and check that the inactive rows of every layer cache
+    (K/V or latents, mamba conv/ssm) and their positions stay bit-frozen.
+    ``caches``/``pos``: callables returning the live per-layer cache dicts
+    and the (n_slots,) positions. -> a line for the log."""
+    import numpy as np
+    import torch
+    active = torch.tensor([i % 2 == 0 for i in range(n_slots)],
+                          device="cuda")
+    idle = ~active
+    before = [{k: v[idle].clone() for k, v in layer.items()}
+              for layer in caches()]
+    pos0 = np.asarray(pos()).copy()
+    step(active)
+    torch.cuda.synchronize()
+    for layer, old in zip(caches(), before):
+        for key, val in old.items():
+            if not torch.equal(layer[key][idle], val):
+                raise SystemExit(f"an inactive row's {key} changed")
+    rows = idle.cpu().numpy()
+    if not np.array_equal(np.asarray(pos())[rows], pos0[rows]):
+        raise SystemExit("an inactive row's position moved")
+    keys = sorted({k for layer in before for k in layer})
+    return (f"inactive rows {np.flatnonzero(rows).tolist()}: {', '.join(keys)}"
+            " and positions bit-frozen")
 
 
 def weight_floor(model, counts):
@@ -769,9 +960,7 @@ def main_path(card, arch=QWEN3,
     print(f"  init: {n_params / 1e9:.2f}e9 params, "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, "
           f"{time.perf_counter() - t0:.1f} s")
-    args = serve_mod.parse_args([
-        "--device", "cuda", "--requests", "4", "--prompt-len", "32",
-        "--max-new", "16", "--slots", "4"])
+    args = serve_mod.parse_args(SERVE_FLAGS)
     _reset_counts()
     t0 = time.perf_counter()
     out = serve_mod.serve(args, cfg, model)
@@ -780,17 +969,20 @@ def main_path(card, arch=QWEN3,
     launches = _counts()
     srv = out["server"]
     n_moe, n_b3 = len(model.moe_layers), _b3_per_step(cfg)
+    n_mamba = _n_mamba(cfg)
     _check_budgets(out, cfg)
-    want = {"moe_ffn": n_moe * (out["n_warmup"] + srv.n_prefills
-                                + srv.n_decode_steps),
-            "moe_ffn_quant": 0,
-            "flash_decode": n_b3 * srv.n_decode_steps, "wkv6": 0}
+    calls = out["n_warmup"] + srv.n_prefills + srv.n_decode_steps
+    want = {"moe_ffn": n_moe * calls, "moe_ffn_quant": 0,
+            "flash_decode": n_b3 * srv.n_decode_steps, "wkv6": 0,
+            "selective_scan": n_mamba * calls}
     print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
           f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
           f"prefills + {srv.n_decode_steps} decode steps) = "
           f"{want['moe_ffn']}); flash_decode {launches['flash_decode']} "
-          f"(expected {n_b3} x {srv.n_decode_steps} decode steps "
-          f"= {want['flash_decode']}); moe_ffn_quant "
+          f"(expected {n_b3} attention layers x {srv.n_decode_steps} decode "
+          f"steps = {want['flash_decode']}); selective_scan "
+          f"{launches['selective_scan']} (expected {n_mamba} mamba layers x "
+          f"{calls} = {want['selective_scan']}); moe_ffn_quant "
           f"{launches['moe_ffn_quant']} (expected 0); serve wall "
           f"{wall:.1f} s")
     if launches != want:
@@ -821,6 +1013,11 @@ def main_path(card, arch=QWEN3,
           f"of weights but the embedding table and the routed experts + "
           f"{distinct} distinct routed experts x {one} B, over 3.35 TB/s) "
           f"[{card}]")
+    with torch.inference_mode():
+        print("  one more step, every other row active: " + frozen_rows_step(
+            lambda act: model.serve_step(srv._cache, tok, active=act),
+            lambda: srv._cache["layers"],
+            lambda: srv._cache["pos"].cpu().numpy(), srv.n_slots))
     with torch.inference_mode():
         toks = torch.as_tensor(out["requests"][0].prompt[None],
                                dtype=torch.long, device="cuda")
@@ -868,7 +1065,11 @@ def host_rss():
 
 def streaming_path(card, arch=QWEN3,
                    what="phase 4b: main path, streaming experts at rf 0.5 "
-                        "over the int8 wire"):
+                        "over the int8 wire", wire="int8"):
+    """The launcher at rf 0.5 over ``wire``: int8 and fp16 take B2, the
+    master dtype ("fp32": no wire image, bf16 slot buffers) takes B1
+    through the slot table."""
+    import numpy as np
     import torch
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
@@ -878,10 +1079,8 @@ def streaming_path(card, arch=QWEN3,
     model = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
     resident_bytes = torch.cuda.memory_allocated()
-    args = serve_mod.parse_args([
-        "--device", "cuda", "--requests", "4", "--prompt-len", "32",
-        "--max-new", "16", "--slots", "4", "--resident-fraction", "0.5",
-        "--transfer-dtype", "int8"])
+    args = serve_mod.parse_args(SERVE_FLAGS + [
+        "--resident-fraction", "0.5", "--transfer-dtype", wire])
     _reset_counts()
     t0 = time.perf_counter()
     out = serve_mod.serve(args, cfg, model)
@@ -891,19 +1090,30 @@ def streaming_path(card, arch=QWEN3,
     srv = out["server"]
     st = srv.stats()
     store = srv.slot_runtime.store
-    n_moe = len(model.moe_layers)
+    n_moe, n_mamba = len(model.moe_layers), _n_mamba(cfg)
     _check_budgets(out, cfg)
-    want = {"moe_ffn": n_moe * out["n_warmup"],
-            "moe_ffn_quant": n_moe * (srv.n_prefills + srv.n_decode_steps),
+    served = srv.n_prefills + srv.n_decode_steps
+    slot_kernel = "moe_ffn" if wire == "fp32" else "moe_ffn_quant"
+    want = {"moe_ffn": n_moe * out["n_warmup"], "moe_ffn_quant": 0,
             "flash_decode": _b3_per_step(cfg) * srv.n_decode_steps,
-            "wkv6": 0}
-    print(f"  launches: moe_ffn_quant {launches['moe_ffn_quant']} (expected "
+            "wkv6": 0,
+            "selective_scan": n_mamba * (out["n_warmup"] + served)}
+    want[slot_kernel] += n_moe * served
+    print(f"  launches: {slot_kernel} {launches[slot_kernel]} (expected "
           f"{n_moe} MoE layers x ({srv.n_prefills} prefills + "
-          f"{srv.n_decode_steps} decode steps) = {want['moe_ffn_quant']}); "
-          f"moe_ffn {launches['moe_ffn']} (expected {n_moe} x "
-          f"{out['n_warmup']} all-resident EAMC warm-up forwards = "
-          f"{want['moe_ffn']}); flash_decode {launches['flash_decode']} "
-          f"(expected {want['flash_decode']}); serve wall {wall:.1f} s")
+          f"{srv.n_decode_steps} decode steps through the slot table"
+          + (f" + {out['n_warmup']} all-resident EAMC warm-up forwards"
+             if wire == "fp32" else "")
+          + f") = {want[slot_kernel]})"
+          + ("" if wire == "fp32" else
+             f"; moe_ffn {launches['moe_ffn']} (expected {n_moe} x "
+             f"{out['n_warmup']} all-resident EAMC warm-up forwards = "
+             f"{want['moe_ffn']})")
+          + f"; flash_decode {launches['flash_decode']} (expected "
+          f"{want['flash_decode']}); selective_scan "
+          f"{launches['selective_scan']} (expected {want['selective_scan']})"
+          f"; moe_ffn_quant {launches['moe_ffn_quant']} (expected "
+          f"{want['moe_ffn_quant']}); serve wall {wall:.1f} s")
     if launches != want:
         raise SystemExit("launch counts differ from the streaming path's "
                          "calls")
@@ -932,37 +1142,61 @@ def streaming_path(card, arch=QWEN3,
     stream_bytes = torch.cuda.memory_allocated()
     print(f"  card memory: {resident_bytes} B all-resident after init, "
           f"{stream_bytes} B streaming after serving; experts "
-          f"{expert_total} B, slot buffers {slot_bytes} B, pooled KV cache "
-          f"{kv_bytes} B")
+          f"{expert_total} B, slot buffers {slot_bytes} B, pooled decode "
+          f"cache {kv_bytes} B")
     n_total = n_moe * cfg.moe.n_experts
+    images = ("no wire images (the wire is the master dtype)"
+              if wire == "fp32" else
+              f"{n_total} {wire} wire images "
+              f"{n_total * store.wire_expert_bytes} B "
+              f"({int(store._have.sum())} quantized so far)")
     print(f"  host memory: resident {host_rss()} B after serving ({rss0} B "
           f"before init); page-locked: {n_total} {cfg.dtype} masters "
-          f"{expert_total} B, {n_total} int8 wire images "
-          f"{n_total * store.wire_expert_bytes} B "
-          f"({int(store._have.sum())} quantized so far)")
+          f"{expert_total} B, {images}")
     if resident_bytes + kv_bytes - stream_bytes < expert_total - slot_bytes:
         raise SystemExit("the card still holds experts beyond its slots")
-    _steps(srv, "streaming rf 0.5 int8", card)
+    steps = _steps(srv, f"streaming rf 0.5 {wire}", card)
+    ups = np.asarray(srv.decode_uploads, dtype=float)
+    print("  uploads issued inside each decode step (demand + planned) : "
+          "its ms: " + ", ".join(f"{int(n)}: {ms:.1f}"
+                                 for n, ms in zip(ups, steps)))
+    if ups.std() > 0:
+        slope, icpt = np.polyfit(ups, steps, 1)
+        print(f"  least squares over {len(steps)} steps: step ms = "
+              f"{icpt:.2f} + {slope:.2f} x uploads (r = "
+              f"{np.corrcoef(ups, steps)[0, 1]:.4f}) [{card}]")
     toks = srv.prefill_tokens + srv.decode_tokens
+    cost = "issue" if wire == "fp32" else f"issue + first-use {wire} " \
+        "quantization"
     print(f"  demand stall: {st['demand_stall_s'] * 1e3:.3f} ms over {toks} "
           f"tokens = {st['demand_stall_per_token_s'] * 1e3:.4f} ms/token "
-          f"(host time of the misses: issue + first-use int8 quantization) "
-          f"[{card}]")
-    from repro_torch.core.slot_cache import quantize_weight
-    t0 = time.perf_counter()
-    for _ in range(3):
-        for w in store.expert(0, 0).values():
-            quantize_weight(w, "int8")
-    print(f"  host int8 quantization of one expert (first use, torch on "
-          f"{torch.get_num_threads()} CPU threads): "
-          f"{(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
+          f"(host time of the misses: {cost}; the overlap schedule waits "
+          f"for the copies on the device, inside the step) [{card}]")
+    if wire != "fp32":
+        from repro_torch.core.slot_cache import quantize_weight
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for w in store.expert(0, 0).values():
+                quantize_weight(w, wire)
+        print(f"  host {wire} quantization of one expert (first use, torch "
+              f"on {torch.get_num_threads()} CPU threads): "
+              f"{(time.perf_counter() - t0) / 3 * 1e3:.1f} ms")
     stream = srv.slot_runtime.slot_cache._copy_stream
-    for what, expert in (("bf16 master", store.expert(0, 0)),
-                         ("int8 wire", store.wire_expert(0, 0))):
+    uploads = [(f"{cfg.dtype} master", store.expert(0, 0))]
+    if wire != "fp32":
+        uploads.append((f"{wire} wire", store.wire_expert(0, 0)))
+    for name, expert in uploads:
         gbps, size = upload_gbps(stream, expert)
-        print(f"  upload of one expert ({what}, {size} B, page-locked, "
-              f"copy stream, CUDA events): {gbps:.2f} GB/s [{card}]")
-    del model, srv, out, store, stream
+        print(f"  upload of one expert ({name}, {size} B, page-locked, "
+              f"copy stream, CUDA events): {gbps:.2f} GB/s = "
+              f"{size / gbps / 1e6:.3f} ms [{card}]")
+    rt = srv.slot_runtime
+    tok = srv._tok.copy()
+    print("  one more streaming step, every other row active: "
+          + frozen_rows_step(
+              lambda act: rt.decode(tok, act.cpu().numpy()),
+              lambda: rt.layer_caches, lambda: rt.pos, srv.n_slots))
+    del model, srv, out, store, stream, rt
     gc.collect()          # frees the card and unlocks the host store
     torch.cuda.empty_cache()
     return launches
@@ -1125,6 +1359,25 @@ def deepseek_vs_cpu():
           "report lines without compiles= and demand-stall=")
     launcher_vs_cpu(cfg, 7)
     launcher_vs_cpu(get_config(QWEN3).reduced(), 8)
+
+
+def jamba_vs_cpu():
+    """Phase 8c: a reduced Jamba whose Mamba layers carry 8 experts
+    ((mamba, dense), (mamba, MoE), (attn, dense), (mamba, MoE): the plain
+    ``.reduced()`` has no (mamba, MoE) block, and at rf 0.5 its one MoE
+    layer of 4 experts stays resident) on the card against the same
+    weights on the CPU, fp32: the model, then the launcher all-resident
+    and at rf 0.5 over each wire."""
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA).reduced(n_layers=4)
+    cfg = dataclasses.replace(
+        cfg, attn_layer_period=4, attn_layer_offset=2,
+        moe=dataclasses.replace(cfg.moe, n_experts=8))
+    port_vs_cpu(cfg, "8c")
+    print(f"  layers: {_layer_kinds(cfg)}; the launcher (4 requests, seed "
+          "3) on the card vs the CPU, report lines without compiles= and "
+          "demand-stall=")
+    launcher_vs_cpu(cfg, 9)
 
 
 def profile_step(fn):
@@ -1353,7 +1606,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_moe_ffn(gen, card), check_moe_ffn_quant(gen, card),
-            check_flash_decode(gen, card), check_wkv6(gen, card)]
+            check_flash_decode(gen, card), check_wkv6(gen, card),
+            check_selective_scan(gen, card)]
     paths = {"all_resident": main_path(card),
              "streaming": streaming_path(card)}
     port_vs_cpu()
@@ -1366,11 +1620,20 @@ def main() -> int:
         card, DEEPSEEK_V2, "phase 7b: DeepSeek-V2, streaming experts at rf "
                            "0.5 over the int8 wire")
     deepseek_vs_cpu()
+    paths["jamba_all_resident"] = main_path(
+        card, JAMBA, "phase 8: Jamba, every expert resident")
+    paths["jamba_streaming"] = streaming_path(
+        card, JAMBA, "phase 8b: Jamba, streaming experts at rf 0.5 over the "
+                     "master-dtype (bf16) wire", wire="fp32")
+    jamba_vs_cpu()
+    jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
                         ("rwkv", ("wkv6",)),
                         ("deepseek_all_resident", ("moe_ffn",)),
-                        ("deepseek_streaming", ("moe_ffn_quant",))):
+                        ("deepseek_streaming", ("moe_ffn_quant",)),
+                        ("jamba_all_resident", jamba),
+                        ("jamba_streaming", jamba)):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "
@@ -1379,6 +1642,10 @@ def main() -> int:
         if paths[path]["flash_decode"]:
             raise SystemExit(f"flash_decode was launched on the {path} path"
                              " (MLA decode never reaches it)")
+    for path in ("jamba_all_resident", "jamba_streaming"):
+        if paths[path]["moe_ffn_quant"]:
+            raise SystemExit(f"moe_ffn_quant was launched on the {path} "
+                             "path (its wire is the master dtype)")
     for row in rows:
         # launches over every main-path run, and per run
         by_path = {path: counts[row["name"]]

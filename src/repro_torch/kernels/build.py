@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode", "wkv6")
+KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode", "wkv6",
+           "selective_scan")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of csrc/common.cuh
 WIRE_DTYPES = {torch.float16: 2, torch.int8: 3}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +44,8 @@ _SIGNATURES = {
     # r, k, v, w, u, s0, o, sN, BH, T, hd, rows, cols, dtype, w_dtype,
     # stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 7 + [_P]),
+    # x, dt, A, Bm, Cm, h0, y, hT, B, T, D, N, dtype, stream
+    "selective_scan": ("selective_scan_launch", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

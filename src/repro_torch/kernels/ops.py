@@ -7,6 +7,7 @@ from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_quant
+from repro_torch.kernels.selective_scan import selective_scan as _scan
 from repro_torch.kernels.wkv6 import wkv6
 
 
@@ -49,3 +50,11 @@ def wkv_scan(r, k, v, w, u, s0):
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0)
     return wkv6(r, k, v, w, u, s0)
+
+
+def selective_scan(x, dt, A, Bm, Cm, h0):
+    """Mamba selective scan over (B, T, D) rows from state h0 (B, D, N).
+    -> (y (B, T, D) fp32 before the D skip, hT fp32)."""
+    if x.device.type == "cpu":
+        return ref.selective_scan_ref(x, dt, A, Bm, Cm, h0)
+    return _scan(x, dt, A, Bm, Cm, h0)

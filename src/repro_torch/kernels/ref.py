@@ -2,7 +2,8 @@
 oracle). Same arithmetic as ``repro.kernels.ref`` and the Pallas kernels:
 fp32 accumulation, the expert FFN's hidden activation rounded to the input
 dtype before the down-projection (kept in fp32 over dequantized wire
-weights), masked decode positions at -1e30, the RWKV6 state in fp32."""
+weights), masked decode positions at -1e30, the RWKV6 and Mamba states in
+fp32."""
 from __future__ import annotations
 
 import torch
@@ -103,3 +104,21 @@ def wkv6_ref(r, k, v, w, u, s0):
         out.append(torch.einsum("bk,bkv->bv", rf[:, t], s + uf * a))
         s = wf[:, t, :, None] * s + a
     return torch.stack(out, 1).to(r.dtype), s
+
+
+def selective_scan_ref(x, dt, A, Bm, Cm, h0):
+    """Mamba selective scan, a sequential fp32 loop over T in the
+    reference's order (``repro.models.mamba._ssm_params`` +
+    ``_scan_chunk``). x: (B, T, D); dt: (B, T, D) fp32; A: (D, N) fp32;
+    Bm, Cm: (B, T, N); h0: (B, D, N) fp32. Per step
+    ``h = exp(dt_t A) h + (dt_t x_t) B_t``, ``y_t = h C_t``.
+    -> (y (B, T, D) fp32, hT (B, D, N) fp32)."""
+    dtx = dt * x.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    h = h0.float()
+    ys = []
+    for t in range(x.shape[1]):
+        dA = torch.exp(dt[:, t, :, None] * A)
+        h = dA * h + dtx[:, t, :, None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, 1), h

@@ -171,6 +171,17 @@ def _tenants(args):
         for t in load_tenants(args.tenants))
 
 
+def request_shapes(args):
+    """-> [(prompt length, token budget)] per request, drawn from
+    ``args.seed``: lengths in [max(4, prompt_len // 2), prompt_len],
+    budgets in [max(2, max_new // 2), max_new]."""
+    rng = np.random.default_rng(args.seed)
+    return [(int(rng.integers(max(4, args.prompt_len // 2),
+                              args.prompt_len + 1)),
+             int(rng.integers(max(2, args.max_new // 2), args.max_new + 1)))
+            for _ in range(args.requests)]
+
+
 def serve(args, cfg, model: Optional[Model] = None) -> dict:
     """Serve ``args.requests`` open-loop requests of ``cfg`` and print the
     report. ``model``: weights to serve (default: ``Model(cfg).init(0)`` on
@@ -255,7 +266,6 @@ def serve(args, cfg, model: Optional[Model] = None) -> dict:
 
     # open loop: every request is submitted up front with its Poisson
     # arrival timestamp; the engine's virtual clock drives admission
-    rng = np.random.default_rng(args.seed)
     arrivals = poisson_arrivals(args.requests, rps=args.rps, seed=args.seed)
     # tenant assignment draws from a separate stream so prompts/budgets are
     # identical with and without --tenants
@@ -267,11 +277,7 @@ def serve(args, cfg, model: Optional[Model] = None) -> dict:
             weights = np.ones(len(tenants))
         weights = weights / weights.sum()
     reqs = []
-    for i in range(args.requests):
-        plen = int(rng.integers(max(4, args.prompt_len // 2),
-                                args.prompt_len + 1))
-        budget = int(rng.integers(max(2, args.max_new // 2),
-                                  args.max_new + 1))
+    for i, (plen, budget) in enumerate(request_shapes(args)):
         prompt = np.asarray(dataset[i % len(dataset)][:plen], np.int32)
         r = Request(rid=i, arrival=float(arrivals[i]), prompt=prompt,
                     max_new_tokens=budget)

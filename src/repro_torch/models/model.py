@@ -1,8 +1,10 @@
-"""Attention + MoE decoders and RWKV6 stacks (the serving model), in PyTorch.
+"""Attention + MoE decoders, Mamba hybrids and RWKV6 stacks (the serving
+model), in PyTorch.
 
 Port of ``repro.models.model.Model`` for stacks of GQA or MLA attention
-blocks with routed-MoE (optionally shared-expert) or dense FFNs, and of
-RWKV6 blocks (time-mix recurrence + channel-mix). The reference scans
+blocks and Mamba blocks (Jamba's hybrid) with routed-MoE (optionally
+shared-expert) or dense FFNs, and of RWKV6 blocks (time-mix recurrence +
+channel-mix). The reference scans
 periodic layer groups; here the layers are a ``ModuleList`` walked by a
 Python loop.
 ``split_periodic`` is kept so that ``params.from_reference`` can unstack
@@ -31,6 +33,7 @@ from repro_torch.models.attention import (MLA, Attention, attn_decode,
                                           attn_forward, mla_decode,
                                           mla_forward)
 from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
+from repro_torch.models.mamba import Mamba, _dims, mamba_decode, mamba_forward
 from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.models.rwkv6 import RWKV, rwkv_channel_mix, rwkv_time_mix
 
@@ -79,8 +82,6 @@ def split_periodic(descs):
 def _unsupported(cfg: ArchConfig):
     """Why the port cannot run ``cfg`` yet, or None."""
     a = cfg.attn
-    if any(cfg.block_kind(i) == BLOCK_MAMBA for i in range(cfg.n_layers)):
-        return "mamba blocks"
     checks = [(cfg.is_encoder_decoder, "encoder-decoder models"),
               (bool(a.mrope_sections), "M-RoPE"),
               (bool(a.sliding_window), "sliding-window attention"),
@@ -101,6 +102,8 @@ class Block(nn.Module):
         self.norm1 = Norm(cfg.norm, d, device)
         if desc.kind == BLOCK_RWKV:      # its channel-mix is the FFN half
             self.rwkv = RWKV(cfg, dtype, device)
+        elif desc.kind == BLOCK_MAMBA:
+            self.mamba = Mamba(cfg, dtype, device)
         elif cfg.attn.mla is not None:
             self.attn = MLA(cfg, dtype, device)
         else:
@@ -163,13 +166,17 @@ class Model(nn.Module):
     # -- full-sequence blocks -------------------------------------------------
     def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions):
         """Mixer half. Returns (x_mid, h2, aux): aux["kv"] = (k, v) for
-        GQA, (c_kv, k_rope) for MLA; aux["rwkv_state"] and aux["rwkv_tm"]
-        (the last normed block input) for rwkv, which prefill seeds its
-        cache with."""
+        GQA, (c_kv, k_rope) for MLA; aux["mamba_state"] and
+        aux["mamba_conv"] (the last d_conv - 1 conv inputs) for mamba;
+        aux["rwkv_state"] and aux["rwkv_tm"] (the last normed block input)
+        for rwkv: what prefill seeds the cache with (``_seed_mixer``)."""
         h = p.norm1(x)
         if desc.kind == BLOCK_RWKV:
             y, (state, last_tm) = rwkv_time_mix(p.rwkv, self.cfg, h)
             aux = {"rwkv_state": state, "rwkv_tm": last_tm}
+        elif desc.kind == BLOCK_MAMBA:
+            y, state, conv = mamba_forward(p.mamba, self.cfg, h)
+            aux = {"mamba_state": state, "mamba_conv": conv}
         elif self.cfg.attn.mla is not None:
             y, kv = mla_forward(p.attn, self.cfg, h, positions)
             aux = {"kv": kv}
@@ -232,6 +239,20 @@ class Model(nn.Module):
             n = min(S, bc[key].shape[1])
             bc[key][rows, :n] = full[:, S - n:].to(bc[key].dtype)
 
+    def _seed_mixer(self, bc, desc: LayerDesc, aux, rows=slice(None)):
+        """Write a prefill's mixer state (``_apply_block_pre``'s aux) into
+        cache rows ``rows``: attention K/V (or MLA latent) rows, mamba's
+        conv tail and final state, rwkv's state and time-mix shift. rwkv's
+        channel-mix shift comes from the FFN half; the caller seeds it."""
+        if desc.kind == BLOCK_ATTN:
+            self._store_kv(bc, aux["kv"], rows)
+            return
+        keys = ({"conv": "mamba_conv", "ssm": "mamba_state"}
+                if desc.kind == BLOCK_MAMBA
+                else {"state": "rwkv_state", "tm": "rwkv_tm"})
+        for key, name in keys.items():
+            bc[key][rows] = aux[name].to(bc[key].dtype)
+
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         logits = (x @ head.to(x.dtype)).float()
@@ -260,10 +281,11 @@ class Model(nn.Module):
         """Zeroed decode cache: ``pos`` is a (B,) per-slot position vector,
         ``layers`` one dict per layer: {"k", "v"} of (B, cache_len, Hkv, hd)
         for GQA; {"ckv" (B, cache_len, kv_lora_rank), "kr" (B, cache_len,
-        qk_rope_head_dim)} for MLA; for rwkv {"state" (B, H, hd, hd) fp32,
-        "tm" and "cm" (B, d)}, the token-shift inputs of time- and
-        channel-mix (no ``cache_len``: the state is constant in context
-        length)."""
+        qk_rope_head_dim)} for MLA; for mamba {"conv" (B, d_conv - 1,
+        d_in), the last conv inputs, "ssm" (B, d_in, N) fp32}; for rwkv
+        {"state" (B, H, hd, hd) fp32, "tm" and "cm" (B, d)}, the
+        token-shift inputs of time- and channel-mix (recurrent layers take
+        no ``cache_len``: their state is constant in context length)."""
         cfg = self.cfg
 
         def zeros(*shape, dtype=self.dtype):
@@ -276,6 +298,11 @@ class Model(nn.Module):
                                        dtype=torch.float32),
                         "tm": zeros(B, cfg.d_model),
                         "cm": zeros(B, cfg.d_model)}
+            if desc.kind == BLOCK_MAMBA:
+                d_in, _ = _dims(cfg)
+                return {"conv": zeros(B, cfg.mamba.d_conv - 1, d_in),
+                        "ssm": zeros(B, d_in, cfg.mamba.d_state,
+                                     dtype=torch.float32)}
             m = cfg.attn.mla
             if m is not None:
                 return {"ckv": zeros(B, cache_len, m.kv_lora_rank),
@@ -299,15 +326,19 @@ class Model(nn.Module):
     def _decode_block_pre(self, p: Block, desc: LayerDesc, bc, x, pos,
                           active=None):
         """Mixer half of one-token decode (norm1 -> attention over the
-        cache, or rwkv time-mix from its state -> norm2). The new K/V (or
-        MLA latent) rows are written in place, for active slots only; rwkv's
-        new "state" and "tm" replace the old ones on active rows only.
-        Returns (x_mid, h2, bc)."""
+        cache, or mamba / rwkv time-mix from its state -> norm2). The new
+        K/V (or MLA latent) rows are written in place, for active slots
+        only; mamba's new "conv"/"ssm" and rwkv's new "state"/"tm" replace
+        the old ones on active rows only. Returns (x_mid, h2, bc)."""
         h = p.norm1(x)
         if desc.kind == BLOCK_RWKV:
             y, (state, tm) = rwkv_time_mix(p.rwkv, self.cfg, h, bc["state"],
                                            bc["tm"])
             _gate_into(bc, active, state=state, tm=tm)
+        elif desc.kind == BLOCK_MAMBA:
+            y, conv, ssm = mamba_decode(p.mamba, self.cfg, h, bc["conv"],
+                                        bc["ssm"])
+            _gate_into(bc, active, conv=conv, ssm=ssm)
         elif self.cfg.attn.mla is not None:
             y, bc["ckv"], bc["kr"] = mla_decode(
                 p.attn, self.cfg, h, bc["ckv"], bc["kr"], pos, active=active)
@@ -353,8 +384,8 @@ class Model(nn.Module):
         logits. ``true_len``: optional per-row real prompt length for a
         right-padded prompt: pad tokens are causally invisible to real
         ones, take no MoE capacity, add no counts, and the logits come from
-        each row's last real token. As in the reference, recurrent (rwkv)
-        state is not pad-corrected: prefill those at exact lengths.
+        each row's last real token. As in the reference, recurrent (mamba,
+        rwkv) state is not pad-corrected: prefill those at exact lengths.
         Returns (logits (B,V), cache, aux)."""
         tokens = batch["tokens"]
         x, positions = self._embed(tokens)
@@ -371,12 +402,9 @@ class Model(nn.Module):
             x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
                                                 capacity_factor=2.0,
                                                 token_mask=token_mask)
+            self._seed_mixer(bc, desc, aux)
             if desc.kind == BLOCK_RWKV:
-                bc["state"].copy_(aux["rwkv_state"])
-                bc["tm"].copy_(aux["rwkv_tm"])
                 bc["cm"].copy_(aux_ffn["rwkv_cm"])
-            else:
-                self._store_kv(bc, aux["kv"])
             if "counts" in aux_ffn:
                 counts.append(aux_ffn["counts"])
         if true_len is None:

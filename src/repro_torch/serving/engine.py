@@ -351,13 +351,18 @@ class TorchModelServer(StepEngine):
     neighbours: every per-row computation of the decode step is independent
     of the other rows under the default dropless decode capacity.
 
+    Padded prefill is exact for attention-only stacks; recurrent (mamba,
+    rwkv) prefill state is not pad-corrected, so a stack with a recurrent
+    layer prefills each prompt at its exact length, as the reference does.
+
     With ``resident_fraction < 1`` or ``n_weight_slots`` the experts live
     in a host store and stream through ``n_weight_slots`` device slots
     (``slot_runtime``): constructing the server then moves ``model``'s
     experts to the host. Expert parallelism (``n_devices > 1``) is not
     ported. Eager PyTorch traces nothing, so ``compile_counts`` stays
     empty. On CUDA, ``decode_ms`` records each pooled decode step's time
-    between CUDA events.
+    between CUDA events; when streaming, ``decode_uploads`` records the
+    slot uploads (demand and planned) each step issued.
     """
 
     def __init__(self, cfg: EngineConfig, model, *,
@@ -377,11 +382,13 @@ class TorchModelServer(StepEngine):
         self.model = model
         self.n_slots = n_slots or cfg.scheduler.max_batch
         self.cache_len = cache_len
+        self._pad = all(d.kind == "attn" for d in model.descs)
         self.compile_counts: Dict = {}
         self.generated: Dict[int, list] = {}   # rid -> token list (pop it)
         self.n_prefills = 0
         self.n_decode_steps = 0
         self.decode_ms: List[float] = []
+        self.decode_uploads: List[int] = []
         self._cache = None                     # the slot-pool decode cache
         self._tok: Optional[np.ndarray] = None
         self._free: List[int] = []
@@ -464,8 +471,8 @@ class TorchModelServer(StepEngine):
         self._free = list(range(self.n_slots))
 
     def _bucket(self, S: int) -> int:
-        # padded prefill is exact for the attention-only stacks the port
-        # serves, so every prompt pads to a power-of-two bucket
+        if not self._pad:
+            return S
         return min(_pow2_bucket(S), self.cache_len)
 
     # -- device work ----------------------------------------------------------
@@ -496,7 +503,11 @@ class TorchModelServer(StepEngine):
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0.record()
         if self.slot_runtime is not None:
+            sc = self.slot_runtime.slot_cache
+            n0 = sc.demand_uploads + sc.prefetch_uploads
             tok_new, counts = self.slot_runtime.decode(self._tok, active)
+            self.decode_uploads.append(
+                sc.demand_uploads + sc.prefetch_uploads - n0)
         else:
             tok = torch.from_numpy(self._tok).to(dev, torch.long)
             act = torch.from_numpy(active).to(dev)

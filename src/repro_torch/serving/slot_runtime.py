@@ -6,7 +6,8 @@ the device before it starts, which cannot be known: layer ``l``'s router
 runs on what layer ``l-1`` produced. This runtime walks the stack one layer
 at a time with the block split at the MoE boundary:
 
-    pre   norm -> attention decode (or prefill) -> norm -> router top-k
+    pre   norm -> attention or mamba decode (or prefill) -> norm -> router
+          top-k
     host  read the routed expert ids (the one declared device->host sync
           of a layer: it waits on the compute stream only) and ``ensure``
           them in the slot cache (misses = timed demand uploads, victims =
@@ -192,7 +193,7 @@ class SlotStreamRuntime:
             bc = self.layer_caches[i]
             for key in bc:
                 bc[key][slot].zero_()
-            model._store_kv(bc, aux["kv"], rows=slice(slot, slot + 1))
+            model._seed_mixer(bc, desc, aux, rows=slice(slot, slot + 1))
             if not self._is_moe(i):
                 x, _ = model._apply_block_post(p, desc, x_mid, h2,
                                                capacity_factor=2.0,

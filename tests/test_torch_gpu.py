@@ -17,6 +17,7 @@ from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
 from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import moe_ffn as moe_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as scan_mod
 from repro_torch.kernels import wkv6 as wkv_mod
 from repro_torch.models import Model
 from repro_torch.serving import EngineConfig, TorchModelServer
@@ -681,3 +682,150 @@ def test_rwkv_model_on_card_matches_cpu(cuda):
             np.testing.assert_allclose(_f32(lg_["state"]), _f32(lc_["state"]),
                                        atol=1e-4, rtol=1e-4)
     assert wkv_mod.launches - before == cfg.n_layers * (1 + 1 + 8)
+
+
+def _scan_inputs(rng, B, T, D, N, dtype, dev):
+    """B5's operands as a Mamba layer makes them: dt = softplus(N(0, 1))
+    fp32, A = -(1..N) per channel fp32, x/B/C N(0, 1) in ``dtype``, h0
+    N(0, 0.5^2) fp32."""
+    dt = torch.nn.functional.softplus(_rand(rng, (B, T, D), 1.0, "float32",
+                                            dev))
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(D, N).contiguous()
+    return (_rand(rng, (B, T, D), 1.0, dtype, dev), dt, A,
+            _rand(rng, (B, T, N), 1.0, dtype, dev),
+            _rand(rng, (B, T, N), 1.0, dtype, dev),
+            _rand(rng, (B, D, N), 0.5, "float32", dev))
+
+
+# Jamba's decode (a pool of 4, d_in 16384, N 16) and prefill (B = 1),
+# reduced Jamba's N = 8, and ragged shapes: T not a multiple of the staged
+# tile, d_in not a multiple of the block
+@pytest.mark.parametrize("B,T,D,N", [(4, 1, 16384, 16), (1, 32, 16384, 16),
+                                     (2, 40, 512, 8), (3, 7, 1000, 16),
+                                     (1, 300, 1000, 16), (2, 1, 100, 8),
+                                     (1, 33, 70, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_kernel_matches_plain(cuda, B, T, D, N, dtype):
+    """B5 against ``selective_scan_ref`` on the same inputs: both widen x,
+    B and C to fp32 and run the scan in fp32, so bf16 inputs hold the fp32
+    limit too (sums over N in another order, exp to within an ulp, carried
+    through T steps of a decaying state)."""
+    rng = np.random.default_rng(12)
+    args = _scan_inputs(rng, B, T, D, N, dtype, cuda)
+    before = scan_mod.launches
+    y, hT = scan_mod.selective_scan(*args)
+    assert scan_mod.launches == before + 1
+    assert y.dtype == hT.dtype == torch.float32
+    y_ref, hT_ref = ref.selective_scan_ref(*args)
+    np.testing.assert_allclose(_f32(y), _f32(y_ref), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_f32(hT), _f32(hT_ref), atol=1e-4, rtol=1e-4)
+
+
+def test_selective_scan_wrapper_validates_inputs(cuda):
+    rng = np.random.default_rng(13)
+    x, dt, A, Bm, Cm, h0 = _scan_inputs(rng, 2, 3, 96, 16, "float32", cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        scan_mod.selective_scan(x, dt, A, Bm, Cm, h0.cpu())
+    with pytest.raises(TypeError, match="fp32/bf16"):
+        scan_mod.selective_scan(x.half(), dt, A, Bm.half(), Cm.half(), h0)
+    with pytest.raises(TypeError, match="dtype"):
+        scan_mod.selective_scan(x, dt.to(torch.bfloat16), A, Bm, Cm, h0)
+    with pytest.raises(TypeError, match="dtype"):
+        scan_mod.selective_scan(x, dt, A, Bm.to(torch.bfloat16), Cm, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_mod.selective_scan(x, dt, A, Bm, Cm,
+                                h0.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    x6, dt6, A6, B6, C6, h6 = _scan_inputs(rng, 2, 3, 96, 6, "float32", cuda)
+    with pytest.raises(ValueError, match="N in"):
+        scan_mod.selective_scan(x6, dt6, A6, B6, C6, h6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scan_mod.selective_scan(*(t.cpu() for t in (x, dt, A, Bm, Cm, h0)))
+
+
+def _jamba_variant():
+    """(mamba, dense), (mamba, MoE), (attn, dense), (mamba, MoE) with 8
+    experts: a (mamba, MoE) block, and slots that miss at rf 0.5."""
+    cfg = get_config("jamba-1.5-large-398b").reduced(n_layers=4)
+    return dataclasses.replace(
+        cfg, attn_layer_period=4, attn_layer_offset=2,
+        moe=dataclasses.replace(cfg.moe, n_experts=8))
+
+
+def test_jamba_model_on_card_matches_cpu(cuda):
+    """Reduced Jamba in fp32 on the card (B5, B1, B3) against the same
+    weights on the CPU (plain versions): forward logits and counts, exact
+    prefills into a pool, and greedy tokens of a gated decode with a row
+    retired halfway, whose conv/ssm rows then stay bit-frozen; B5 runs once
+    per Mamba layer per forward, prefill and decode step."""
+    cfg = _jamba_variant()
+    gpu = Model(cfg, device=cuda).init(3)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    n_mamba = sum(d.kind == "mamba" for d in gpu.descs)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 13)))
+    before = scan_mod.launches
+    with torch.inference_mode():
+        lg, ag = gpu.forward({"tokens": toks.to(cuda)})
+        lc, ac = cpu.forward({"tokens": toks})
+        np.testing.assert_allclose(_f32(lg), lc.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        assert torch.equal(ag["counts"].cpu(), ac["counts"])
+        pools = [m.init_cache(2, 32) for m in (gpu, cpu)]
+        tok = [torch.zeros(2, dtype=torch.long) for _ in range(2)]
+        for slot, S in enumerate((9, 14)):
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S)))
+            for i, (m, pool) in enumerate(zip((gpu, cpu), pools)):
+                logits, one, _ = m.prefill({"tokens": prompt.to(m.device)},
+                                           m.init_cache(1, 32))
+                m.write_slot(pool, one, slot)
+                tok[i][slot] = int(logits[0].argmax())
+        assert torch.equal(tok[0], tok[1])
+        frozen = None
+        for i in range(8):
+            active = torch.tensor([True, i < 4])
+            if i == 4:
+                frozen = [{k: v[1].clone() for k, v in layer.items()}
+                          for layer in pools[0]["layers"]]
+            outs = [m.serve_step(c, t.to(m.device), active=active.to(m.device))
+                    for m, c, t in zip((gpu, cpu), pools, tok)]
+            tok = [torch.where(active, o[0].argmax(-1).cpu(), t)
+                   for o, t in zip(outs, tok)]
+            assert torch.equal(tok[0], tok[1])
+            np.testing.assert_allclose(_f32(outs[0][0]), _f32(outs[1][0]),
+                                       atol=1e-4, rtol=1e-4)
+        for layer, old in zip(pools[0]["layers"], frozen):
+            for key in old:
+                assert torch.equal(layer[key][1], old[key])
+        for lg_, lc_ in zip(pools[0]["layers"], pools[1]["layers"]):
+            if "ssm" in lg_:
+                np.testing.assert_allclose(_f32(lg_["ssm"]), _f32(lc_["ssm"]),
+                                           atol=1e-4, rtol=1e-4)
+    assert scan_mod.launches - before == n_mamba * (1 + 2 + 8)
+
+
+@pytest.mark.parametrize("wire", ["fp32", "int8"])
+def test_jamba_streaming_server_on_card_matches_cpu(cuda, wire):
+    """The reduced Jamba variant at rf 0.5 through the slot runtime on the
+    card against the CPU: exact-length prefills, equal tokens and slot
+    counters, at least one demand upload."""
+    cfg = _jamba_variant()
+    gpu = Model(cfg, device=cuda).init(4)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (3, 9))
+
+    def serve(model, device):
+        srv = TorchModelServer(
+            EngineConfig(arch=cfg, gpu_cache_experts=3, dram_cache_experts=6,
+                         resident_fraction=0.5, transfer_dtype=wire),
+            copy.deepcopy(model), cache_len=32, device=device)
+        assert srv._bucket(9) == 9
+        return srv.generate(prompts.astype(np.int32), 6)
+    g_out, g_stats = serve(gpu, cuda)
+    c_out, c_stats = serve(cpu, "cpu")
+    np.testing.assert_array_equal(g_out, c_out)
+    assert g_stats["demand_uploads"] == c_stats["demand_uploads"] > 0
+    assert g_stats["upload_bytes"] == c_stats["upload_bytes"]

@@ -149,7 +149,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_rwkv_modules_are_scanned_and_default_to_cuda(monkeypatch):
     """The RWKV6 slice's modules are among those the import checks above
     cover; its entry points refuse to run without CUDA unless asked for
-    the CPU; mamba blocks are still refused."""
+    the CPU; Jamba (mamba blocks) is accepted since its slice landed,
+    and encoder-decoder models are still refused."""
     mods = _port_modules()
     for m in ("repro_torch.models.rwkv6", "repro_torch.kernels.wkv6",
               "repro_torch.examples.long_context_rwkv"):
@@ -162,5 +163,23 @@ def test_rwkv_modules_are_scanned_and_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         long_context_rwkv.main([])
     assert Model(cfg, device="cpu").init(0).layers[0].rwkv is not None
-    with pytest.raises(NotImplementedError, match="mamba"):
-        Model(get_config("jamba-1.5-large-398b").reduced(), device="cpu")
+    jamba = Model(get_config("jamba-1.5-large-398b").reduced(), device="cpu")
+    assert jamba.layers[0].mamba is not None
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        Model(get_config("whisper-small").reduced(), device="cpu")
+
+
+def test_mamba_modules_are_scanned_and_default_to_cuda(monkeypatch):
+    """The Jamba slice's modules are among those the import checks above
+    cover, B5's source is in the tree and listed for the build, and the
+    Jamba model refuses to run without CUDA unless asked for the CPU."""
+    from repro_torch.kernels import build
+    mods = _port_modules()
+    for m in ("repro_torch.models.mamba", "repro_torch.kernels.selective_scan"):
+        assert m in mods
+    assert (PORT / "kernels/csrc/selective_scan.cu").exists()
+    assert "selective_scan" in build.KERNELS
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
