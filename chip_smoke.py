@@ -19,8 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      occupancy; at DeepSeek-V2's over 240 slots), 3d wkv6 (B4, the RWKV6
      recurrence at decode, at each of phase 6's prompt lengths and at
      ragged shapes), 3e selective_scan (B5, the Mamba scan at Jamba's
-     decode shape, at B = 1 for each of phase 8's prompt lengths and its
-     warm-up length, and at ragged shapes, bf16 and fp32 inputs);
+     decode shape, also timed with a cold L2, at B = 1 for each of phase
+     8's prompt lengths and its warm-up length and over 256 and 2048
+     steps, and at ragged shapes, bf16 and fp32 inputs; beside its bound,
+     the time its exps alone take on the special-function units);
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -706,11 +708,34 @@ def served_scan_lengths():
                   | {args.prompt_len + 4})
 
 
+def scan_inputs(gen, B, T, D, N, dtype):
+    """B5's operands as a Mamba layer makes them: x/B/C N(0, 1) in
+    ``dtype``, dt = softplus(N(0, 1)) fp32, A = -(1..N) per channel fp32,
+    h0 N(0, 0.5^2) fp32."""
+    import torch
+    f32 = torch.float32
+
+    def rnd(shape, std=1.0, dt=f32):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(dt)
+    dt = torch.nn.functional.softplus(rnd((B, T, D)))
+    A = -torch.arange(1, N + 1, dtype=f32,
+                      device="cuda").expand(D, N).contiguous()
+    return (rnd((B, T, D), dt=dtype), dt, A, rnd((B, T, N), dt=dtype),
+            rnd((B, T, N), dt=dtype), rnd((B, D, N), 0.5))
+
+
+# B5's decode timing with a cold L2: distinct input sets rotated so that
+# each launch finds its set evicted (> the H100's 50 MB of L2)
+SCAN_COLD_SETS = 16
+
+
 def check_selective_scan(gen, card):
     """Phase 3e: B5 against ``selective_scan_ref`` at Jamba's decode shape
     (a pool of 4, d_in 16384, N 16), at B = 1 for each of phase 8's prompt
-    lengths and its warm-up length, and at ragged shapes; bf16 and fp32
-    inputs. -> B5's row (decode; ``prefill_*`` at the longest prompt)."""
+    lengths and its warm-up length, at B = 1 over 256 (the reference's
+    chunk) and 2048 steps, and at ragged shapes; bf16 and fp32 inputs.
+    -> B5's row (decode; ``prefill_*`` at the longest served prompt)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.selective_scan import selective_scan
@@ -721,36 +746,39 @@ def check_selective_scan(gen, card):
     cases = [(4, 1, d_in, N, bf16, "decode")]
     cases += [(1, T, d_in, N, bf16, "prefill")
               for T in served_scan_lengths()]
+    cases += [(1, T, d_in, N, bf16, "long") for T in (256, 2048)]
     cases += [(4, 1, d_in, N, f32, ""), (1, 32, d_in, N, f32, ""),
               (3, 7, 1000, 16, bf16, ""), (3, 7, 1000, 16, f32, ""),
               (1, 300, 1000, 16, bf16, ""), (1, 300, 1000, 16, f32, ""),
               (2, 1, 100, 8, f32, ""), (1, 33, 70, 16, bf16, "")]
-    row, prefill = None, {}
+    exp_rate, exp_note = sfu_exp_rate()
+    row, by_T = None, {"prefill": {}, "long": {}}
     for B, T, D, N_, dtype, what in cases:
-        def rnd(shape, std=1.0, dt=f32):
-            return (torch.randn(shape, generator=gen, device="cuda")
-                    * std).to(dt)
-        dt = torch.nn.functional.softplus(rnd((B, T, D)))
-        A = -torch.arange(1, N_ + 1, dtype=f32,
-                          device="cuda").expand(D, N_).contiguous()
-        args = (rnd((B, T, D), dt=dtype), dt, A, rnd((B, T, N_), dt=dtype),
-                rnd((B, T, N_), dt=dtype), rnd((B, D, N_), 0.5))
+        args = scan_inputs(gen, B, T, D, N_, dtype)
         y, hT = selective_scan(*args)
         y_ref, hT_ref = ref.selective_scan_ref(*args)
         torch.cuda.synchronize()
         name = f"B={B} T={T} d_in={D} N={N_} x/B/C {dtype}"
         err = compare(f"{name} y", y, y_ref, SCAN_TOL)
-        compare(f"{name} h_T", hT, hT_ref, SCAN_TOL)
+        err = max(err, compare(f"{name} h_T", hT, hT_ref, SCAN_TOL))
+        del y, hT, y_ref, hT_ref
         if not what:
             continue
         nums = dict(max_abs_err=err, **time_scan(args))
+        exp_ms = B * T * D * N_ / exp_rate * 1e3   # printed, not in the row
         print(f"  time {what} B={B} T={T}: kernel {nums['ms']:.4f} ms, "
               f"plain {nums['plain_ms']:.4f} ms, library none (no single "
               f"PyTorch call computes the scan), bound "
               f"{nums['bound_ms']:.6f} ms ({nums['bound_by']}), roofline "
               f"{nums['bound_ms'] / nums['ms']:.1%} (L2-warm, back-to-back "
-              f"launches) [{card}]")
+              f"launches); exps alone on the SFUs {exp_ms:.6f} ms "
+              f"({B * T * D * N_} {exp_note}) [{card}]")
         if what == "decode":
+            nums["ms_l2_cold"] = time_scan_cold(gen, B, T, D, N_, dtype)
+            print(f"  time decode B={B} T={T} with a cold L2: kernel "
+                  f"{nums['ms_l2_cold']:.4f} ms against {nums['ms']:.4f} ms "
+                  f"L2-warm; roofline {nums['bound_ms'] / nums['ms_l2_cold']:.1%}"
+                  f" ({SCAN_COLD_SETS} input sets in turn) [{card}]")
             row = dict(name="selective_scan", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
                               "selective_scan.cu",
@@ -764,15 +792,29 @@ def check_selective_scan(gen, card):
                        library_note="no single PyTorch call computes the "
                                     "scan")
         else:
-            prefill[T] = {key: val for key, val in nums.items()
-                          if key in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by")}
+            by_T[what][T] = {key: val for key, val in nums.items()
+                             if key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+    prefill = by_T["prefill"]
     longest = max(prefill)
     row.update({f"prefill_{key}": val
                 for key, val in prefill[longest].items()})
     row["prefill_T"] = longest
     row["prefill_by_T"] = prefill
+    row["long_by_T"] = by_T["long"]
     return row
+
+
+def sfu_exp_rate():
+    """fp32 exps a second on the special-function units: 16 a clock on
+    each SM at the card's maximum SM clock (nvidia-smi's clocks.max.sm).
+    -> (rate, how it was made)."""
+    import torch
+    mhz = float(sh(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                    "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (16 * sms * mhz * 1e6,
+            f"exps at 16/clock x {sms} SMs x {mhz:.0f} MHz; not in the bound")
 
 
 def time_scan(args):
@@ -780,21 +822,43 @@ def time_scan(args):
     -> dict(ms, plain_ms, bound_ms, bound_by, library_ms=None)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.selective_scan import selective_scan
-    x, dt, A, Bm, Cm, h0 = args
-    B, T, D = x.shape
-    N = A.shape[-1]
-    nums = dict(ms=time_ms(lambda: selective_scan(*args), 200),
+    T = args[0].shape[1]
+    nums = dict(ms=time_ms(lambda: selective_scan(*args),
+                           200 if T < 1024 else 20),
                 plain_ms=time_ms(lambda: ref.selective_scan_ref(*args),
-                                 20 if T == 1 else 5, ahead=False))
-    # inputs read once (x, B, C in their dtype; dt, A, h0 fp32), y and h_T
-    # written once (fp32); per state element and step 7 fp32 operations
-    # (dt*A, exp, dA*h, + dBx, dx*B, h*C, + y) and dt*x per channel
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + 4 * B * T * D + 4 * h0.numel())
-    nums["bound_ms"], nums["bound_by"] = bound(
-        nbytes, B * T * D * (7 * N + 1), "torch.float32")
+                                 20 if T == 1 else 5 if T < 1024 else 1,
+                                 ahead=False))
+    nums["bound_ms"], nums["bound_by"] = scan_bound(args)
     nums["library_ms"] = None
     return nums
+
+
+def scan_bound(args):
+    """B5's bound on these inputs: inputs read once (x, B, C in their
+    dtype; dt, A, h0 fp32), y and h_T written once (fp32); per state
+    element and step 7 fp32 operations (dt*A, exp, dA*h, + dBx, dx*B, h*C,
+    + y) and dt*x per channel. -> (ms, by)."""
+    x, h0, N = args[0], args[5], args[2].shape[-1]
+    B, T, D = x.shape
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + 4 * B * T * D + 4 * h0.numel())
+    return bound(nbytes, B * T * D * (7 * N + 1), "torch.float32")
+
+
+def time_scan_cold(gen, B, T, D, N, dtype):
+    """B5's ms per launch over ``SCAN_COLD_SETS`` distinct input sets taken
+    in turn, so each launch finds its state, A and rows out of L2, as a
+    served step does (a layer's state is touched once a step, with the
+    other layers' weights read in between)."""
+    import itertools
+    from repro_torch.kernels.selective_scan import selective_scan
+    sets = [scan_inputs(gen, B, T, D, N, dtype)
+            for _ in range(SCAN_COLD_SETS)]
+    nbytes = sum(t.numel() * t.element_size() for s in sets for t in s)
+    if nbytes <= 50e6:
+        raise SystemExit(f"time_scan_cold: {nbytes} B of inputs fit in L2")
+    turn = itertools.cycle(sets)
+    return time_ms(lambda: selective_scan(*next(turn)), 10 * len(sets))
 
 
 def _check_budgets(out, cfg):

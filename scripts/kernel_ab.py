@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's B2, B4 and B1 kernels of two trees of this repo on one
-GPU, in turns: the other tree, this one, this one, the other.
+"""Time the port's B2, B4, B1 and B5 kernels of two trees of this repo on
+one GPU, in turns: the other tree, this one, this one, the other.
 
     python3 scripts/kernel_ab.py --parent DIR [--paths]
+    python3 scripts/kernel_ab.py --lanes
 
 DIR is another checkout of the repo (for example ``git archive`` of the
 parent commit unpacked into a git-ignored directory). Each run is its own
@@ -16,7 +17,10 @@ built from its own sources; all runs take the same seeded inputs:
     lengths (BH = 64), r/k/v bf16, w fp32;
   - B1 ``moe_ffn``, which shares B2's GEMM header, at the same shape with
     dense weights: bf16 every expert and at decode occupancy, fp32 every
-    expert.
+    expert;
+  - B5 ``selective_scan`` at Jamba's decode shape (B = 4, T = 1, d_in
+    16384, N 16) and at B = 1 over 1, 17, 36, 256 and 2048 steps, x/B/C
+    bf16.
 
 Each result is held against the plain version first. With ``--paths`` each
 run also drives that tree's own ``chip_smoke.py`` phase 4b (streaming,
@@ -24,6 +28,12 @@ int8) and phase 6 (RWKV6), which print their step medians and prefill
 times. Kernel times are ``chip_smoke.time_ms`` of this tree (device time,
 the host's enqueue ahead of the card). Prints each run's JSON line (``AB
 {...}``) and a table; needs one CUDA GPU.
+
+``--lanes`` times this tree's B5 alone at the same shapes for each lane
+group size G (lanes a channel's states are split over) and ring-stage
+depth (steps a stage holds), each built as its own library from the same
+source with ``-DSCAN_LANES=G -DSCAN_TILE=steps`` and held against the
+plain version first: the measurement behind the kernel's defaults.
 """
 from __future__ import annotations
 
@@ -36,6 +46,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 B4_SHAPES = [(256, 1)] + [(64, T) for T in (16, 100, 256, 512)]
+B5_SHAPES = [(4, 1)] + [(1, T) for T in (1, 17, 36, 256, 2048)]   # (B, T)
+B5_D, B5_N = 16384, 16                                # Jamba's d_in, d_state
+B5_LANES = (1, 2, 4, 8, 16)
+B5_TILES = (32, 64)
 
 
 def _module(path: Path, name: str):
@@ -46,12 +60,13 @@ def _module(path: Path, name: str):
 
 
 def measure(tree: Path, paths: bool) -> dict:
-    """One run: B2, B1 and B4 of ``tree`` on this process's card."""
+    """One run: B2, B1, B4 and B5 of ``tree`` on this process's card."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import repro_torch
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_quant
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.kernels.wkv6 import wkv6
     if not Path(repro_torch.__file__).resolve().is_relative_to(
             tree.resolve()):
@@ -59,9 +74,9 @@ def measure(tree: Path, paths: bool) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
     cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
-    build.build(["moe_ffn", "moe_ffn_quant", "wkv6"])
+    build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan"])
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}}
+    out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, C, d, f = (cs.MAIN[k] for k in "ECdf")
     f32 = torch.float32
@@ -108,6 +123,14 @@ def measure(tree: Path, paths: bool) -> dict:
         cs.compare(f"B4 BH={BH} T={T} sN", sN, sN_ref, cs.WKV_TOL)
         out["b4"][f"BH={BH} T={T}"] = cs.time_wkv6(args, o, sN,
                                                    plain=False)["ms"]
+    for B, T in B5_SHAPES:
+        args = cs.scan_inputs(gen, B, T, B5_D, B5_N, torch.bfloat16)
+        y, hT = selective_scan(*args)
+        y_ref, hT_ref = ref.selective_scan_ref(*args)
+        cs.compare(f"B5 B={B} T={T} y", y, y_ref, cs.SCAN_TOL)
+        cs.compare(f"B5 B={B} T={T} h_T", hT, hT_ref, cs.SCAN_TOL)
+        out["b5"][f"B={B} T={T}"] = cs.time_ms(
+            lambda: selective_scan(*args), 200 if T < 1024 else 20)
     if paths:
         own = _module(tree / "chip_smoke.py", "chip_smoke_tree")
         card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,23 +140,101 @@ def measure(tree: Path, paths: bool) -> dict:
     return out
 
 
+def _variant_libs(build, variants) -> dict:
+    """B5 built once per (G, stage steps) with ``-DSCAN_LANES``/
+    ``-DSCAN_TILE``, one ``nvcc`` each, all started together, into the
+    build directory beside (not over) the served library; the name carries
+    the served library's source hash. -> (G, tile) -> launch function."""
+    import ctypes
+    stem = build.library_path("selective_scan").stem
+    src = build.CSRC / "selective_scan.cu"
+    jobs = {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for g, tile in variants:
+        out = build.BUILD_DIR / f"{stem}-G{g}-tile{tile}.so"
+        if not out.exists():
+            tmp = out.with_suffix(".tmp")
+            jobs[out] = (tmp, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, f"-DSCAN_LANES={g}",
+                 f"-DSCAN_TILE={tile}", "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for out, (tmp, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"kernel_ab: nvcc failed for {out.name}:\n{log}")
+        tmp.replace(out)
+    fn_name, argtypes = build._SIGNATURES["selective_scan"]
+    fns = {}
+    for g, tile in variants:
+        fn = getattr(ctypes.CDLL(str(
+            build.BUILD_DIR / f"{stem}-G{g}-tile{tile}.so")), fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[g, tile] = fn
+    return fns
+
+
+def lanes(card: str) -> None:
+    """B5 of this tree per lane group size and ring-stage depth."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels import build, ref
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: CUDA is not available")
+    cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
+    variants = [(g, tile) for g in B5_LANES for tile in B5_TILES]
+    fns = _variant_libs(build, variants)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"B5 ms per launch by lanes G x stage steps, d_in {B5_D}, N {B5_N}"
+          f", x/B/C bf16 [{card}]")
+    print("B, T | bound ms | " + " | ".join(f"G={g} tile={tile}"
+                                             for g, tile in variants))
+    for B, T in B5_SHAPES:
+        args = cs.scan_inputs(gen, B, T, B5_D, B5_N, torch.bfloat16)
+        y_ref, hT_ref = ref.selective_scan_ref(*args)
+        times = []
+        for g, tile in variants:
+            def run(fn=fns[g, tile]):
+                y = torch.empty((B, T, B5_D), device="cuda")
+                hT = torch.empty_like(args[5])
+                stream = torch.cuda.current_stream().cuda_stream
+                build.check("selective_scan", fn(
+                    *(t.data_ptr() for t in args), y.data_ptr(),
+                    hT.data_ptr(), B, T, B5_D, B5_N,
+                    build.DTYPES[torch.bfloat16], stream))
+                return y, hT
+            y, hT = run()
+            cs.compare(f"B5 G={g} tile={tile} B={B} T={T} y", y, y_ref,
+                       cs.SCAN_TOL)
+            cs.compare(f"B5 G={g} tile={tile} B={B} T={T} h_T", hT,
+                       hT_ref, cs.SCAN_TOL)
+            times.append(cs.time_ms(run, 200 if T < 1024 else 20))
+        print(f"B={B} T={T} | {cs.scan_bound(args)[0]:.6f} | "
+              + " | ".join(f"{ms:.4f}" for ms in times), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="the other tree")
     ap.add_argument("--paths", action="store_true",
                     help="also run each tree's phases 4b and 6")
+    ap.add_argument("--lanes", action="store_true",
+                    help="time this tree's B5 per lane group and stage "
+                         "depth instead")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure:
         print("AB " + json.dumps(measure(args.measure, args.paths)),
               flush=True)
         return 0
-    if args.parent is None:
-        ap.error("--parent is required")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
+    if args.lanes:
+        lanes(card.splitlines()[0])
+        return 0
+    if args.parent is None:
+        ap.error("--parent is required")
     runs = []
     for label, tree in (("parent", args.parent), ("change", ROOT),
                         ("change", ROOT), ("parent", args.parent)):
@@ -147,7 +248,7 @@ def main(argv=None) -> int:
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         runs.append((label, json.loads(line[-1][3:])))
     print(f"ms per launch, runs in order [{card.splitlines()[0]}]")
-    keys = [(part, k) for part in ("b2", "b4", "b1")
+    keys = [(part, k) for part in ("b2", "b4", "b1", "b5")
             for k in runs[0][1][part]]
     print("kernel, shape | " + " | ".join(label for label, _ in runs))
     for part, key in keys:

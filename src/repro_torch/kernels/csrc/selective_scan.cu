@@ -13,115 +13,384 @@
 // scan's output before the D skip and the silu(z) gate (both stay torch ops
 // in the model dtype, as in the reference); h_T is written for the cache.
 //
-// What bounds it on this card: bytes. At decode (T = 1) every state element
-// is read and written once (2 * B * d_in * N * 4 B; 8.4 MB at Jamba's
-// B = 4, d_in = 16384, N = 16) against 7 fp32 operations each. Over a
-// prefill the per-step rows of x, dt and y add 10 B a channel and step
-// against 7 * N operations, still bytes at N = 16; but the steps are a
-// chain, so a short prompt at B = 1 is bounded by T steps of latency.
+// What bounds it on this card. At decode (T = 1): bytes. Every state element
+// is read and written once (2 * B * d_in * N * 4 B; 8.4 MB of the ~10 MB at
+// Jamba's B = 4, d_in = 16384, N = 16) against 7 fp32 operations each. Over
+// a prefill the rows of x, dt and y add 10 B a channel and step (bf16 x)
+// against N exps: at B = 1 and N = 16 the exps alone, at 16 a clock on an
+// SM's special-function units (SFUs), take about as long as the bytes at
+// T = 36 and longer at long T (2048 steps: 0.128 ms of exps at 1980 MHz
+// against 0.101 ms of bytes). The steps are a chain, and a B = 1 prefill
+// has only d_in * N state chains, so its warps must each keep several
+// steps in flight to feed the SFUs.
 //
-// Design (simple, correct first): one thread per (b, channel) keeps its N
-// fp32 states and its row of A in registers for the whole launch, so the
-// state is read once and written once and the (B, T, d_in, N) tensors dA
-// and dBx the reference materialises are never formed: they are computed
-// on the fly. A block takes kThreads channels of one batch row; it stages a
-// tile of kTile steps at a time in shared memory: the steps' B_t and C_t
-// rows (which every channel shares) and the block's columns of x and dt
-// (coalesced loads). Each thread's N state chains are independent, so one
-// step has N-way instruction-level parallelism. One launch carries the
-// state over any T >= 1 (the reference's 256-step chunks become the loop).
-#include "common.cuh"
+// Design. What a simple kernel (one thread per (b, channel), 64
+// channels a block, 12-16 % of its bound) lacks, and what this one does:
+//  1. Too few threads: a group of G lanes takes one (b, channel), each lane
+//     keeping S = N / G states and the matching slice of A's row in
+//     registers; y_t is the lanes' partial sums plus a fixed-order
+//     __shfl_xor_sync butterfly (log2 G steps), so two launches on the same
+//     inputs give bit-equal outputs. G = 2 (kLanes): measured against 1, 4,
+//     8 and 16 by scripts/kernel_ab.py --lanes, it was fastest at decode
+//     and at every B = 1 prefill length: more lanes add per-lane loads and
+//     shuffles faster than they hide latency.
+//  2. Uncoalesced state: h0, A and h_T move as 16-byte vectors, a lane's
+//     S = 8 states as chunks g and g + 2 of its channel's row, so a
+//     channel's two lanes cover 32 contiguous bytes per access and every
+//     sector a warp touches is whole (one thread a channel touches 32
+//     sectors with 4 bytes each per access).
+//  3. Accurate expf on every element: exp(dt*A) is ex2.approx of
+//     dt * (A * log2 e), A prescaled once per lane: one SFU instruction
+//     (max relative error ~2^-22; results below 2^-126 flush to zero,
+//     which a state of O(1) cannot see).
+//  4. Synchronous staging: a block's step tiles (the shared B_t / C_t rows
+//     and its 32 columns of x and dt) go through a two-stage cp.async ring
+//     in dynamic shared memory, kTile = 64 steps a stage (no slower than 32
+//     at any length, faster from T = 36), so the scan of one tile overlaps
+//     the load of the next.
+//     Once a tile lands, the block widens it to fp32 (dt, dt * x, B, C) in
+//     one pass, so a lane's step is vector loads from shared memory, 2 fp32
+//     multiplies, an ex2 and 2 FMAs a state; a lane takes kUnroll = 8 steps
+//     at a time (the last T % 8 in blocks of 4, 2 and 1) with every load
+//     before the first y store, so those steps' loads and exps overlap and
+//     only the FMA chain through h is serial.
+//     A stage holds min(T, kTile) steps, so a decode block takes < 1 KB of
+//     shared memory, and the decode build caps registers at 64 so a pool of
+//     4 at d_in 16384 (2048 blocks) is resident in one wave. When a pointer
+//     or a row is not 16-byte aligned (d_in not a multiple of 8 for bf16 x)
+//     the ring is filled by plain loads and the state moves by scalars.
+// y is stored by the group's first lane. One launch carries the state over
+// any T >= 1 (the reference's 256-step chunks become the loop).
+#include <atomic>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;    // channels a block takes
-constexpr int kTile = 32;       // steps staged at a time
+// SCAN_LANES / SCAN_TILE override the two measured choices for a sweep
+// build (scripts/kernel_ab.py --lanes); the served library takes these.
+#ifndef SCAN_LANES
+#define SCAN_LANES 2
+#endif
+#ifndef SCAN_TILE
+#define SCAN_TILE 64
+#endif
 
-template <typename X, int N>
-__global__ void __launch_bounds__(kThreads)
-selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
-                      const float* __restrict__ A, const X* __restrict__ Bm,
-                      const X* __restrict__ Cm, const float* __restrict__ h0,
-                      float* __restrict__ y, float* __restrict__ hT, int T, int D) {
-  __shared__ float xs[kTile][kThreads];
-  __shared__ float ds[kTile][kThreads];
-  __shared__ float bs[kTile][N];
-  __shared__ float cs[kTile][N];
+constexpr int kChannels = 32;          // channels a block takes
+constexpr int kLanes = SCAN_LANES;     // lanes a channel's states are split over
+constexpr int kTile = SCAN_TILE;       // steps a ring stage holds
+constexpr int kUnroll = 8;             // steps a lane has in flight over a prefill
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * kThreads;
-  const int tid = threadIdx.x;
-  const int c = c0 + tid;
-  const bool live = c < D;
-  const size_t seq = (size_t)b * T;          // row of (b, t = 0) in (B, T, .)
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
 
-  float h[N], a[N];
-  if (live) {
-    const float* h0c = h0 + ((size_t)b * D + c) * N;
-    const float* ac = A + (size_t)c * N;
+// Lane g of a group of G keeps S = N / G of a channel's N states. With
+// S >= 4 it holds every G-th 16-byte chunk of the channel's row (chunks g,
+// g + G, ...), so the G lanes of a channel read or write 16 * G contiguous
+// bytes in each vector access and every sector a warp touches is whole;
+// with S < 4 it holds S consecutive states.
+template <int N, int G>
+__device__ __forceinline__ int lane_state0(int g) {
+  return N / G >= 4 ? 4 * g : (N / G) * g;
+}
+
+// a lane's S states of the row at p (p + lane_state0), as 16- or 8-byte
+// vectors when vec
+template <int S, int G>
+__device__ __forceinline__ void load_f32(float (&v)[S], const float* p, bool vec) {
+  if constexpr (S % 4 == 0) {
+    if (vec) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = h0c[n];
-      a[n] = ac[n];
+      for (int k = 0; k < S / 4; ++k) {
+        const float4 q = reinterpret_cast<const float4*>(p)[k * G];
+        v[4 * k] = q.x, v[4 * k + 1] = q.y, v[4 * k + 2] = q.z, v[4 * k + 3] = q.w;
+      }
+      return;
     }
-  }
-
-  for (int t0 = 0; t0 < T; t0 += kTile) {
-    const int steps = min(kTile, T - t0);
-    __syncthreads();                          // the previous tile is consumed
-    for (int i = tid; i < steps * kThreads; i += kThreads) {
-      const int t = i / kThreads, j = i - t * kThreads;
-      if (c0 + j < D) {
-        const size_t off = (seq + t0 + t) * D + c0 + j;
-        xs[t][j] = to_f32<X>(x[off]);
-        ds[t][j] = dt[off];
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = p[(s / 4) * 4 * G + s % 4];
+  } else {
+    if constexpr (S == 2) {
+      if (vec) {
+        const float2 q = *reinterpret_cast<const float2*>(p);
+        v[0] = q.x, v[1] = q.y;
+        return;
       }
     }
-    for (int i = tid; i < steps * N; i += kThreads) {
-      const int t = i / N, n = i - t * N;
-      const size_t off = (seq + t0 + t) * N + n;
-      bs[t][n] = to_f32<X>(Bm[off]);
-      cs[t][n] = to_f32<X>(Cm[off]);
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int t = 0; t < steps; ++t) {
-      const float d = ds[t][tid];
-      const float dx = d * xs[t][tid];
-      float acc = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(d * a[n]) * h[n] + dx * bs[t][n];
-        acc += h[n] * cs[t][n];
-      }
-      y[(seq + t0 + t) * D + c] = acc;
-    }
-  }
-
-  if (live) {
-    float* hc = hT + ((size_t)b * D + c) * N;
-#pragma unroll
-    for (int n = 0; n < N; ++n) hc[n] = h[n];
+    for (int s = 0; s < S; ++s) v[s] = p[s];
   }
 }
 
-template <typename X>
+template <int S, int G>
+__device__ __forceinline__ void store_f32(float* p, const float (&v)[S], bool vec) {
+  if constexpr (S % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < S / 4; ++k)
+        reinterpret_cast<float4*>(p)[k * G] =
+            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+      return;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) p[(s / 4) * 4 * G + s % 4] = v[s];
+  } else {
+    if constexpr (S == 2) {
+      if (vec) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+        return;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) p[s] = v[s];
+  }
+}
+
+// bytes of one ring stage of `tile` steps: x, dt (the block's columns), B, C
+template <typename X, int N>
+__host__ __device__ constexpr int stage_bytes(int tile) {
+  return tile * (kChannels * int(sizeof(X)) + kChannels * 4 + 2 * N * int(sizeof(X)));
+}
+
+// bytes of the fp32 tile the scan reads: dt, dt * x (the block's columns),
+// B and C, widened once a tile for every lane of the block
+template <int N>
+__host__ __device__ constexpr int wide_bytes(int tile) {
+  return tile * (2 * kChannels + 2 * N) * 4;
+}
+
+// U consecutive steps t..t+U-1 of a lane's S = N / G states, read from the
+// fp32 tile. Every load comes before the first y store and the exps do not
+// depend on h, so the U steps' loads and exps overlap and only the FMA chain
+// through h is sequential.
+template <int N, int G, int U>
+__device__ __forceinline__ void scan_steps(float (&h)[N / G], const float (&a)[N / G],
+                                           const float* wd, const float* wdx,
+                                           const float* wb, const float* wc, int t,
+                                           int cl, int g, float* yc, int D, bool store) {
+  constexpr int S = N / G;
+  float d[U], dx[U], bv[U][S], cv[U][S], p[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    d[u] = wd[(t + u) * kChannels + cl];
+    dx[u] = wdx[(t + u) * kChannels + cl];
+    load_f32<S, G>(bv[u], wb + (t + u) * N + lane_state0<N, G>(g), true);
+    load_f32<S, G>(cv[u], wc + (t + u) * N + lane_state0<N, G>(g), true);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    p[u] = 0.f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      h[s] = fmaf(ex2(d[u] * a[s]), h[s], dx[u] * bv[u][s]);
+      p[u] = fmaf(h[s], cv[u][s], p[u]);
+    }
+  }
+  // y_t: the group's partial sums, the same butterfly order for every step
+#pragma unroll
+  for (int m = 1; m < G; m <<= 1) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] += __shfl_xor_sync(0xffffffffu, p[u], m);
+  }
+  if (store) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) yc[(size_t)(t + u) * D] = p[u];
+  }
+}
+
+template <typename X, int N, int G, int U>
+__global__ void __launch_bounds__(kChannels * G, U == 1 ? 1024 / (kChannels * G) : 1)
+selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ A, const X* __restrict__ Bm,
+                      const X* __restrict__ Cm, const float* __restrict__ h0,
+                      float* __restrict__ y, float* __restrict__ hT, int T, int D,
+                      int tile, bool vec) {
+  static_assert(U == 1 || U == 2 || U == 4 || U == 8, "the remainder cascade");
+  constexpr int S = N / G;                  // states a lane keeps
+  constexpr int kThreads = kChannels * G;
+  constexpr int kX = 16 / int(sizeof(X));   // X elements in 16 bytes
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * kChannels;
+  const int tid = threadIdx.x;
+  const int cl = tid / G, g = tid % G;      // channel in the block, lane in group
+  const int c = c0 + cl;
+  const bool live = c < D;
+  const size_t seq = (size_t)b * T;         // row of (b, t = 0) in (B, T, .)
+  const int n0 = lane_state0<N, G>(g);
+  const size_t state = ((size_t)b * D + c) * N + n0;
+
+  // a lane past d_in keeps zero states over zero-filled columns (ex2(0) = 1)
+  // and stores nothing; it still takes part in every shuffle and barrier
+  float h[S] = {}, a[S] = {};
+  if (live) {
+    load_f32<S, G>(h, h0 + state, vec);
+    load_f32<S, G>(a, A + (size_t)c * N + n0, vec);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] *= kLog2e;
+  }
+
+  // ring stage `buf`: x[tile][kChannels] X, dt[tile][kChannels] fp32,
+  // B[tile][N] X, C[tile][N] X; then the fp32 tile: dt, dt * x, B, C
+  auto ring = [&](int buf) { return smem + buf * stage_bytes<X, N>(tile); };
+  float* const wd = reinterpret_cast<float*>(ring(2));
+  float* const wdx = wd + tile * kChannels;
+  float* const wb = wdx + tile * kChannels;
+  float* const wc = wb + tile * N;
+
+  // stage the steps of tile i into ring stage i % 2
+  auto stage = [&](int i) {
+    const int t0 = i * tile, steps = min(tile, T - t0);
+    X* xs = reinterpret_cast<X*>(ring(i & 1));
+    float* ds = reinterpret_cast<float*>(xs + tile * kChannels);
+    X* bs = reinterpret_cast<X*>(ds + tile * kChannels);
+    X* cs = bs + tile * N;
+    const size_t row0 = seq + t0;
+    if (vec) {
+      constexpr int kXC = kChannels / kX, kDC = kChannels / 4;   // chunks a row
+      for (int k = tid; k < steps * kXC; k += kThreads) {
+        const int t = k / kXC, ch = k - t * kXC, cc = c0 + ch * kX;
+        const bool ok = cc < D;             // D % kX == 0: whole chunks
+        cp_async16(xs + t * kChannels + ch * kX, ok ? x + (row0 + t) * D + cc : x, ok);
+      }
+      for (int k = tid; k < steps * kDC; k += kThreads) {
+        const int t = k / kDC, ch = k - t * kDC, cc = c0 + ch * 4;
+        const bool ok = cc < D;
+        cp_async16(ds + t * kChannels + ch * 4, ok ? dt + (row0 + t) * D + cc : dt, ok);
+      }
+      // the steps' B and C rows are contiguous: steps * N elements each
+      for (int k = tid; k < steps * N / kX; k += kThreads) {
+        cp_async16(bs + k * kX, Bm + row0 * N + k * kX, true);
+        cp_async16(cs + k * kX, Cm + row0 * N + k * kX, true);
+      }
+    } else {
+      for (int k = tid; k < steps * kChannels; k += kThreads) {
+        const int t = k / kChannels, j = k - t * kChannels, cc = c0 + j;
+        const bool ok = cc < D;
+        const size_t off = (row0 + t) * D + cc;
+        xs[k] = ok ? x[off] : from_f32<X>(0.f);
+        ds[k] = ok ? dt[off] : 0.f;
+      }
+      for (int k = tid; k < steps * N; k += kThreads) {
+        bs[k] = Bm[row0 * N + k];
+        cs[k] = Cm[row0 * N + k];
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int tiles = (T + tile - 1) / tile;
+  stage(0);
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) {
+      stage(i + 1);                         // overlaps the scan of tile i
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                        // tile i is in every thread's view
+    const int t0 = i * tile, steps = min(tile, T - t0);
+    {
+      // widen tile i once for the block (the scan reads only the fp32 tile,
+      // so stage i + 2 may refill this ring stage after the next barrier)
+      const X* xs = reinterpret_cast<const X*>(ring(i & 1));
+      const float* ds = reinterpret_cast<const float*>(xs + tile * kChannels);
+      const X* bs = reinterpret_cast<const X*>(ds + tile * kChannels);
+      for (int k = tid; k < steps * kChannels; k += kThreads) {
+        const float d = ds[k];
+        wd[k] = d;
+        wdx[k] = d * to_f32<X>(xs[k]);      // dt * x first, as the reference
+      }
+      for (int k = tid; k < steps * N; k += kThreads) {
+        wb[k] = to_f32<X>(bs[k]);
+        wc[k] = to_f32<X>(bs[tile * N + k]);
+      }
+    }
+    __syncthreads();
+    float* yc = y + (seq + t0) * D + c;
+    const bool store = live && g == 0;      // y_t from the group's first lane
+    int t = 0;
+    for (; t + U <= steps; t += U)
+      scan_steps<N, G, U>(h, a, wd, wdx, wb, wc, t, cl, g, yc, D, store);
+    // the last steps % U in blocks of 4, 2 and 1 (U = 8), not one by one
+    if constexpr (U >= 8) {
+      if (t + 4 <= steps) {
+        scan_steps<N, G, 4>(h, a, wd, wdx, wb, wc, t, cl, g, yc, D, store);
+        t += 4;
+      }
+    }
+    if constexpr (U >= 4) {
+      if (t + 2 <= steps) {
+        scan_steps<N, G, 2>(h, a, wd, wdx, wb, wc, t, cl, g, yc, D, store);
+        t += 2;
+      }
+    }
+    if constexpr (U >= 2) {
+      if (t < steps) scan_steps<N, G, 1>(h, a, wd, wdx, wb, wc, t, cl, g, yc, D, store);
+    }
+  }
+
+  if (live) store_f32<S, G>(hT + state, h, vec);
+}
+
+template <typename X, int N, int G, int U>
+cudaError_t launch_g(const X* x, const float* dt, const float* A, const X* Bm,
+                     const X* Cm, const float* h0, float* y, float* hT, int B, int T,
+                     int D, bool vec, cudaStream_t s) {
+  const int tile = T < kTile ? T : kTile;
+  const int bytes = 2 * stage_bytes<X, N>(tile) + wide_bytes<N>(tile);
+  // Above 48 KB a launch needs the instantiation's opt-in, which is set once
+  // per device to what a full kTile-step ring takes (the most any T asks).
+  constexpr int kMost = 2 * stage_bytes<X, N>(kTile) + wide_bytes<N>(kTile);
+  if (bytes > 48 * 1024) {
+    static std::atomic<unsigned> opted{0};  // bit d: device d has the opt-in
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned bit = dev < 32 ? 1u << dev : 0u;
+    if (!(opted.load(std::memory_order_relaxed) & bit)) {
+      err = cudaFuncSetAttribute(selective_scan_kernel<X, N, G, U>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kMost);
+      if (err != cudaSuccess) return err;
+      opted.fetch_or(bit, std::memory_order_relaxed);
+    }
+  }
+  const dim3 grid((D + kChannels - 1) / kChannels, B);
+  selective_scan_kernel<X, N, G, U><<<grid, kChannels * G, bytes, s>>>(
+      x, dt, A, Bm, Cm, h0, y, hT, T, D, tile, vec);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename X, int N>
 cudaError_t launch_n(const void* x, const float* dt, const float* A, const void* Bm,
                      const void* Cm, const float* h0, float* y, float* hT, int B, int T,
-                     int D, int N, cudaStream_t s) {
+                     int D, cudaStream_t s) {
+  constexpr int G = kLanes < N ? kLanes : N;  // at least one state a lane
   const X* xp = static_cast<const X*>(x);
   const X* bp = static_cast<const X*>(Bm);
   const X* cp = static_cast<const X*>(Cm);
-  const dim3 grid((D + kThreads - 1) / kThreads, B);
-#define SCAN_CASE(NS)                                                              \
-  if (N == NS) {                                                                   \
-    selective_scan_kernel<X, NS><<<grid, kThreads, 0, s>>>(xp, dt, A, bp, cp, h0, y, \
-                                                           hT, T, D);              \
-    return cudaGetLastError();                                                     \
-  }
-  SCAN_CASE(8)
-  SCAN_CASE(16)
-#undef SCAN_CASE
+  // 16-byte staging and vector state accesses need aligned bases and rows
+  const bool vec = aligned16(x) && aligned16(dt) && aligned16(A) && aligned16(Bm) &&
+                   aligned16(Cm) && aligned16(h0) && aligned16(hT) &&
+                   D % (16 / int(sizeof(X))) == 0;
+  if (T == 1)     // decode: no steps to overlap, registers for occupancy
+    return launch_g<X, N, G, 1>(xp, dt, A, bp, cp, h0, y, hT, B, T, D, vec, s);
+  return launch_g<X, N, G, kUnroll>(xp, dt, A, bp, cp, h0, y, hT, B, T, D, vec, s);
+}
+
+template <typename X>
+cudaError_t launch_x(const void* x, const float* dt, const float* A, const void* Bm,
+                     const void* Cm, const float* h0, float* y, float* hT, int B, int T,
+                     int D, int N, cudaStream_t s) {
+  if (N == 8) return launch_n<X, 8>(x, dt, A, Bm, Cm, h0, y, hT, B, T, D, s);
+  if (N == 16) return launch_n<X, 16>(x, dt, A, Bm, Cm, h0, y, hT, B, T, D, s);
   return cudaErrorInvalidValue;
 }
 
@@ -143,8 +412,8 @@ extern "C" int selective_scan_launch(const void* x, const void* dt, const void* 
   float* yp = static_cast<float*>(y);
   float* hTp = static_cast<float*>(hT);
   if (dtype == kFloat32)
-    return launch_n<float>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
+    return launch_x<float>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
   if (dtype == kBFloat16)
-    return launch_n<__nv_bfloat16>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
+    return launch_x<__nv_bfloat16>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
   return cudaErrorInvalidValue;
 }

@@ -698,13 +698,20 @@ def _scan_inputs(rng, B, T, D, N, dtype, dev):
             _rand(rng, (B, D, N), 0.5, "float32", dev))
 
 
-# Jamba's decode (a pool of 4, d_in 16384, N 16) and prefill (B = 1),
-# reduced Jamba's N = 8, and ragged shapes: T not a multiple of the staged
-# tile, d_in not a multiple of the block
+# Jamba's decode (a pool of 4, d_in 16384, N 16) and prefill (B = 1, up
+# to 2048 steps), reduced Jamba's N = 8 (4 states a lane), and ragged
+# shapes: T not a multiple of the 8 steps a lane takes at once, on either
+# side of a 64-step ring stage (64, 65), d_in not a multiple of a block's
+# 32 channels, and d_in 16383 (bf16 rows not 16-byte aligned: the
+# plain-load staging)
 @pytest.mark.parametrize("B,T,D,N", [(4, 1, 16384, 16), (1, 32, 16384, 16),
                                      (2, 40, 512, 8), (3, 7, 1000, 16),
                                      (1, 300, 1000, 16), (2, 1, 100, 8),
-                                     (1, 33, 70, 16)])
+                                     (1, 33, 70, 16), (2, 9, 16383, 16),
+                                     (2, 5, 16383, 8), (3, 40, 1000, 8),
+                                     (1, 64, 1000, 16), (1, 65, 1000, 16),
+                                     (1, 65, 1000, 8),
+                                     (1, 2048, 16384, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_selective_scan_kernel_matches_plain(cuda, B, T, D, N, dtype):
     """B5 against ``selective_scan_ref`` on the same inputs: both widen x,
@@ -720,6 +727,17 @@ def test_selective_scan_kernel_matches_plain(cuda, B, T, D, N, dtype):
     y_ref, hT_ref = ref.selective_scan_ref(*args)
     np.testing.assert_allclose(_f32(y), _f32(y_ref), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(_f32(hT), _f32(hT_ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,D,N", [(4, 1, 16384, 16), (1, 65, 1000, 16)])
+def test_selective_scan_kernel_is_deterministic(cuda, B, T, D, N):
+    """Two launches on the same inputs give bit-equal y and h_T: y's sum
+    over a channel's states is a fixed-order shuffle butterfly."""
+    rng = np.random.default_rng(14)
+    args = _scan_inputs(rng, B, T, D, N, "bfloat16", cuda)
+    y1, hT1 = scan_mod.selective_scan(*args)
+    y2, hT2 = scan_mod.selective_scan(*args)
+    assert torch.equal(y1, y2) and torch.equal(hT1, hT2)
 
 
 def test_selective_scan_wrapper_validates_inputs(cuda):
