@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      DeepSeek-V2's decode occupancy: 160 experts, C = 6, 4 tokens x top-6;
      and at Jamba's: 16 experts of d 8192 x f 24576, C = 4, 4 tokens x
      top-2), 3b flash_decode (B3, also over a 32768-position cache split
-     across blocks, and at Jamba's 64/8 heads), 3c moe_ffn_quant (B2, int8
+     across blocks, at Jamba's 64/8 heads, and at the family shapes of
+     phases 9-9c: Gemma-2's hd 256 with softcap 50 over a full and a
+     ragged 4096-position ring, Whisper's cross-attention over 1500
+     encoder positions, Qwen2-VL's 64/8 heads), 3c moe_ffn_quant (B2, int8
      and fp16 slot buffers, every expert filled and at B1's decode
      occupancy; at DeepSeek-V2's over 240 slots), 3d wkv6 (B4, the RWKV6
      recurrence at decode, at each of phase 6's prompt lengths and at
@@ -73,7 +76,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      report line equal but the wall-clock ones, for a reduced Jamba whose
      Mamba layers carry 8 experts ((mamba, dense), (mamba, MoE), (attn,
      dense), (mamba, MoE)), all-resident and at rf 0.5 over each wire;
-  9. one JSON line of per-kernel numbers, then the result line.
+  9. gemma2-2b at full width and all 26 layers (8/4 heads x 256, window
+     4096 on the 13 local layers, softcaps 50/30, GeGLU 9216, vocab
+     256000) through the model's serving entry points: prompts of 16,
+     512, 2048 and 4080 tokens prefilled at B=1 into a pool of 4 (cache_len
+     4112), 32 decode steps under an ``active`` mask, the 4080 row past
+     position 4096 where the local rings wrap; finite logits, inactive
+     rows bit-frozen, B3 26 launches a step and no other kernel; prefill
+     and step times, host enqueue, one more step profiled;
+  9b the same for qwen2-vl-72b at full width (64/8 heads x 128, QKV bias,
+     M-RoPE (16, 24, 24), SwiGLU 29568, vocab 152064, head not tied), cut
+     to 4 layers: prompts of seeded patch embeddings over a stub grid
+     with (3, B, S) positions, then text; B3 4 launches a step;
+  9c the same for whisper-small at full width and depth (12 + 12 layers,
+     12 heads x 64, learned positions, LayerNorm, GELU): seeded stub
+     frames (1500 x 768) through the encoder, decoder prompts of 4-16
+     tokens, 16 steps; B3 24 launches a step (12 self, 12 cross);
+  9d each of the three reduced configs in fp32 on the card against the
+     CPU: equal greedy tokens, logits within fp32 limits, Gemma's reduced
+     window of 128 crossed;
+ 10. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -581,12 +603,62 @@ def check_flash_decode(gen, card):
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
     row.update(long)
+    row["family_shapes"] = check_flash_decode_families(gen, card)
     return row
 
 
-def time_long_cache(q, k, v, cl, err, card):
-    """B3 over a cache larger than L2, split across blocks. -> the
-    ``long_*`` keys of B3's row."""
+# B3 at the decode shapes of phases 9-9c: (what, B, H, Hkv, hd, S, per-row
+# lengths, softcap). Gemma-2's local layers hold a ring of 4096 positions
+# (full once a row passes the window); Whisper's cross-attention reads its
+# 1500 encoder positions in every row; Qwen2-VL's rows at phase 9b's
+# prompt lengths.
+B3_FAMILY_SHAPES = [
+    ("gemma2 ring-full", 4, 8, 4, 256, 4096, [4096] * 4, 50.0),
+    ("gemma2 ragged", 4, 8, 4, 256, 4096, [4096, 1, 2500, 17], 50.0),
+    ("whisper cross", 4, 12, 12, 64, 1500, [1500] * 4, 0.0),
+    ("qwen2-vl", 4, 64, 8, 128, 2112, [160, 512, 1024, 2048], 0.0),
+]
+
+
+def check_flash_decode_families(gen, card):
+    """Phase 3b at the family shapes, bf16 and fp32 against the plain
+    version; bf16 timed. q is scaled so that Gemma's scores reach the
+    softcap's bend. -> one dict per shape for B3's row."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    out = []
+    for what, B, H, Hkv, hd, S, lens, cap in B3_FAMILY_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = (torch.randn((B, H, hd), generator=gen, device="cuda")
+                 * (8.0 if cap else 1.0)).to(dtype)
+            k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
+                                device="cuda").to(dtype) for _ in "kv")
+            cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = flash_decode(q, k, v, cl, cap)
+            want = ref.flash_decode_ref(q, k, v, cl, cap)
+            torch.cuda.synchronize()
+            err = compare(f"{what}: B={B} H={H} Hkv={Hkv} hd={hd} S={S} "
+                          f"lens={lens} softcap={cap:g} {dtype}", got, want)
+            if dtype == torch.bfloat16:
+                t = _time_b3(q, k, v, cl, cap)
+                print(f"  time {what} {dtype}: {_b3_line(t)} [{card}]")
+                out.append(dict(shape=f"{what}: B={B} H={H} Hkv={Hkv} "
+                                      f"hd={hd} S={S} lens={lens} softcap="
+                                      f"{cap:g} bf16", max_abs_err=err,
+                                **{key: t[key] for key in (
+                                    "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}))
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_b3(q, k, v, cl, cap=0.0):
+    """B3's time, its plain version's, the library call's (SDPA over the
+    same length mask; None under a softcap, which SDPA has not) and the
+    bound from the valid K/V prefix. -> dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd_mod
@@ -596,28 +668,50 @@ def time_long_cache(q, k, v, cl, err, card):
     S, Hkv = k.shape[1], k.shape[2]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     n_split, split_len = fd_mod.splits(B, Hkv, H // Hkv, S, n_sm)
-    ms = time_ms(lambda: fd_mod.flash_decode(q, k, v, cl), 100)
-    plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl), 3,
+    ms = time_ms(lambda: fd_mod.flash_decode(q, k, v, cl, cap), 100)
+    plain_ms = time_ms(lambda: ref.flash_decode_ref(q, k, v, cl, cap), 3,
                        ahead=False)
-    mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None]
-            )[:, None, None, :]
-    qq, kk, vv = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mask, enable_gqa=True), 10)
+    lib_ms = None
+    if not cap:
+        mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None]
+                )[:, None, None, :]
+        qq, kk, vv = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask, enable_gqa=True), 10)
     n_valid = sum(min(int(n), S) for n in cl.tolist())
     esz = q.element_size()
-    bound_ms, by = bound(esz * (2 * q.numel() + 2 * n_valid * Hkv * hd),
+    kv_bytes = 2 * n_valid * Hkv * hd * esz
+    bound_ms, by = bound(esz * 2 * q.numel() + kv_bytes,
                          4 * H * hd * n_valid, q.dtype)
-    print(f"  time long cache {q.dtype} ({n_split} splits of {split_len} "
-          f"positions, {2 * n_valid * Hkv * hd * esz} B of valid K/V): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"(F.scaled_dot_product_attention, enable_gqa) {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({by}), roofline {bound_ms / ms:.1%} "
-          f"[{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, splits=n_split,
+                split_len=split_len, kv_bytes=kv_bytes)
+
+
+def _b3_line(t):
+    lib = ("none (softcap: F.scaled_dot_product_attention has none)"
+           if t["library_ms"] is None else
+           f"{t['library_ms']:.4f} ms (F.scaled_dot_product_attention, "
+           "enable_gqa)")
+    return (f"{t['splits']} splits of {t['split_len']} positions, "
+            f"{t['kv_bytes']} B of valid K/V: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}), roofline "
+            f"{t['bound_ms'] / t['ms']:.1%}")
+
+
+def time_long_cache(q, k, v, cl, err, card):
+    """B3 over a cache larger than L2, split across blocks. -> the
+    ``long_*`` keys of B3's row."""
+    B, H, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    t = _time_b3(q, k, v, cl)
+    print(f"  time long cache {q.dtype}: {_b3_line(t)} [{card}]")
     return dict(long_shape=f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens="
                            f"{cl.tolist()} bf16", long_max_abs_err=err,
-                long_ms=ms, long_plain_ms=plain_ms, long_bound_ms=bound_ms,
-                long_bound_by=by, long_library_ms=lib_ms)
+                long_ms=t["ms"], long_plain_ms=t["plain_ms"],
+                long_bound_ms=t["bound_ms"], long_bound_by=t["bound_by"],
+                long_library_ms=t["library_ms"])
 
 
 def check_wkv6(gen, card):
@@ -949,13 +1043,14 @@ def _counts():
 
 
 def _b3_per_step(cfg):
-    """B3 launches a decode step makes: one per GQA attention layer, none
-    for MLA (its decode is tensor ops over the latent cache) or for Mamba
-    layers."""
+    """B3 launches a decode step makes: one per GQA attention layer (two in
+    an encoder-decoder: self and cross), none for MLA (its decode is tensor
+    ops over the latent cache) or for Mamba layers."""
     from repro_torch.config import BLOCK_ATTN
     if cfg.attn.mla is not None:
         return 0
-    return sum(cfg.block_kind(i) == BLOCK_ATTN for i in range(cfg.n_layers))
+    n = sum(cfg.block_kind(i) == BLOCK_ATTN for i in range(cfg.n_layers))
+    return 2 * n if cfg.is_encoder_decoder else n
 
 
 def _n_mamba(cfg):
@@ -1642,6 +1737,294 @@ def rwkv_vs_cpu():
           f"1e-4)")
 
 
+GEMMA2, QWEN2_VL, WHISPER = "gemma2-2b", "qwen2-vl-72b", "whisper-small"
+# phases 9-9c: prompts prefilled at B = 1 into a pool of 4, and the decode
+# steps each pool row stays active. Gemma's 4080-token row crosses position
+# 4096, where its local layers' rings wrap; cache_len 4112 holds it to the
+# last step in the global layers.
+FAMILY_RUNS = {
+    GEMMA2: dict(depth=None, prompts=(16, 512, 2048, 4080),
+                 budgets=(32, 20, 26, 32), cache_len=4112),
+    QWEN2_VL: dict(depth=4, prompts=(160, 512, 1024, 2048),
+                   budgets=(32, 20, 26, 32), cache_len=2112),
+    WHISPER: dict(depth=None, prompts=(4, 9, 12, 16),
+                  budgets=(16, 10, 13, 16), cache_len=64),
+}
+VL_GRID = (1, 8, 16)     # Qwen2-VL's stub patch grid (t, h, w): 128 patches
+VL_GRID_REDUCED = (1, 2, 3)       # phase 9d's, under its 7-12 position prompts
+
+
+def family_batch(model, gen, S, B=1, grid=VL_GRID):
+    """A seeded prompt of S positions for ``model``'s family: tokens; for
+    Qwen2-VL ``embeds`` (a stub patch grid of seeded embeddings, then text
+    tokens' embedding rows) with (3, B, S) M-RoPE positions whose t/h/w
+    planes differ over the grid and continue from its largest id over the
+    text; for Whisper also ``enc_embeds`` (B, 1500, 768) of seeded stub
+    frames."""
+    import torch
+    cfg, dev = model.cfg, model.device
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    if cfg.attn.mrope_sections:
+        n = grid[0] * grid[1] * grid[2]
+        ids = torch.stack(torch.meshgrid(
+            *(torch.arange(m, device=dev) for m in grid),
+            indexing="ij")).reshape(3, n)
+        text = ids.max() + 1 + torch.arange(S - n, device=dev)
+        pos = torch.cat([ids, text.expand(3, S - n)], 1)
+        embeds = model.embed[toks]
+        embeds[:, :n] = (torch.randn((B, n, cfg.d_model), generator=gen,
+                                     device=dev)
+                         * cfg.d_model ** -0.5).to(embeds.dtype)
+        return {"embeds": embeds,
+                "positions": pos[:, None].expand(3, B, S).to(torch.int32)}
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn(
+            (B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device=dev).to(model.dtype)
+    return batch
+
+
+def _family_cfg(arch, depth):
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         n_layers=depth)
+    a = cfg.attn
+    extra = []
+    if a.sliding_window:
+        extra.append(f"window {a.sliding_window} on every "
+                     f"{a.local_global_period}nd layer")
+    if a.logit_softcap or cfg.final_logit_softcap:
+        extra.append(f"softcaps {a.logit_softcap:g}/"
+                     f"{cfg.final_logit_softcap:g}")
+    if a.mrope_sections:
+        extra.append(f"M-RoPE {a.mrope_sections}")
+    if a.qkv_bias:
+        extra.append("QKV bias")
+    if cfg.is_encoder_decoder:
+        extra.append(f"{cfg.n_encoder_layers}-layer encoder over "
+                     f"{cfg.encoder_seq_len} frames, cross-attention")
+    if not a.use_rope:
+        extra.append("learned positions")
+    depth_s = (f"all {cfg.n_layers} layers" if depth is None else
+               f"depth cut {full.n_layers} -> {cfg.n_layers} layers")
+    return cfg, (f"{cfg.name} at full width (d_model {cfg.d_model}, heads "
+                 f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim_}, "
+                 f"{cfg.act} {cfg.d_ff}, {cfg.norm}, {', '.join(extra)}, "
+                 f"vocab {cfg.vocab}, "
+                 f"{'tied head' if cfg.tie_embeddings else 'head not tied'}"
+                 f", {cfg.dtype}), {depth_s}")
+
+
+def family_path(card, arch, phase):
+    """Phases 9, 9b, 9c: ``arch`` at full width through ``Model``'s
+    serving entry points: FAMILY_RUNS' prompts prefilled at B = 1 and
+    written into a pool, pooled decode steps under an ``active`` mask that
+    retires rows at their budgets; finite logits, inactive rows' caches
+    and positions bit-frozen, B3's launches (no other kernel's); prefill
+    and step times, host enqueue, one more step profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.models import Model
+
+    run = FAMILY_RUNS[arch]
+    cfg, desc = _family_cfg(arch, run["depth"])
+    print(f"phase {phase}: {desc}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  init: {n_params / 1e9:.3f}e9 params, "
+          f"{torch.cuda.memory_allocated()} B on the card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts, budgets = run["prompts"], run["budgets"]
+    B, L = len(prompts), run["cache_len"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    _reset_counts()
+    with torch.inference_mode():
+        pool = model.init_cache(B, L)
+        tok = torch.zeros(B, dtype=torch.long, device="cuda")
+        prefill_ms = []
+        for slot, S in enumerate(prompts):
+            batch = family_batch(model, gen, S)
+            start.record()
+            logits, one, _ = model.prefill(batch, model.init_cache(1, L))
+            end.record()
+            end.synchronize()
+            prefill_ms.append(start.elapsed_time(end))
+            if logits.shape != (1, cfg.vocab) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise SystemExit(f"prefill of {S} positions: logits not "
+                                 "finite")
+            model.write_slot(pool, one, slot)
+            tok[slot] = logits[0].argmax()
+            del one, batch
+        steps_ms, enqueue_ms = [], []
+        for step in range(max(budgets)):
+            active = torch.tensor([step < b for b in budgets], device="cuda")
+            idle = ~active
+            before = [{k: v[idle].clone() for k, v in layer.items()}
+                      for layer in pool["layers"]]
+            pos0 = pool["pos"][idle].clone()
+            t0 = time.perf_counter()
+            start.record()
+            logits, pool, _ = model.serve_step(pool, tok, active=active)
+            end.record()
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            steps_ms.append(start.elapsed_time(end))
+            if not bool(torch.isfinite(logits).all()):
+                raise SystemExit(f"decode step {step}: logits not finite")
+            for old, new in zip(before, pool["layers"]):
+                for key, val in old.items():
+                    if not torch.equal(new[key][idle], val):
+                        raise SystemExit(f"decode step {step}: an inactive "
+                                         f"row's {key} changed")
+            if not torch.equal(pool["pos"][idle], pos0):
+                raise SystemExit(f"decode step {step}: an inactive row's "
+                                 "position moved")
+            tok = torch.where(active, logits.argmax(-1), tok)
+        torch.cuda.synchronize()
+        launches = _counts()
+        # one more step with every row inactive (the pool is unchanged)
+        # under the profiler: what the device does in a step
+        idle_rows = torch.zeros(B, dtype=torch.bool, device="cuda")
+        busy_ms, n_kernels, n_ops, top = profile_step(
+            lambda: model.serve_step(pool, tok, active=idle_rows))
+    n_steps, per_step = len(steps_ms), _b3_per_step(cfg)
+    want = dict.fromkeys(launches, 0)
+    want["flash_decode"] = per_step * n_steps
+    pos = [int(p) for p in pool["pos"]]
+    print(f"  prompts {list(prompts)} prefilled at B=1 into a pool of {B} "
+          f"(cache_len {L}); {n_steps} pooled decode steps, budgets "
+          f"{list(budgets)}; positions {pos}; inactive rows' caches and "
+          "positions bit-frozen at every step")
+    print(f"  launches: flash_decode {launches['flash_decode']} (expected "
+          f"{per_step} a step x {n_steps} steps = {want['flash_decode']});"
+          f" others {launches}")
+    if launches != want:
+        raise SystemExit(f"launch counts differ from the {cfg.name} path's "
+                         "calls")
+    if pos != [S + b for S, b in zip(prompts, budgets)]:
+        raise SystemExit("pool positions differ from prompts + budgets")
+    steps = np.asarray(steps_ms)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters()
+                  if name.startswith(("layers.", "final_norm.", head)))
+    # bytes B3 reads at the last positions: each row's valid self-attention
+    # positions (a ring's min(pos, L)), all of the encoder's for cross
+    kv = sum(t[0].numel() * t.element_size()
+             * (1 if key.startswith("cross") else
+                min(int(p), t.shape[1]) / t.shape[1])
+             for layer in pool["layers"] for key, t in layer.items()
+             for p in pool["pos"])
+    floor_ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    print("  prefill (B=1, CUDA events): " + ", ".join(
+        f"{S} positions {ms:.3f} ms" for S, ms in zip(prompts, prefill_ms))
+        + f" [{card}]")
+    print(f"  decode step (pool of {B}, CUDA events): mean {steps.mean():.3f}"
+          f" ms, median {np.median(steps):.3f} ms, min {steps.min():.3f} ms "
+          f"over {n_steps} steps; read floor {floor_ms:.3f} ms ({weights} B "
+          f"of decoder weights and head + {int(kv)} B of the pool's valid "
+          f"K/V at the last positions, over 3.35 TB/s) [{card}]")
+    print(f"  host enqueue of a decode step (no sync inside): median "
+          f"{np.median(enqueue_ms):.3f} ms; torch.profiler over one more "
+          f"step: {n_ops} top-level aten ops, {n_kernels} device kernels/"
+          f"copies, device busy {busy_ms:.3f} ms = "
+          f"{busy_ms / np.median(steps):.1%} of the median step [{card}]")
+    print("  host time by top-level op (profiled, nested ops included): "
+          + ", ".join(f"{name} {ms:.3f} ms in {n}" for name, n, ms in top))
+    print(f"  card memory: peak {torch.cuda.max_memory_allocated()} B, pool "
+          f"{sum(t.nbytes for l in pool['layers'] for t in l.values())} B")
+    del model, pool, before, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 9d: (arch, prompts, cache_len, decode steps, steps row 1 stays
+# active). Gemma's reduced window is 128: row 0 decodes from 16 to 1.5 x
+# window, row 1 is prefilled past the window (a prompt longer than the
+# ring) and decodes to the same position.
+FAMILY_CPU_RUNS = [(GEMMA2, (16, 150), 200, 176, 42),
+                   (QWEN2_VL, (7, 12), 32, 8, 5),
+                   (WHISPER, (7, 12), 32, 8, 5)]
+
+
+def families_vs_cpu():
+    """Phase 9d: the three reduced configs in fp32 on the card against the
+    same weights on the CPU: forward logits, prefill into a pool of 2 and
+    gated greedy decode; equal greedy tokens, logits within fp32 limits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    for arch, prompts, L, n_steps, row1 in FAMILY_CPU_RUNS:
+        cfg = get_config(arch).reduced()
+        print(f"phase 9d: {cfg.name} ({cfg.n_layers} layers, fp32) on the "
+              "card vs the same weights on the CPU")
+        gpu = Model(cfg, device="cuda").init(5)
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        worst = 0.0
+
+        def close(name, got, want):
+            nonlocal worst
+            err = (got.cpu() - want).abs()
+            worst = max(worst, float(err.max()))
+            if not bool(torch.all(err <= 1e-4 + 1e-4 * want.abs())):
+                raise SystemExit(f"{cfg.name} {name}: card and CPU differ "
+                                 f"(max_abs_err {float(err.max()):.3e})")
+
+        def on_cpu(batch):
+            return {k: v.cpu() for k, v in batch.items()}
+        with torch.inference_mode():
+            batch = family_batch(gpu, gen, 12, B=2, grid=VL_GRID_REDUCED)
+            close("forward logits", gpu.forward(batch)[0],
+                  cpu.forward(on_cpu(batch))[0])
+            pools = [m.init_cache(2, L) for m in (gpu, cpu)]
+            tok = torch.zeros((2, 2), dtype=torch.long)       # (model, row)
+            for row, S in enumerate(prompts):
+                batch = family_batch(gpu, gen, S, grid=VL_GRID_REDUCED)
+                outs = [m.prefill(b, m.init_cache(1, L)) for m, b in
+                        ((gpu, batch), (cpu, on_cpu(batch)))]
+                close(f"prefill of {S} logits", outs[0][0], outs[1][0])
+                for i, (m, pool, o) in enumerate(zip((gpu, cpu), pools,
+                                                     outs)):
+                    m.write_slot(pool, o[1], row)
+                    tok[i, row] = int(o[0][0].argmax())
+            if not torch.equal(tok[0], tok[1]):
+                raise SystemExit(f"{cfg.name} prefill: greedy tokens differ")
+            for step in range(n_steps):
+                active = torch.tensor([True, step < row1])
+                outs = [m.serve_step(pool, t.to(m.device),
+                                     active=active.to(m.device))
+                        for m, pool, t in zip((gpu, cpu), pools, tok)]
+                close(f"decode step {step} logits", outs[0][0], outs[1][0])
+                new = [torch.where(active, o[0].argmax(-1).cpu(), t)
+                       for o, t in zip(outs, tok)]
+                if not torch.equal(new[0], new[1]):
+                    raise SystemExit(f"{cfg.name} decode step {step}: greedy "
+                                     "tokens differ")
+                tok = torch.stack(new)
+        pos = [int(p) for p in pools[0]["pos"]]
+        print(f"  forward, prefill ({' and '.join(map(str, prompts))} "
+              f"positions) and {n_steps} gated decode steps to positions "
+              f"{pos}: greedy tokens equal, max_abs_err={worst:.3e} (atol "
+              f"1e-4, rtol 1e-4)")
+        if arch == GEMMA2 and min(pos) <= cfg.attn.sliding_window:
+            raise SystemExit("phase 9d: the Gemma rows did not cross the "
+                             "window")
+        del gpu, cpu, pools
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1690,6 +2073,10 @@ def main() -> int:
         card, JAMBA, "phase 8b: Jamba, streaming experts at rf 0.5 over the "
                      "master-dtype (bf16) wire", wire="fp32")
     jamba_vs_cpu()
+    paths["gemma2"] = family_path(card, GEMMA2, "9")
+    paths["qwen2_vl"] = family_path(card, QWEN2_VL, "9b")
+    paths["whisper"] = family_path(card, WHISPER, "9c")
+    families_vs_cpu()
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -1697,7 +2084,10 @@ def main() -> int:
                         ("deepseek_all_resident", ("moe_ffn",)),
                         ("deepseek_streaming", ("moe_ffn_quant",)),
                         ("jamba_all_resident", jamba),
-                        ("jamba_streaming", jamba)):
+                        ("jamba_streaming", jamba),
+                        ("gemma2", ("flash_decode",)),
+                        ("qwen2_vl", ("flash_decode",)),
+                        ("whisper", ("flash_decode",))):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's B2, B4, B1 and B5 kernels of two trees of this repo on
-one GPU, in turns: the other tree, this one, this one, the other.
+"""Time the port's B2, B4, B1, B5 and B3 kernels of two trees of this repo
+on one GPU, in turns: the other tree, this one, this one, the other.
 
     python3 scripts/kernel_ab.py --parent DIR [--paths]
     python3 scripts/kernel_ab.py --lanes
+    python3 scripts/kernel_ab.py --b3-q
 
 DIR is another checkout of the repo (for example ``git archive`` of the
 parent commit unpacked into a git-ignored directory). Each run is its own
@@ -20,7 +21,14 @@ built from its own sources; all runs take the same seeded inputs:
     expert;
   - B5 ``selective_scan`` at Jamba's decode shape (B = 4, T = 1, d_in
     16384, N 16) and at B = 1 over 1, 17, 36, 256 and 2048 steps, x/B/C
-    bf16.
+    bf16;
+  - B3 ``flash_decode`` in bf16 at ``chip_smoke.py`` phase 3b's served
+    shapes (qwen3 decode, S 64; the 32768-position cache; Jamba's 64/8
+    heads) and at its family shapes (``B3_FAMILY_SHAPES``: Whisper's
+    cross-attention, Qwen2-VL, and Gemma-2's hd 256 with softcap 50 where
+    the tree's kernel takes them). The hd 64/128 outputs without a softcap
+    are hashed, and every run's hashes must be equal: the other tree's
+    kernel and this one's give the same bits there.
 
 Each result is held against the plain version first. With ``--paths`` each
 run also drives that tree's own ``chip_smoke.py`` phase 4b (streaming,
@@ -34,6 +42,13 @@ group size G (lanes a channel's states are split over) and ring-stage
 depth (steps a stage holds), each built as its own library from the same
 source with ``-DSCAN_LANES=G -DSCAN_TILE=steps`` and held against the
 plain version first: the measurement behind the kernel's defaults.
+
+``--b3-q`` times this tree's B3 alone, bf16, at the B3 shapes above for
+where q lives: built with ``-DFLASH_Q_SMEM_HD=`` 64 (q in shared memory
+at every hd), 256 (the served build: from hd 256) and 512 (q's fragments
+in registers at every hd, as before hd 256 was taken), each its own
+library, held against the plain version first, with each build's
+registers and spills of the bf16 hd-256 kernels.
 """
 from __future__ import annotations
 
@@ -74,9 +89,11 @@ def measure(tree: Path, paths: bool) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
     cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
-    build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan"])
+    build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan",
+                 "flash_decode"])
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {}}
+    out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {},
+           "b3": {}, "b3_bits": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, C, d, f = (cs.MAIN[k] for k in "ECdf")
     f32 = torch.float32
@@ -131,6 +148,7 @@ def measure(tree: Path, paths: bool) -> dict:
         cs.compare(f"B5 B={B} T={T} h_T", hT, hT_ref, cs.SCAN_TOL)
         out["b5"][f"B={B} T={T}"] = cs.time_ms(
             lambda: selective_scan(*args), 200 if T < 1024 else 20)
+    measure_b3(cs, out)
     if paths:
         own = _module(tree / "chip_smoke.py", "chip_smoke_tree")
         card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,37 +158,82 @@ def measure(tree: Path, paths: bool) -> dict:
     return out
 
 
-def _variant_libs(build, variants) -> dict:
-    """B5 built once per (G, stage steps) with ``-DSCAN_LANES``/
-    ``-DSCAN_TILE``, one ``nvcc`` each, all started together, into the
-    build directory beside (not over) the served library; the name carries
-    the served library's source hash. -> (G, tile) -> launch function."""
+# B3's phase-3b shapes: (what, B, H, Hkv, hd, S, per-row lengths, softcap)
+B3_SHAPES = [("qwen3 S=64", 4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
+             ("long cache", 4, 64, 4, 128, 32768, [32768, 16384, 8192, 1],
+              0.0),
+             ("jamba heads", 4, 64, 8, 128, 48, [1, 17, 40, 48], 0.0)]
+
+
+def measure_b3(cs, out) -> None:
+    """B3 of the tree on the path at ``B3_SHAPES`` and this tree's
+    ``chip_smoke.B3_FAMILY_SHAPES`` (a softcap only where the tree's
+    wrapper takes hd 256): held against the tree's plain version, timed,
+    and the uncapped outputs' bits hashed, into ``out``."""
+    import hashlib
+    import torch
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import ref
+    for i, (what, B, H, Hkv, hd, S, lens, cap) in enumerate(
+            B3_SHAPES + cs.B3_FAMILY_SHAPES):
+        if hd not in fd_mod.HEAD_DIMS:
+            continue
+        # seeded per shape: a tree that skips a shape draws the same
+        # inputs for the others
+        gen = torch.Generator(device="cuda").manual_seed(3 + i)
+        q = torch.randn((B, H, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in "kv")
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q, k, v, cl) + ((cap,) if cap else ())
+        y = fd_mod.flash_decode(*args)
+        cs.compare(f"B3 {what}", y, ref.flash_decode_ref(*args))
+        out["b3"][what] = cs.time_ms(lambda: fd_mod.flash_decode(*args),
+                                     100)
+        if not cap:
+            out["b3_bits"][what] = hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        del q, k, v, y
+    torch.cuda.empty_cache()
+
+
+def _variant_libs(build, name, variants) -> tuple:
+    """Kernel ``name`` built once per variant (key -> its ``-D`` flags),
+    one ``nvcc`` each, all started together, into the build directory
+    beside (not over) the served library; each name carries the served
+    library's source hash. -> (key -> launch function, key -> nvcc log,
+    empty for a library built before)."""
     import ctypes
-    stem = build.library_path("selective_scan").stem
-    src = build.CSRC / "selective_scan.cu"
-    jobs = {}
+    stem = build.library_path(name).stem
+    src = build.CSRC / f"{name}.cu"
+    jobs, logs = {}, {}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for g, tile in variants:
-        out = build.BUILD_DIR / f"{stem}-G{g}-tile{tile}.so"
+
+    def path(flags):
+        return build.BUILD_DIR / (stem + "".join(
+            "-" + f[2:].replace("=", "") for f in flags) + ".so")
+    for key, flags in variants.items():
+        out = path(flags)
         if not out.exists():
             tmp = out.with_suffix(".tmp")
-            jobs[out] = (tmp, subprocess.Popen(
-                [build._nvcc(), *build.NVCC_FLAGS, f"-DSCAN_LANES={g}",
-                 f"-DSCAN_TILE={tile}", "-o", str(tmp), str(src)],
+            jobs[key] = (out, tmp, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(tmp),
+                 str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for out, (tmp, proc) in jobs.items():
-        log, _ = proc.communicate()
+    for key, (out, tmp, proc) in jobs.items():
+        logs[key], _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"kernel_ab: nvcc failed for {out.name}:\n{log}")
+            raise SystemExit(f"kernel_ab: nvcc failed for {out.name}:\n"
+                             f"{logs[key]}")
         tmp.replace(out)
-    fn_name, argtypes = build._SIGNATURES["selective_scan"]
+    fn_name, argtypes = build._SIGNATURES[name]
     fns = {}
-    for g, tile in variants:
-        fn = getattr(ctypes.CDLL(str(
-            build.BUILD_DIR / f"{stem}-G{g}-tile{tile}.so")), fn_name)
+    for key, flags in variants.items():
+        fn = getattr(ctypes.CDLL(str(path(flags))), fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[g, tile] = fn
-    return fns
+        fns[key] = fn
+    return fns, logs
 
 
 def lanes(card: str) -> None:
@@ -182,7 +245,9 @@ def lanes(card: str) -> None:
         raise SystemExit("kernel_ab: CUDA is not available")
     cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
     variants = [(g, tile) for g in B5_LANES for tile in B5_TILES]
-    fns = _variant_libs(build, variants)
+    fns, _ = _variant_libs(build, "selective_scan", {
+        (g, tile): [f"-DSCAN_LANES={g}", f"-DSCAN_TILE={tile}"]
+        for g, tile in variants})
     gen = torch.Generator(device="cuda").manual_seed(0)
     print(f"B5 ms per launch by lanes G x stage steps, d_in {B5_D}, N {B5_N}"
           f", x/B/C bf16 [{card}]")
@@ -212,6 +277,66 @@ def lanes(card: str) -> None:
               + " | ".join(f"{ms:.4f}" for ms in times), flush=True)
 
 
+B3_Q_SMEM_HD = (64, 256, 512)     # the served build keeps q in smem from 256
+
+
+def b3_q(card: str) -> None:
+    """B3 of this tree, bf16, per ``-DFLASH_Q_SMEM_HD`` build."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_decode as fd_mod
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: CUDA is not available")
+    cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
+    fns, logs = _variant_libs(build, "flash_decode", {
+        v: [f"-DFLASH_Q_SMEM_HD={v}"] for v in B3_Q_SMEM_HD})
+    for v, log in logs.items():
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Li256E" in line and "flash_decode_kernelI13__nv_bfloat16" \
+                    in line:
+                print(f"FLASH_Q_SMEM_HD={v} bf16 hd 256 "
+                      f"{'capped' if 'Lb1E' in line else 'uncapped'}: "
+                      + "; ".join(x.strip() for x in lines[i + 1:i + 3]))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"B3 ms per launch, bf16, by FLASH_Q_SMEM_HD (q in shared memory "
+          f"from that hd) [{card}]")
+    print("shape | bound ms | " + " | ".join(
+        f"q smem from hd {v}" for v in B3_Q_SMEM_HD))
+    for i, (what, B, H, Hkv, hd, S, lens, cap) in enumerate(
+            B3_SHAPES + cs.B3_FAMILY_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(3 + i)
+        q = torch.randn((B, H, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in "kv")
+        cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        want = ref.flash_decode_ref(q, k, v, cl, cap)
+        n_split, split_len = fd_mod.splits(B, Hkv, H // Hkv, S, n_sm)
+        part = torch.empty((B * H * n_split * (hd + 2),), device="cuda")
+        times = []
+        for var in B3_Q_SMEM_HD:
+            def run(fn=fns[var]):
+                out = torch.empty_like(q)
+                build.check("flash_decode", fn(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+                    out.data_ptr(), part.data_ptr() if n_split > 1 else None,
+                    B, S, Hkv, H // Hkv, hd, n_split, split_len,
+                    hd ** -0.5, cap, build.DTYPES[torch.bfloat16],
+                    torch.cuda.current_stream().cuda_stream))
+                return out
+            cs.compare(f"B3 FLASH_Q_SMEM_HD={var} {what}", run(), want)
+            times.append(cs.time_ms(run, 100))
+        n_valid = sum(min(n, S) for n in lens)
+        bound_ms = (2 * (q.numel() + n_valid * Hkv * hd) * 2
+                    / cs.HBM_BYTES_PER_S * 1e3)
+        print(f"{what} (hd {hd}) | {bound_ms:.6f} | "
+              + " | ".join(f"{ms:.4f}" for ms in times), flush=True)
+        del q, k, v, want, part
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="the other tree")
@@ -220,6 +345,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lanes", action="store_true",
                     help="time this tree's B5 per lane group and stage "
                          "depth instead")
+    ap.add_argument("--b3-q", action="store_true",
+                    help="time this tree's B3 per FLASH_Q_SMEM_HD build "
+                         "instead")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure:
@@ -232,6 +360,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     if args.lanes:
         lanes(card.splitlines()[0])
+        return 0
+    if args.b3_q:
+        b3_q(card.splitlines()[0])
         return 0
     if args.parent is None:
         ap.error("--parent is required")
@@ -248,12 +379,22 @@ def main(argv=None) -> int:
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         runs.append((label, json.loads(line[-1][3:])))
     print(f"ms per launch, runs in order [{card.splitlines()[0]}]")
-    keys = [(part, k) for part in ("b2", "b4", "b1", "b5")
-            for k in runs[0][1][part]]
+    keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3")
+            for k in dict.fromkeys(key for _, run in runs
+                                   for key in run.get(part, {}))]
     print("kernel, shape | " + " | ".join(label for label, _ in runs))
     for part, key in keys:
-        print(f"{part.upper()} {key} | "
-              + " | ".join(f"{run[part][key]:.4f}" for _, run in runs))
+        print(f"{part.upper()} {key} | " + " | ".join(
+            f"{run[part][key]:.4f}" if key in run.get(part, {}) else "-"
+            for _, run in runs))
+    bits = [run.get("b3_bits", {}) for _, run in runs]
+    shared = sorted(set.intersection(*(set(b) for b in bits)))
+    same = [k for k in shared if len({b[k] for b in bits}) == 1]
+    print(f"B3 outputs without a softcap bit-equal in every run: "
+          f"{len(same)} of {len(shared)} shapes ({', '.join(shared)})")
+    if len(same) != len(shared):
+        raise SystemExit("B3's uncapped outputs differ between runs: "
+                         + ", ".join(k for k in shared if k not in same))
     return 0
 
 

@@ -38,9 +38,9 @@ _SIGNATURES = {
     # y, E, C, d, f, act, x_dtype, w_dtype, out_dtype, stream
     "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 11 + [_I] * 8 + [_P]),
     # q, k, v, lens, out, part, B, S, Hkv, rep, hd, splits, split_len,
-    # scale, dtype, stream
+    # scale, softcap, dtype, stream
     "flash_decode": ("flash_decode_launch",
-                     [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+                     [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
     # r, k, v, w, u, s0, o, sN, BH, T, hd, rows, cols, dtype, w_dtype,
     # stream
     "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 7 + [_P]),

@@ -2,10 +2,12 @@
 //
 // Replaces: repro/kernels/flash_decode.py::flash_decode (the Pallas
 // `_kernel`). Computes, for each batch row b and query head h,
-// softmax(q . K^T * hd^-0.5 over positions < cache_len[b]) . V with an fp32
-// online softmax (running max m, denominator l, accumulator acc). Masked
-// positions score -1e30, so a row with cache_len <= 0 takes a uniform
-// softmax over all S positions, as the reference does. In bf16, P is
+// softmax(s over positions < cache_len[b]) . V with s = q . K^T * hd^-0.5,
+// or cap * tanh(s / cap) under a logit softcap (Gemma-2), in the order of
+// the reference's `_sdpa`; an fp32 online softmax (running max m,
+// denominator l, accumulator acc). Masked positions score -1e30, so a row
+// with cache_len <= 0 takes a uniform softmax over all S positions, as the
+// reference does. hd is 64, 128 or 256. In bf16, P is
 // rounded to V's dtype before P.V, as the Pallas kernel does (its
 // `p.astype(v.dtype)`); l sums the fp32 P.
 //
@@ -25,6 +27,16 @@
 //    N side of the scores and the K side of P.V; the score accumulators are
 //    reused in registers as P's fragments. fp32 keeps CUDA-core FMAs (TF32
 //    would break the fp32 tolerance): lanes split hd and shuffle-reduce.
+//  - hd 256 keeps q in shared memory (one tile per block, read by ldmatrix
+//    each chunk in bf16) instead of registers: the warp's output
+//    accumulators alone take 128 registers there, and q's fragments would
+//    take 64 more. Its per-warp rings take 192 KB, so one block runs per SM,
+//    with 4 warps x 2 chunks of 16 KB in flight. The softcap is a template
+//    flag: without it each instantiation is the kernel it was before.
+//  - A block's M side is 16 query heads; a KV group of rep < 16 heads
+//    (Gemma-2's 2, Whisper's 1) leaves 1 - rep/16 of each tensor-core
+//    product on padded rows. The cache read, which bounds the kernel, is
+//    the same.
 //  - Each warp owns its own 16-position chunks, brought into a private
 //    three-stage shared-memory ring with 16-byte cp.async (zero-filled past
 //    the valid prefix, swizzled for conflict-free ldmatrix), and keeps its
@@ -60,34 +72,72 @@ struct Args {
   float* part;          // (B, H, splits, hd + 2): acc, m, l; null if splits == 1
   int S, Hkv, rep, splits, split_len;
   float scale;
+  float cap;            // logit softcap (> 0 only in the kCap instantiations)
 };
+
+// q stays in shared memory rather than registers from this hd on (256 in
+// the served build; scripts/kernel_ab.py --b3-q builds 64 and 512 beside
+// it, each into its own library, to time the choice)
+#ifndef FLASH_Q_SMEM_HD
+#define FLASH_Q_SMEM_HD 256
+#endif
+
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() { return HD >= FLASH_Q_SMEM_HD; }
+
+// bytes of the block's q tile in shared memory (0 when q is in registers)
+template <typename T, int HD>
+__host__ __device__ constexpr size_t q_bytes() {
+  return q_in_smem<HD>() ? (size_t)kHeads * HD * sizeof(T) : 0;
+}
+
+// [per-warp K/V rings (bf16), reused as the merge buffer][q tile][(m, l)]
+template <typename T, int HD>
+__host__ __device__ constexpr size_t region_bytes() {
+  const size_t ring = sizeof(T) == 2 ? (size_t)kWarps * kStages * 2 * kChunk * HD * 2 : 0;
+  const size_t obuf = (size_t)kWarps * kHeads * HD * sizeof(float);
+  return ring > obuf ? ring : obuf;
+}
 
 template <typename T, int HD>
 __host__ __device__ constexpr size_t smem_bytes() {
-  // bf16: the per-warp K/V rings; the merge buffer reuses them
-  const size_t ring = sizeof(T) == 2 ? (size_t)kWarps * kStages * 2 * kChunk * HD * 2 : 0;
-  const size_t obuf = (size_t)kWarps * kHeads * HD * sizeof(float);
-  return (ring > obuf ? ring : obuf) + (size_t)kWarps * kHeads * 2 * sizeof(float);
+  return region_bytes<T, HD>() + q_bytes<T, HD>() + (size_t)kWarps * kHeads * 2 * sizeof(float);
+}
+
+// the scaled score, softcapped as the reference's `softcap` does
+template <bool kCap>
+__device__ __forceinline__ float score(float s, float scale, float cap) {
+  const float x = s * scale;
+  if constexpr (kCap) return cap * tanhf(x / cap);
+  return x;
 }
 
 // One warp's running softmax over its chunks, tensor-core version: the
 // thread holds rows g = lane/4 and g + 8, and o's columns nt*8 + 2t, +1.
-template <int HD>
+// q's A fragments live in registers, or (hd 256) in the block's shared q
+// tile (16 x HD, swizzled), read with ldmatrix for each 16-column step.
+template <int HD, bool kCap>
 struct WarpBf16 {
-  uint32_t qa[HD / 16][4];
+  static constexpr bool kQs = q_in_smem<HD>();
+  uint32_t qa[kQs ? 1 : HD / 16][4];
+  const __nv_bfloat16* qs;
   float m[2], l[2];
   float o[HD / 8][4];
 
-  __device__ void init(const __nv_bfloat16* qb, int rows, int lane) {
+  __device__ void init(const __nv_bfloat16* qb, const __nv_bfloat16* q_tile, int rows,
+                       int lane) {
     const int g = lane >> 2, t = lane & 3;
+    qs = q_tile;
+    if constexpr (!kQs) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = g + (i & 1) * 8;
-        const int col = kk * 16 + (i >> 1) * 8 + 2 * t;
-        qa[kk][i] = r < rows
-            ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * HD + col) : 0u;
+        for (int i = 0; i < 4; ++i) {
+          const int r = g + (i & 1) * 8;
+          const int col = kk * 16 + (i >> 1) * 8 + 2 * t;
+          qa[kk][i] = r < rows
+              ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * HD + col) : 0u;
+        }
       }
     }
     m[0] = m[1] = -INFINITY;
@@ -99,7 +149,7 @@ struct WarpBf16 {
 
   // positions c0 .. c0+15 from the ring stage (ks, vs: 16 x HD, swizzled)
   __device__ void step(const __nv_bfloat16* ks, const __nv_bfloat16* vs, int c0,
-                       int p_end, int len, float scale, int lane) {
+                       int p_end, int len, float scale, float cap, int lane) {
     const int t = lane & 3, q4 = lane >> 3, r8 = lane & 7;
     float s[2][4] = {};
 #pragma unroll
@@ -108,8 +158,16 @@ struct WarpBf16 {
       const int row = r8 + (q4 >> 1) * 8;
       uint32_t b[4];
       ldsm_x4(b, ks + swizzle<__nv_bfloat16>(row, 2 * kk + (q4 & 1), HD / 8));
-      mma_bf16(s[0], qa[kk], b[0], b[1]);
-      mma_bf16(s[1], qa[kk], b[2], b[3]);
+      if constexpr (kQs) {
+        // matrices: (rows 0-7, k lo), (rows 8-15, k lo), (rows 0-7, k hi), (rows 8-15, k hi)
+        uint32_t a[4];
+        ldsm_x4(a, qs + swizzle<__nv_bfloat16>(r8 + (q4 & 1) * 8, 2 * kk + (q4 >> 1), HD / 8));
+        mma_bf16(s[0], a, b[0], b[1]);
+        mma_bf16(s[1], a, b[2], b[3]);
+      } else {
+        mma_bf16(s[0], qa[kk], b[0], b[1]);
+        mma_bf16(s[1], qa[kk], b[2], b[3]);
+      }
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -117,7 +175,8 @@ struct WarpBf16 {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int pos = c0 + j * 8 + 2 * t + (e & 1);
-        const float x = pos >= p_end ? -INFINITY : (pos >= len ? kMasked : s[j][e] * scale);
+        const float x = pos >= p_end ? -INFINITY
+                                     : (pos >= len ? kMasked : score<kCap>(s[j][e], scale, cap));
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -184,20 +243,30 @@ struct WarpBf16 {
 };
 
 // The fp32 version: lanes split hd (HD / 32 elements each), every lane
-// holds all 16 rows' (m, l) after a butterfly reduction of each score.
-template <int HD>
+// holds all 16 rows' (m, l) after a butterfly reduction of each score. At
+// hd 256, q is read from the block's shared q tile, laid out [row][j][lane]
+// so that a warp's reads of one (row, j) hit 32 banks.
+template <int HD, bool kCap>
 struct WarpF32 {
   static constexpr int kV = HD / 32;
-  float q[kHeads][kV];
+  static constexpr bool kQs = q_in_smem<HD>();
+  float q[kQs ? 1 : kHeads][kV];
+  const float* qs;
   float m[kHeads], l[kHeads];
   float acc[kHeads][kV];
 
-  __device__ void init(const float* qb, int rows, int lane) {
+  __device__ float qv(int r, int j, int lane) const {
+    if constexpr (kQs) return qs[(r * kV + j) * 32 + lane];
+    return q[r][j];
+  }
+
+  __device__ void init(const float* qb, const float* q_tile, int rows, int lane) {
+    qs = q_tile;
 #pragma unroll
     for (int r = 0; r < kHeads; ++r) {
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
-        q[r][j] = r < rows ? qb[(size_t)r * HD + lane * kV + j] : 0.f;
+        if constexpr (!kQs) q[r][j] = r < rows ? qb[(size_t)r * HD + lane * kV + j] : 0.f;
         acc[r][j] = 0.f;
       }
       m[r] = -INFINITY;
@@ -209,7 +278,7 @@ struct WarpF32 {
   // position's K/V row loaded while this one is scored; all 16 rows are
   // scored (padded rows have q = 0) so their shuffle chains interleave
   __device__ void step(const float* k, const float* v, size_t row_stride, int c0,
-                       int p_end, int len, float scale, int lane) {
+                       int p_end, int len, float scale, float cap, int lane) {
     const int end = min(c0 + kChunk, p_end);
     float kn[kV], vn[kV];
 #pragma unroll
@@ -236,7 +305,7 @@ struct WarpF32 {
       for (int r = 0; r < kHeads; ++r) {
         dot[r] = 0.f;
 #pragma unroll
-        for (int j = 0; j < kV; ++j) dot[r] = fmaf(q[r][j], kv[j], dot[r]);
+        for (int j = 0; j < kV; ++j) dot[r] = fmaf(qv(r, j, lane), kv[j], dot[r]);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -244,7 +313,7 @@ struct WarpF32 {
         for (int r = 0; r < kHeads; ++r) dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
 #pragma unroll
       for (int r = 0; r < kHeads; ++r) {
-        const float x = pos >= len ? kMasked : dot[r] * scale;
+        const float x = pos >= len ? kMasked : score<kCap>(dot[r], scale, cap);
         const float m_new = fmaxf(m[r], x);
         const float alpha = expf(m[r] - m_new);
         const float p = expf(x - m_new);
@@ -269,7 +338,7 @@ struct WarpF32 {
   }
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -302,9 +371,32 @@ flash_decode_kernel(const Args a) {
   const T* qb = static_cast<const T*>(a.q) + ((size_t)b * H + h0) * HD;
   const int first = p_begin + warp * kChunk, stride = kWarps * kChunk;
 
-  using Warp = typename std::conditional<kTensor, WarpBf16<HD>, WarpF32<HD>>::type;
+  using Warp = typename std::conditional<kTensor, WarpBf16<HD, kCap>, WarpF32<HD, kCap>>::type;
+  T* q_tile = reinterpret_cast<T*>(smem + region_bytes<T, HD>());
+  if constexpr (q_in_smem<HD>()) {
+    // the block's 16 q rows (zero past `rows`) into the shared q tile
+    constexpr int kCpr = HD * sizeof(T) / 16;          // 16-byte chunks per row
+    for (int i = threadIdx.x; i < kHeads * kCpr; i += kThreads) {
+      const int r = i / kCpr, ch = i - r * kCpr;
+      const uint4 val = r < rows ? reinterpret_cast<const uint4*>(qb + (size_t)r * HD)[ch]
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (kTensor) {
+        *reinterpret_cast<uint4*>(q_tile + swizzle<T>(r, ch, kCpr)) = val;
+      } else {
+        // element c = 4ch + e of row r is lane c / kV's j = c % kV
+        const float f[4] = {__uint_as_float(val.x), __uint_as_float(val.y),
+                            __uint_as_float(val.z), __uint_as_float(val.w)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 4 * ch + e, kV = HD / 32;
+          reinterpret_cast<float*>(q_tile)[(r * kV + c % kV) * 32 + c / kV] = f[e];
+        }
+      }
+    }
+    __syncthreads();
+  }
   Warp w;
-  w.init(qb, rows, lane);
+  w.init(qb, q_tile, rows, lane);
   if constexpr (kTensor) {
     __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
                           (size_t)warp * kStages * 2 * kChunk * HD;
@@ -338,14 +430,14 @@ flash_decode_kernel(const Args a) {
       cp_async_wait<kStages - 1>();
       __syncwarp();
       const __nv_bfloat16* ks = ring + (size_t)(it % kStages) * 2 * kChunk * HD;
-      w.step(ks, ks + kChunk * HD, c0, p_end, len, a.scale, lane);
+      w.step(ks, ks + kChunk * HD, c0, p_end, len, a.scale, a.cap, lane);
       __syncwarp();                         // the stage is refilled next
     }
     cp_async_wait<0>();
   } else {
     for (int c0 = first; c0 < p_end; c0 += stride)
       w.step(reinterpret_cast<const float*>(kb), reinterpret_cast<const float*>(vb),
-             row_stride, c0, p_end, len, a.scale, lane);
+             row_stride, c0, p_end, len, a.scale, a.cap, lane);
   }
   __syncthreads();                          // the rings become the merge buffer
   float* obuf = reinterpret_cast<float*>(smem);
@@ -429,16 +521,17 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ out, int splits) 
   out[row * HD + threadIdx.x] = from_f32<T>(O / L);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kCap>
 cudaError_t launch(const Args& a, int B, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<T, HD>();
+  static_assert(smem <= 232448, "over the H100's shared memory per block");
   // once per instantiation (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_decode_kernel<T, HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const int mtiles = (a.rep + kHeads - 1) / kHeads;
   const dim3 grid(a.Hkv * mtiles, B, a.splits);
-  flash_decode_kernel<T, HD><<<grid, kThreads, smem, s>>>(a);
+  flash_decode_kernel<T, HD, kCap><<<grid, kThreads, smem, s>>>(a);
   if (a.splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -448,17 +541,25 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_cap(const Args& a, int B, cudaStream_t s) {
+  return a.cap > 0.f ? launch<T, HD, true>(a, B, s) : launch<T, HD, false>(a, B, s);
+}
+
 template <typename T>
 cudaError_t launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
-  if (hd == 64) return launch<T, 64>(a, B, s);
-  if (hd == 128) return launch<T, 128>(a, B, s);
+  if (hd == 64) return launch_cap<T, 64>(a, B, s);
+  if (hd == 128) return launch_cap<T, 128>(a, B, s);
+  if (hd == 256) return launch_cap<T, 256>(a, B, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (B, H, hd); k, v (B, S, Hkv, hd); lens (B,) int32; out (B, H, hd); all
-// contiguous, q/k/v/out one dtype, hd 64 or 128. part: fp32 scratch of
+// contiguous, q/k/v/out one dtype, hd 64, 128 or 256. softcap: the logit
+// cap (0 for none; cap * tanh(s / cap) of the scaled score s otherwise).
+// part: fp32 scratch of
 // B * H * splits * (hd + 2) floats, or null when splits == 1. Split sp takes
 // positions [sp * split_len, (sp + 1) * split_len) of each row's prefix;
 // splits * split_len must cover S. Launches on `stream`; returns
@@ -466,14 +567,15 @@ cudaError_t launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* lens, void* out, void* part, int B,
                                    int S, int Hkv, int rep, int hd, int splits,
-                                   int split_len, float scale, int dtype,
-                                   void* stream) {
+                                   int split_len, float scale, float softcap,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Hkv <= 0 || rep <= 0 || S <= 0 || splits <= 0 || split_len <= 0 ||
-      (long long)splits * split_len < S || (splits > 1 && part == nullptr))
+      (long long)splits * split_len < S || (splits > 1 && part == nullptr) ||
+      !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lens), out, static_cast<float*>(part),
-               S, Hkv, rep, splits, split_len, scale};
+               S, Hkv, rep, splits, split_len, scale, softcap};
   if (dtype == kFloat32) return launch_hd<float>(a, B, hd, s);
   if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(a, B, hd, s);
   return cudaErrorInvalidValue;

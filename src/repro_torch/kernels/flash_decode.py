@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import lengths
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 TILE = 64            # positions a block takes per step (4 warps x 16)
 HEADS = 16           # query heads per block (the tensor-core tile's M)
 BLOCKS_PER_SM = 4    # blocks of work per SM that a split aims for
@@ -38,10 +38,11 @@ def splits(B: int, Hkv: int, rep: int, S: int, n_sm: int):
     return math.ceil(tiles / per), per * TILE
 
 
-def flash_decode(q, k, v, cache_len):
+def flash_decode(q, k, v, cache_len, softcap: float = 0.0):
     """q: (B, H, hd); k/v: (B, S, Hkv, hd); cache_len: int or int tensor,
-    scalar or (B,) per-slot valid lengths; hd in ``HEAD_DIMS``.
-    -> (B, H, hd) in q's dtype."""
+    scalar or (B,) per-slot valid lengths; hd in ``HEAD_DIMS``;
+    ``softcap``: logit cap (0 = none), ``cap * tanh(s / cap)`` of the
+    scaled scores. -> (B, H, hd) in q's dtype."""
     global launches
     if q.device.type != "cuda":
         raise ValueError("flash_decode kernel needs CUDA tensors; the CPU "
@@ -59,6 +60,9 @@ def flash_decode(q, k, v, cache_len):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel takes hd in {HEAD_DIMS}, "
                          f"got {hd}")
+    softcap = float(softcap)
+    if not softcap >= 0.0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     lens = lengths(cache_len, B, dev)
     rep = H // Hkv
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -73,7 +77,7 @@ def flash_decode(q, k, v, cache_len):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                  out.data_ptr(), part.data_ptr() if part is not None else None,
                  B, S, Hkv, rep, hd, n_split, split_len, hd ** -0.5,
-                 build.DTYPES[dt], stream)
+                 softcap, build.DTYPES[dt], stream)
     build.check("flash_decode", err)
     launches += 1
     return out

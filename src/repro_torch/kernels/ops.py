@@ -37,11 +37,12 @@ def moe_expert_ffn_slots(xg, bufs, slot_ids, *, act: str = "swiglu",
     return moe_ffn_quant(xg, *ws, *ss, slot_ids, act=act, out_dtype=out_dtype)
 
 
-def decode_attention(q, k, v, cache_len):
-    """Single-token GQA attention over a per-slot-length KV cache."""
+def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
+    """Single-token GQA attention over a per-slot-length KV cache, with an
+    optional logit softcap."""
     if q.device.type == "cpu":
-        return ref.flash_decode_ref(q, k, v, cache_len)
-    return flash_decode(q, k, v, cache_len)
+        return ref.flash_decode_ref(q, k, v, cache_len, softcap)
+    return flash_decode(q, k, v, cache_len, softcap)
 
 
 def wkv_scan(r, k, v, w, u, s0):

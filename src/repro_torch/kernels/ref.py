@@ -73,15 +73,19 @@ def lengths(cache_len, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(cache_len), dtype=torch.int32, device=device)
 
 
-def flash_decode_ref(q, k, v, cache_len):
+def flash_decode_ref(q, k, v, cache_len, softcap: float = 0.0):
     """q: (B, H, hd); k/v: (B, S, Hkv, hd); cache_len scalar or (B,)
-    per-slot lengths."""
+    per-slot lengths; ``softcap`` > 0 caps the scaled scores at
+    ``softcap * tanh(s / softcap)`` before the length mask, in the order of
+    the reference's ``_sdpa``."""
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
     scores = torch.einsum("bhd,bshd->bhs", q.float(), kf) * hd ** -0.5
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
     lens = lengths(cache_len, B, q.device)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, None, :] < lens[:, None, None]

@@ -1,12 +1,16 @@
-"""GQA attention (qk-norm, bias, softcap, sliding window) and DeepSeek-V2
-MLA, each with an explicit per-slot cache. Cross-attention is not ported
-yet.
+"""GQA attention (qk-norm, bias, softcap, sliding window, M-RoPE),
+encoder-decoder cross-attention and DeepSeek-V2 MLA, each with an explicit
+per-slot cache.
 
 Prefill attention is plain tensor code (the reference leaves it to XLA);
-GQA's one-token decode goes through ``kernels.ops.decode_attention``, i.e.
-the hand-written flash-decode kernel on CUDA. MLA decode is the
-reference's absorbed-matrix einsums over the latent cache (the reference
-has no kernel for it), as tensor ops on whichever device holds x. Caches
+GQA's one-token decode, self or cross, goes through
+``kernels.ops.decode_attention``, i.e. the hand-written flash-decode kernel
+(with the logit softcap) on CUDA. A sliding-window layer decodes over a
+ring of ``window`` positions (``ring=True``): every stored position is
+inside the window, so the kernel needs no window of its own. MLA decode is
+the reference's absorbed-matrix einsums over the latent cache (the
+reference has no kernel for it), as tensor ops on whichever device holds
+x. Caches
 keep the reference layouts: GQA ``(B, S, Hkv, hd)``, MLA ``c_kv`` ``(B, S,
 kv_lora_rank)`` and ``k_rope`` ``(B, S, qk_rope_head_dim)``.
 """
@@ -118,15 +122,12 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0,
     return torch.where(ok, 0.0, NEG_INF)[None, None].float()
 
 
-def decode_mask(T: int, cache_len, window: int = 0):
+def decode_mask(T: int, cache_len):
     """Additive mask for one query over a cache of physical length T filled
     to ``cache_len`` ((B,) tensor of per-slot lengths) -> (B, 1, 1, T)."""
     cache_len = cache_len.reshape(-1, 1, 1, 1)
     kpos = torch.arange(T, device=cache_len.device)[None, None, None, :]
-    ok = kpos < cache_len
-    if window:
-        ok &= kpos >= cache_len - window
-    return torch.where(ok, 0.0, NEG_INF).float()
+    return torch.where(kpos < cache_len, 0.0, NEG_INF).float()
 
 
 def update_rows(buf, upd, pos, active=None):
@@ -164,42 +165,86 @@ def _project_qkv(p, cfg: ArchConfig, x, positions):
         q = rms_norm_headwise(q, p.q_norm_scale)
         k = rms_norm_headwise(k, p.k_norm_scale)
     if a.use_rope:
-        q = apply_rope(q, positions, a.rope_theta)
-        k = apply_rope(k, positions, a.rope_theta)
+        q = apply_rope(q, positions, a.rope_theta, a.mrope_sections)
+        k = apply_rope(k, positions, a.rope_theta, a.mrope_sections)
     return q, k, v
 
 
-def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0):
-    """Full-sequence (prefill) causal self-attention.
-    Returns (out, (k, v)) so prefill can seed the cache."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    mask = causal_mask(x.shape[1], k.shape[1], window=window, device=x.device)
+def _project_q(p, cfg: ArchConfig, x):
+    """Cross-attention's query: no norm, no rotation."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
+    return q + p.b_q if cfg.attn.qkv_bias else q
+
+
+def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0,
+                 kv=None, mask=None):
+    """Full-sequence (prefill) self-attention, causal unless ``mask`` (an
+    additive (1,1,S,T) mask, e.g. the encoder's zeros) is given; with
+    ``kv`` (projected encoder K/V, ``cross_kv``) cross-attention over every
+    encoder position. Returns (out, (k, v)) so prefill can seed the
+    cache."""
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+        if mask is None:
+            mask = causal_mask(x.shape[1], k.shape[1], window=window,
+                               device=x.device)
+    else:
+        q = _project_q(p, cfg, x)
+        k, v = kv
+        if mask is None:
+            mask = torch.zeros((1, 1, 1, 1), device=x.device)
     out = _sdpa(q, k, v, mask, cfg.attn.logit_softcap)
     out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
     return out, (k, v)
 
 
+def cross_kv(p, cfg: ArchConfig, enc_out):
+    """Project the encoder output once into cross-attention K/V, each
+    (B, S_enc, Hkv, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p.w_k)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p.w_v)
+    if cfg.attn.qkv_bias:
+        k, v = k + p.b_k, v + p.b_v
+    return k, v
+
+
 def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
-                window: int = 0, active=None):
+                window: int = 0, active=None, ring: bool = False,
+                cross: bool = False):
     """One-token decode. x (B,1,d); cache_k/v (B,T,Hkv,hd); ``pos`` (B,)
-    per-slot index of the new token. The new K/V rows are written into the
-    caches in place (only ``active`` rows when given). Returns
-    (out, cache_k, cache_v)."""
+    per-slot position of the new token. The new K/V rows are written into
+    the caches in place (only ``active`` rows when given).
+
+    ``ring``: the cache is a ring of the layer's T = window positions:
+    the new row goes to ``pos % T`` and every one of the ``min(pos + 1,
+    T)`` stored positions is attended (each is inside the window), which
+    is the window the reference's ``forward`` computes; positions rotate
+    at ``pos`` itself. ``window`` > 0 over a cache longer than it raises:
+    the kernel has no window, and ``Model`` decodes every windowed layer
+    over a ring. ``cross``: attend over the whole of the encoder's K/V in
+    the caches, which are left as they are. Returns (out, cache_k,
+    cache_v)."""
     a = cfg.attn
-    positions = pos[:, None]
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    update_rows(cache_k, k, pos, active)
-    update_rows(cache_v, v, pos, active)
-    if window or a.logit_softcap:
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                "the flash-decode kernel has no sliding window or logit "
-                "softcap yet")
-        mask = decode_mask(cache_k.shape[1], pos + 1, window=window)
-        out = _sdpa(q, cache_k, cache_v, mask, a.logit_softcap)
-    else:
+    T = cache_k.shape[1]
+    if window and T > window:
+        raise NotImplementedError(
+            "decode has no sliding-window mask: decode a windowed layer "
+            "over a ring of its window (ring=True)")
+    if cross:
+        q = _project_q(p, cfg, x)
         out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
-                                   pos + 1)[:, None]
+                                   T, a.logit_softcap)[:, None]
+        return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_k, cache_v
+    positions = pos[:, None]
+    if a.mrope_sections:
+        positions = positions.expand(3, *positions.shape)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    wpos = pos % T if ring else pos
+    update_rows(cache_k, k, wpos, active)
+    update_rows(cache_v, v, wpos, active)
+    lens = torch.clamp(pos + 1, max=T) if ring else pos + 1
+    out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, lens,
+                               a.logit_softcap)[:, None]
     return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_k, cache_v
 
 
@@ -249,21 +294,23 @@ def mla_forward(p, cfg: ArchConfig, x, positions):
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache_ckv, cache_kr, pos, *,
-               active=None):
+               active=None, ring: bool = False):
     """Absorbed-matrix one-token decode in the compressed latent space.
     x (B,1,d); cache_ckv (B,T,r), cache_kr (B,T,rope); ``pos`` (B,)
-    per-slot index of the new token. The new latent rows are written into
-    the caches in place (only ``active`` rows when given). Returns (out,
-    cache_ckv, cache_kr)."""
+    per-slot position of the new token. The new latent rows are written
+    into the caches in place (only ``active`` rows when given); ``ring``
+    as in ``attn_decode``. Returns (out, cache_ckv, cache_kr)."""
+    T = cache_ckv.shape[1]
     positions = pos[:, None]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)            # (B,1,H,*)
     c_kv, k_rope = _mla_latents(p, cfg, x, positions)        # (B,1,r/rope)
-    update_rows(cache_ckv, c_kv, pos, active)
-    update_rows(cache_kr, k_rope, pos, active)
+    wpos = pos % T if ring else pos
+    update_rows(cache_ckv, c_kv, wpos, active)
+    update_rows(cache_kr, k_rope, wpos, active)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)   # absorb W_uk
     scores = (torch.einsum("bshr,btr->bhst", q_abs, cache_ckv)
               + torch.einsum("bshk,btk->bhst", q_rope, cache_kr)).float()
-    mask = decode_mask(cache_ckv.shape[1], pos + 1)
+    mask = decode_mask(T, torch.clamp(pos + 1, max=T) if ring else pos + 1)
     w = torch.softmax(scores * _mla_scale(cfg) + mask, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", w, cache_ckv)       # (B,1,H,r)
     out = torch.einsum("bshr,rhk->bshk", ctx, p.w_uv)        # absorb W_uv

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, activations, RoPE, dense FFN, softcap.
+"""Shared building blocks: norms, activations, RoPE / M-RoPE, dense FFN,
+softcap.
 
 Same arithmetic as ``repro.models.layers``: norms and RoPE compute in fp32
 and cast back to the input dtype; RoPE is the split-half form; ``gelu`` is
@@ -109,11 +110,25 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """Rotate ``x`` (B, S, H, hd) by ``positions`` (B, S) (split-half RoPE)."""
+def apply_rope(x, positions, theta: float = 10000.0, mrope_sections=()):
+    """Rotate ``x`` (B, S, H, hd) by ``positions`` (split-half RoPE).
+
+    ``positions``: (B, S), or (3, B, S) for M-RoPE (Qwen2-VL), whose three
+    planes are the temporal / height / width position ids; then
+    ``mrope_sections`` splits the half-dim into one section per plane."""
     hd = x.shape[-1]
     inv = rope_freqs(hd, theta, x.device)                      # (hd/2,)
-    ang = positions.float()[..., None] * inv                   # (B, S, hd/2)
+    if mrope_sections:
+        if positions.dim() != 3 or sum(mrope_sections) != hd // 2:
+            raise ValueError("M-RoPE needs (3, B, S) positions and sections "
+                             f"summing to hd/2 = {hd // 2}")
+        plane = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                      device=x.device)
+                           for i, n in enumerate(mrope_sections)])
+        pos = positions.permute(1, 2, 0)[..., plane]           # (B, S, hd/2)
+        ang = pos.float() * inv
+    else:
+        ang = positions.float()[..., None] * inv               # (B, S, hd/2)
     cos = torch.cos(ang)[..., None, :]                     # (B, S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

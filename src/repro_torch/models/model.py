@@ -1,21 +1,29 @@
-"""Attention + MoE decoders, Mamba hybrids and RWKV6 stacks (the serving
-model), in PyTorch.
+"""Attention + MoE decoders, Mamba hybrids, RWKV6 stacks and
+encoder-decoders (the serving model), in PyTorch.
 
 Port of ``repro.models.model.Model`` for stacks of GQA or MLA attention
 blocks and Mamba blocks (Jamba's hybrid) with routed-MoE (optionally
-shared-expert) or dense FFNs, and of RWKV6 blocks (time-mix recurrence +
-channel-mix). The reference scans
-periodic layer groups; here the layers are a ``ModuleList`` walked by a
-Python loop.
-``split_periodic`` is kept so that ``params.from_reference`` can unstack
-the reference's scan-group axis.
+shared-expert) or dense FFNs, of RWKV6 blocks (time-mix recurrence +
+channel-mix), of Gemma-2's alternating sliding-window / global layers
+(ring caches, softcaps), of M-RoPE (Qwen2-VL, over stub patch embeddings)
+and of Whisper's bidirectional encoder with cross-attention in every
+decoder layer and learned absolute positions (over stub frame
+embeddings). The reference scans periodic layer groups; here the layers
+are a ``ModuleList`` walked by a Python loop. ``split_periodic`` is kept so
+that ``params.from_reference`` can unstack the reference's scan-group
+axis.
 
 Entry points (all under ``torch.inference_mode()`` when serving)
-  init(seed)                           -> self (weights from a seed)
-  forward(batch)                       -> (logits, aux)
-  init_cache(B, cache_len)             -> cache (zeros)
-  prefill(batch, cache, true_len=...)  -> (last_logits, cache, aux)
-  serve_step(cache, token, active=...) -> (logits, cache, aux)
+  init(seed)                                      -> self
+  forward(batch)                                  -> (logits, aux)
+  init_cache(B, cache_len, decode_window=0)       -> cache (zeros)
+  prefill(batch, cache, true_len=...)             -> (last_logits, cache, aux)
+  serve_step(cache, token_or_embeds, decode_window=0, active=...)
+                                                  -> (logits, cache, aux)
+
+``batch`` holds ``tokens`` (B, S) or ``embeds`` (B, S, d), optionally
+``positions`` ((3, B, S) under M-RoPE), and ``enc_embeds`` (B, S_enc, d)
+for an encoder-decoder.
 
 ``aux["counts"]`` is (n_moe_layers, B, E) int32: the rows of the paper's
 Expert Activation Matrix, equal to the reference's (None without MoE).
@@ -30,7 +38,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
 from repro_torch.models.attention import (MLA, Attention, attn_decode,
-                                          attn_forward, mla_decode,
+                                          attn_forward, cross_kv, mla_decode,
                                           mla_forward)
 from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
 from repro_torch.models.mamba import Mamba, _dims, mamba_decode, mamba_forward
@@ -79,14 +87,13 @@ def split_periodic(descs):
     return best
 
 
+# the encoder's blocks: full (bidirectional) attention and a dense FFN
+ENCODER_DESC = LayerDesc(BLOCK_ATTN, False, 0)
+
+
 def _unsupported(cfg: ArchConfig):
     """Why the port cannot run ``cfg`` yet, or None."""
-    a = cfg.attn
-    checks = [(cfg.is_encoder_decoder, "encoder-decoder models"),
-              (bool(a.mrope_sections), "M-RoPE"),
-              (bool(a.sliding_window), "sliding-window attention"),
-              (not a.use_rope, "learned absolute positions"),
-              (cfg.attn_impl != "naive", f"attn_impl={cfg.attn_impl!r}"),
+    checks = [(cfg.attn_impl != "naive", f"attn_impl={cfg.attn_impl!r}"),
               (cfg.moe_dispatch != "global",
                f"moe_dispatch={cfg.moe_dispatch!r}")]
     for bad, what in checks:
@@ -96,7 +103,8 @@ def _unsupported(cfg: ArchConfig):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ArchConfig, desc: LayerDesc, dtype, device):
+    def __init__(self, cfg: ArchConfig, desc: LayerDesc, dtype, device,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.norm1 = Norm(cfg.norm, d, device)
@@ -116,6 +124,9 @@ class Block(nn.Module):
         if cfg.post_block_norm:
             self.post_norm1 = Norm(cfg.norm, d, device)
             self.post_norm2 = Norm(cfg.norm, d, device)
+        if cross:         # a decoder block of an encoder-decoder
+            self.cross_attn = Attention(cfg, dtype, device)
+            self.norm_cross = Norm(cfg.norm, d, device)
 
 
 class Model(nn.Module):
@@ -141,8 +152,25 @@ class Model(nn.Module):
                                                     device=dev),
                                         requires_grad=False)
             self.stds["lm_head"] = d ** -0.5
-        self.layers = nn.ModuleList(Block(cfg, desc, self.dtype, dev)
-                                    for desc in self.descs)
+        enc_dec = cfg.is_encoder_decoder
+        self.layers = nn.ModuleList(
+            Block(cfg, desc, self.dtype, dev,
+                  cross=enc_dec and desc.kind == BLOCK_ATTN)
+            for desc in self.descs)
+
+        def table(rows):
+            return nn.Parameter(torch.empty(rows, d, dtype=self.dtype,
+                                            device=dev), requires_grad=False)
+        if not cfg.attn.use_rope:            # learned absolute positions
+            self.pos_embed = table(cfg.max_seq_len)
+            self.stds["pos_embed"] = d ** -0.5
+        if enc_dec:
+            self.enc_pos_embed = table(cfg.encoder_seq_len)
+            self.stds["enc_pos_embed"] = d ** -0.5
+            self.encoder = nn.ModuleList(
+                Block(cfg, ENCODER_DESC, self.dtype, dev)
+                for _ in range(cfg.n_encoder_layers))
+            self.enc_final_norm = Norm(cfg.norm, d, dev)
 
     # -- init -----------------------------------------------------------------
     @torch.no_grad()
@@ -164,9 +192,12 @@ class Model(nn.Module):
         return self
 
     # -- full-sequence blocks -------------------------------------------------
-    def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions):
-        """Mixer half. Returns (x_mid, h2, aux): aux["kv"] = (k, v) for
-        GQA, (c_kv, k_rope) for MLA; aux["mamba_state"] and
+    def _apply_block_pre(self, p: Block, desc: LayerDesc, x, positions,
+                         enc_kv=None):
+        """Mixer half (then cross-attention over ``enc_kv``, the layer's
+        projected encoder K/V, in an encoder-decoder). Returns (x_mid, h2,
+        aux): aux["kv"] = (k, v) for GQA, (c_kv, k_rope) for MLA, and
+        aux["cross_kv"] = ``enc_kv``; aux["mamba_state"] and
         aux["mamba_conv"] (the last d_conv - 1 conv inputs) for mamba;
         aux["rwkv_state"] and aux["rwkv_tm"] (the last normed block input)
         for rwkv: what prefill seeds the cache with (``_seed_mixer``)."""
@@ -187,6 +218,11 @@ class Model(nn.Module):
         if self.cfg.post_block_norm:
             y = p.post_norm1(y)
         x = x + y
+        if enc_kv is not None:
+            yc, _ = attn_forward(p.cross_attn, self.cfg, p.norm_cross(x),
+                                 positions, kv=enc_kv)
+            x = x + yc
+            aux["cross_kv"] = enc_kv
         return x, p.norm2(x), aux
 
     def _apply_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
@@ -212,32 +248,87 @@ class Model(nn.Module):
             y2 = p.post_norm2(y2)
         return x_mid + y2, aux
 
-    def _embed(self, tokens):
-        x = self.embed[tokens]
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
+    def _embed(self, batch):
+        """``batch``'s tokens (B, S), or its ``embeds`` (B, S, d), -> (x,
+        positions): ``batch["positions"]`` if given, else 0..S-1 per row,
+        broadcast to (3, B, S) under M-RoPE; learned absolute positions
+        add their table's rows (the temporal plane's under M-RoPE)."""
+        cfg = self.cfg
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = self.embed[batch["tokens"]]
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
+        B, S = x.shape[:2]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=x.device).expand(B, S)
+            if cfg.attn.mrope_sections:
+                positions = positions.expand(3, B, S)
+        if not cfg.attn.use_rope:
+            x = x + self.pos_embed[positions if positions.dim() == 2
+                                   else positions[0]]
         return x, positions
 
-    def _embed_token(self, token):
-        """(B,) decode tokens -> (B, 1, d) embeddings."""
-        x = self.embed[token][:, None]
-        if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+    def _embed_step(self, token_or_embeds, pos):
+        """(B,) decode tokens, or (B, 1, d) embeddings, at the per-slot
+        positions ``pos`` -> (B, 1, d)."""
+        cfg = self.cfg
+        if token_or_embeds.dim() == 1:
+            x = self.embed[token_or_embeds][:, None]
+        else:
+            x = token_or_embeds.to(self.dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
+        if not cfg.attn.use_rope:
+            x = x + self.pos_embed[pos][:, None]
         return x
+
+    def _encode(self, enc_embeds):
+        """Whisper's bidirectional encoder over stub frame embeddings (B,
+        encoder_seq_len, d) -> the normed encoder output."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.dtype) + self.enc_pos_embed[None]
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        mask = torch.zeros((1, 1, S, S), device=x.device)
+        for p in self.encoder:
+            y, _ = attn_forward(p.attn, cfg, p.norm1(x), positions,
+                                mask=mask)
+            x = x + y
+            x = x + apply_ffn(p.ffn, p.norm2(x), cfg.act)
+        return self.enc_final_norm(x)
+
+    def _cross_kvs(self, batch):
+        """Per decoder layer, the projected encoder K/V of
+        ``batch["enc_embeds"]`` (None for other layers and for a
+        decoder-only model)."""
+        if not self.cfg.is_encoder_decoder:
+            return [None] * len(self.layers)
+        enc_out = self._encode(batch["enc_embeds"])
+        return [cross_kv(p.cross_attn, self.cfg, enc_out)
+                if hasattr(p, "cross_attn") else None for p in self.layers]
 
     @staticmethod
     def _store_kv(bc, kv, rows=slice(None)):
         """Write a prefill's full-sequence (k, v), or MLA's (c_kv, k_rope),
-        into cache rows ``rows`` (the last ``cache_len`` positions when the
-        prompt is longer)."""
+        into cache rows ``rows``. A prompt longer than the cache leaves its
+        last L positions, position p at ``p % L`` as a ring (window) cache
+        keeps it; the reference writes them from 0 (its prefill asks that a
+        prompt fit the window), which is the same for S <= L. A right-padded
+        prompt longer than a ring would put pad rows in it: prefill such a
+        prompt at its exact length."""
         keys = ("ckv", "kr") if "ckv" in bc else ("k", "v")
         for key, full in zip(keys, kv):
-            S = full.shape[1]
-            n = min(S, bc[key].shape[1])
-            bc[key][rows, :n] = full[:, S - n:].to(bc[key].dtype)
+            S, L = full.shape[1], bc[key].shape[1]
+            if S <= L:
+                bc[key][rows, :S] = full.to(bc[key].dtype)
+            else:
+                bc[key][rows] = torch.roll(full[:, S - L:], S % L,
+                                           dims=1).to(bc[key].dtype)
 
     def _seed_mixer(self, bc, desc: LayerDesc, aux, rows=slice(None)):
         """Write a prefill's mixer state (``_apply_block_pre``'s aux) into
@@ -246,6 +337,9 @@ class Model(nn.Module):
         channel-mix shift comes from the FFN half; the caller seeds it."""
         if desc.kind == BLOCK_ATTN:
             self._store_kv(bc, aux["kv"], rows)
+            if "cross_kv" in aux:
+                bc["cross_k"][rows] = aux["cross_kv"][0].to(self.dtype)
+                bc["cross_v"][rows] = aux["cross_kv"][1].to(self.dtype)
             return
         keys = ({"conv": "mamba_conv", "ssm": "mamba_state"}
                 if desc.kind == BLOCK_MAMBA
@@ -260,12 +354,14 @@ class Model(nn.Module):
 
     # -- public: forward ------------------------------------------------------
     def forward(self, batch):
-        """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns
-        (logits (B,S,V) fp32, {"counts": (n_moe,B,E) or None, "aux_loss"})."""
-        x, positions = self._embed(batch["tokens"])
+        """Full-sequence forward of ``batch`` (see the module docstring).
+        Returns (logits (B,S,V) fp32, {"counts": (n_moe,B,E) or None,
+        "aux_loss"})."""
+        x, positions = self._embed(batch)
         counts, losses = [], []
-        for p, desc in zip(self.layers, self.descs):
-            x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions)
+        for p, desc, ekv in zip(self.layers, self.descs,
+                                self._cross_kvs(batch)):
+            x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions, ekv)
             x, aux = self._apply_block_post(p, desc, x_mid, h2)
             if "counts" in aux:
                 counts.append(aux["counts"])
@@ -277,15 +373,20 @@ class Model(nn.Module):
                         "aux_loss": aux_loss}
 
     # -- caches ---------------------------------------------------------------
-    def init_cache(self, B: int, cache_len: int):
+    def init_cache(self, B: int, cache_len: int, decode_window: int = 0):
         """Zeroed decode cache: ``pos`` is a (B,) per-slot position vector,
-        ``layers`` one dict per layer: {"k", "v"} of (B, cache_len, Hkv, hd)
-        for GQA; {"ckv" (B, cache_len, kv_lora_rank), "kr" (B, cache_len,
+        ``layers`` one dict per layer: {"k", "v"} of (B, L, Hkv, hd) for
+        GQA, plus {"cross_k", "cross_v"} of (B, encoder_seq_len, Hkv, hd)
+        in an encoder-decoder; {"ckv" (B, L, kv_lora_rank), "kr" (B, L,
         qk_rope_head_dim)} for MLA; for mamba {"conv" (B, d_conv - 1,
         d_in), the last conv inputs, "ssm" (B, d_in, N) fp32}; for rwkv
         {"state" (B, H, hd, hd) fp32, "tm" and "cm" (B, d)}, the
         token-shift inputs of time- and channel-mix (recurrent layers take
-        no ``cache_len``: their state is constant in context length)."""
+        no ``cache_len``: their state is constant in context length).
+        L = ``cache_len``, or ``min(cache_len, window)`` for a
+        sliding-window layer, and for every attention layer when
+        ``decode_window`` is set: a ring buffer of that many positions
+        (pass the same ``decode_window`` to ``serve_step``)."""
         cfg = self.cfg
 
         def zeros(*shape, dtype=self.dtype):
@@ -303,12 +404,19 @@ class Model(nn.Module):
                 return {"conv": zeros(B, cfg.mamba.d_conv - 1, d_in),
                         "ssm": zeros(B, d_in, cfg.mamba.d_state,
                                      dtype=torch.float32)}
+            win = desc.window or decode_window
+            L = min(cache_len, win) if win else cache_len
             m = cfg.attn.mla
             if m is not None:
-                return {"ckv": zeros(B, cache_len, m.kv_lora_rank),
-                        "kr": zeros(B, cache_len, m.qk_rope_head_dim)}
-            kv = (B, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-            return {"k": zeros(*kv), "v": zeros(*kv)}
+                return {"ckv": zeros(B, L, m.kv_lora_rank),
+                        "kr": zeros(B, L, m.qk_rope_head_dim)}
+            kv = (B, L, cfg.n_kv_heads, cfg.head_dim_)
+            c = {"k": zeros(*kv), "v": zeros(*kv)}
+            if cfg.is_encoder_decoder:
+                cross = (B, cfg.encoder_seq_len, cfg.n_kv_heads,
+                         cfg.head_dim_)
+                c.update(cross_k=zeros(*cross), cross_v=zeros(*cross))
+            return c
 
         return {"pos": zeros(B, dtype=torch.int32),
                 "layers": [layer(desc) for desc in self.descs]}
@@ -323,13 +431,22 @@ class Model(nn.Module):
         return pool
 
     # -- decode-path block ----------------------------------------------------
+    @staticmethod
+    def _ring(cache_phys_len: int, win: int) -> bool:
+        """Whether an attention cache of this length is a ring over the
+        window ``win`` (as the reference's ``_ring`` decides)."""
+        return bool(win) and cache_phys_len <= win
+
     def _decode_block_pre(self, p: Block, desc: LayerDesc, bc, x, pos,
-                          active=None):
+                          active=None, decode_window: int = 0):
         """Mixer half of one-token decode (norm1 -> attention over the
-        cache, or mamba / rwkv time-mix from its state -> norm2). The new
+        cache, or mamba / rwkv time-mix from its state -> cross-attention
+        over the encoder's K/V in an encoder-decoder -> norm2). The new
         K/V (or MLA latent) rows are written in place, for active slots
-        only; mamba's new "conv"/"ssm" and rwkv's new "state"/"tm" replace
-        the old ones on active rows only. Returns (x_mid, h2, bc)."""
+        only, at ``pos`` or, in a ring cache, at ``pos % L``; mamba's new
+        "conv"/"ssm" and rwkv's new "state"/"tm" replace the old ones on
+        active rows only. Returns (x_mid, h2, bc)."""
+        win = desc.window or decode_window
         h = p.norm1(x)
         if desc.kind == BLOCK_RWKV:
             y, (state, tm) = rwkv_time_mix(p.rwkv, self.cfg, h, bc["state"],
@@ -341,14 +458,20 @@ class Model(nn.Module):
             _gate_into(bc, active, conv=conv, ssm=ssm)
         elif self.cfg.attn.mla is not None:
             y, bc["ckv"], bc["kr"] = mla_decode(
-                p.attn, self.cfg, h, bc["ckv"], bc["kr"], pos, active=active)
+                p.attn, self.cfg, h, bc["ckv"], bc["kr"], pos, active=active,
+                ring=self._ring(bc["ckv"].shape[1], win))
         else:
             y, bc["k"], bc["v"] = attn_decode(
-                p.attn, self.cfg, h, bc["k"], bc["v"], pos,
-                window=desc.window, active=active)
+                p.attn, self.cfg, h, bc["k"], bc["v"], pos, active=active,
+                ring=self._ring(bc["k"].shape[1], win))
         if self.cfg.post_block_norm:
             y = p.post_norm1(y)
         x = x + y
+        if "cross_k" in bc:
+            yc, _, _ = attn_decode(p.cross_attn, self.cfg, p.norm_cross(x),
+                                   bc["cross_k"], bc["cross_v"], pos,
+                                   cross=True)
+            x = x + yc
         return x, p.norm2(x), bc
 
     def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
@@ -387,9 +510,8 @@ class Model(nn.Module):
         each row's last real token. As in the reference, recurrent (mamba,
         rwkv) state is not pad-corrected: prefill those at exact lengths.
         Returns (logits (B,V), cache, aux)."""
-        tokens = batch["tokens"]
-        x, positions = self._embed(tokens)
-        B, S = tokens.shape
+        x, positions = self._embed(batch)
+        B, S = x.shape[:2]
         token_mask = None
         if true_len is not None:
             true_len = torch.as_tensor(true_len, dtype=torch.int32,
@@ -397,8 +519,10 @@ class Model(nn.Module):
             token_mask = (torch.arange(S, device=x.device)[None, :]
                           < true_len[:, None])
         counts = []
-        for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
-            x_mid, h2, aux = self._apply_block_pre(p, desc, x, positions)
+        for p, desc, bc, ekv in zip(self.layers, self.descs, cache["layers"],
+                                    self._cross_kvs(batch)):
+            x_mid, h2, aux = self._apply_block_pre(p, desc, x, positions,
+                                                   ekv)
             x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
                                                 capacity_factor=2.0,
                                                 token_mask=token_mask)
@@ -420,18 +544,21 @@ class Model(nn.Module):
         return logits, cache, {
             "counts": torch.stack(counts) if counts else None}
 
-    def serve_step(self, cache, token, *, active=None):
-        """One decode step for ``token`` (B,) at the per-slot positions
-        ``cache["pos"]``. ``active``: optional (B,) bool mask; inactive
-        slots are computed (fixed batch shape) but their cache rows,
-        position and counts stay untouched. Returns (logits (B,V), cache,
-        aux)."""
+    def serve_step(self, cache, token_or_embeds, *, decode_window: int = 0,
+                   active=None):
+        """One decode step for ``token_or_embeds`` ((B,) tokens or (B, 1,
+        d) embeddings) at the per-slot positions ``cache["pos"]``.
+        ``decode_window``: the one the cache was made with. ``active``:
+        optional (B,) bool mask; inactive slots are computed (fixed batch
+        shape) but their cache rows, position and counts stay untouched.
+        Returns (logits (B,V), cache, aux)."""
         pos = cache["pos"]
-        x = self._embed_token(token)
+        x = self._embed_step(token_or_embeds, pos)
         counts = []
         for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
-            x_mid, h2, bc = self._decode_block_pre(p, desc, bc, x, pos,
-                                                   active=active)
+            x_mid, h2, bc = self._decode_block_pre(
+                p, desc, bc, x, pos, active=active,
+                decode_window=decode_window)
             x, cnt = self._decode_block_post(p, desc, x_mid, h2, bc=bc,
                                              active=active)
             if cnt is not None:

@@ -2,9 +2,12 @@
 
 The tree is the one ``repro.models.Model.init`` returns, with every leaf
 already converted to a numpy array (``jax.tree.map(np.asarray, params)``):
-``embed``, ``final_norm``, ``lm_head``, ``prefix`` (one dict per unrolled
-layer) and ``blocks`` (one dict per position in the layer period, every
-leaf stacked on a leading scan-group axis). bfloat16 leaves
+``embed``, ``final_norm``, ``lm_head``, ``pos_embed`` (learned positions),
+``prefix`` (one dict per unrolled layer), ``blocks`` (one dict per
+position in the layer period, every leaf stacked on a leading scan-group
+axis) and, in an encoder-decoder, ``enc_pos_embed``, ``enc_final_norm``
+and ``encoder`` (one dict of leaves stacked on a leading layer axis);
+decoder blocks then carry ``norm_cross`` and ``cross_attn``. bfloat16 leaves
 (``ml_dtypes.bfloat16``) pass through float32, which holds them exactly.
 """
 from __future__ import annotations
@@ -41,8 +44,12 @@ def _load(module: torch.nn.Module, tree) -> None:
 def from_reference(model, tree):
     """Copy ``tree`` into ``model`` (a ``repro_torch`` Model of the same
     config) and return the model."""
-    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree}
+    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                "pos_embed", "enc_pos_embed",
+                                "enc_final_norm") if k in tree}
     _load(model, top)
+    for g, block in enumerate(getattr(model, "encoder", ())):
+        _load(block, _index(tree["encoder"], g))
     for i in range(model.n_prefix):
         _load(model.layers[i], tree["prefix"][i])
     for pos, stacked in enumerate(tree["blocks"]):

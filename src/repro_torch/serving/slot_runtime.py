@@ -50,6 +50,10 @@ class SlotStreamRuntime:
     def __init__(self, model, *, n_pool_slots: int, n_weight_slots: int,
                  victim_fn=None, transfer_dtype: str = "fp32",
                  fenced: bool = False):
+        if model.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                "slot-cache streaming does not support encoder-decoder "
+                "models; run them all-resident (resident_fraction=1.0)")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -146,7 +150,7 @@ class SlotStreamRuntime:
         pos = torch.from_numpy(self.pos).to(dev)
         active = torch.from_numpy(np.asarray(active_np, bool)).to(dev)
         rows = np.asarray(active_np, bool)
-        x = model._embed_token(tok)
+        x = model._embed_step(tok, pos)
         counts_rows = []
         for i, (p, desc) in enumerate(zip(model.layers, model.descs)):
             bc = self.layer_caches[i]
@@ -186,7 +190,7 @@ class SlotStreamRuntime:
             np.asarray(padded_prompt, np.int64)[None]).to(dev)
         tl = torch.tensor([true_len], dtype=torch.int32, device=dev)
         token_mask = torch.arange(P, device=dev)[None, :] < tl[:, None]
-        x, positions = model._embed(toks)
+        x, positions = model._embed({"tokens": toks})
         counts_rows = []
         for i, (p, desc) in enumerate(zip(model.layers, model.descs)):
             x_mid, h2, aux = model._apply_block_pre(p, desc, x, positions)

@@ -177,6 +177,78 @@ def test_flash_decode_kernel_splits_long_cache(cuda, rep, hd, dtype):
         q, k, v, lens)), **_tol(dtype))
 
 
+# B3 at the decode shapes of the families served through it since hd 256
+# and the softcap: Gemma-2 (8/4 heads x 256, softcap 50, a 4096-position
+# ring), Whisper's cross-attention (12/12 heads x 64 over its 1500 encoder
+# positions) and Qwen2-VL (64/8 heads x 128)
+B3_FAMILIES = {"gemma2": (4, 8, 4, 256, 4096, 50.0),
+               "whisper_cross": (4, 12, 12, 64, 1500, 0.0),
+               "qwen2_vl": (4, 64, 8, 128, 600, 0.0)}
+
+
+@pytest.mark.parametrize("family", list(B3_FAMILIES))
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_at_family_shapes(cuda, family, ragged, dtype):
+    """Every row full (a ring that has wrapped, or the encoder's length)
+    and ragged rows of length S, 1, 0 and in between. q is scaled so that
+    Gemma's scores reach the cap's bend (|s| ~ 10-40 against cap 50)."""
+    B, H, Hkv, hd, S, cap = B3_FAMILIES[family]
+    rng = np.random.default_rng(21)
+    q = _rand(rng, (B, H, hd), 8.0 if cap else 1.0, dtype, cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    lens = torch.tensor([S, 1, 0, S // 2 + 3] if ragged else [S] * B,
+                        dtype=torch.int32, device=cuda)
+    before = fd_mod.launches
+    y = fd_mod.flash_decode(q, k, v, lens, softcap=cap)
+    assert fd_mod.launches == before + 1
+    np.testing.assert_allclose(_f32(y), _f32(ref.flash_decode_ref(
+        q, k, v, lens, cap)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("rep", [1, 2, 20])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_kernel_softcap_and_head_dims(cuda, rep, hd, cap, dtype):
+    """Each head dim with and without the softcap, KV groups below, at and
+    above one tensor-core tile of 16 heads, one split and several."""
+    rng = np.random.default_rng(22)
+    B, Hkv = 4, 2
+    for S in (300, 4096):
+        q = _rand(rng, (B, Hkv * rep, hd), 6.0, dtype, cuda)
+        k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+        v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+        lens = torch.tensor([0, 1, S, S // 3], dtype=torch.int32,
+                            device=cuda)
+        y = fd_mod.flash_decode(q, k, v, lens, softcap=cap)
+        np.testing.assert_allclose(_f32(y), _f32(ref.flash_decode_ref(
+            q, k, v, lens, cap)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [300, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_softcap_zero_leaves_results_unchanged(cuda, hd, S,
+                                                             dtype):
+    """softcap = 0 takes the uncapped instantiation: bit-equal to the call
+    without the argument and from launch to launch (the splits combine in a
+    fixed order); a cap changes the result. ``scripts/kernel_ab.py`` holds
+    these shapes bit-equal to another tree's kernel."""
+    rng = np.random.default_rng(23)
+    B, Hkv, rep = 4, 2, 8
+    q = _rand(rng, (B, Hkv * rep, hd), 6.0, dtype, cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    lens = torch.tensor([S, 1, S // 2, 7], dtype=torch.int32, device=cuda)
+    y = fd_mod.flash_decode(q, k, v, lens)
+    assert torch.equal(fd_mod.flash_decode(q, k, v, lens, softcap=0.0), y)
+    assert torch.equal(fd_mod.flash_decode(q, k, v, lens), y)
+    assert not torch.equal(fd_mod.flash_decode(q, k, v, lens, softcap=5.0),
+                           y)
+
+
 def test_kernel_wrappers_validate_inputs(cuda):
     x = torch.zeros(2, 4, 8, device=cuda)
     w = torch.zeros(2, 8, 16, device=cuda)
@@ -196,6 +268,10 @@ def test_kernel_wrappers_validate_inputs(cuda):
         fd_mod.flash_decode(q, kv, kv.cpu(), 16)
     with pytest.raises(ValueError, match="hd in"):
         fd_mod.flash_decode(q, kv, kv, 16)
+    q, kv = torch.zeros(1, 4, 64, device=cuda), torch.zeros(1, 16, 2, 64,
+                                                            device=cuda)
+    with pytest.raises(ValueError, match="softcap"):
+        fd_mod.flash_decode(q, kv, kv, 16, softcap=-1.0)
 
 
 def test_model_and_server_on_card_match_cpu(cuda):

@@ -149,8 +149,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_rwkv_modules_are_scanned_and_default_to_cuda(monkeypatch):
     """The RWKV6 slice's modules are among those the import checks above
     cover; its entry points refuse to run without CUDA unless asked for
-    the CPU; Jamba (mamba blocks) is accepted since its slice landed,
-    and encoder-decoder models are still refused."""
+    the CPU; Jamba (mamba blocks) is accepted since its slice landed, and
+    so is an encoder-decoder (Whisper), which also refuses the CUDA
+    default without a GPU."""
     mods = _port_modules()
     for m in ("repro_torch.models.rwkv6", "repro_torch.kernels.wkv6",
               "repro_torch.examples.long_context_rwkv"):
@@ -165,8 +166,11 @@ def test_rwkv_modules_are_scanned_and_default_to_cuda(monkeypatch):
     assert Model(cfg, device="cpu").init(0).layers[0].rwkv is not None
     jamba = Model(get_config("jamba-1.5-large-398b").reduced(), device="cpu")
     assert jamba.layers[0].mamba is not None
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        Model(get_config("whisper-small").reduced(), device="cpu")
+    whisper = get_config("whisper-small").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(whisper)
+    assert len(Model(whisper, device="cpu").encoder) == \
+        whisper.n_encoder_layers
 
 
 def test_mamba_modules_are_scanned_and_default_to_cuda(monkeypatch):

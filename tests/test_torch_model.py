@@ -4,7 +4,8 @@ fp32, with the reference's weights loaded through
 both: the layers on qwen3-moe-235b-a22b ``.reduced()``, and the forward,
 padded prefill and pooled decode on the ``.reduced()`` form of every
 attention config the port's ``Model`` accepts (rwkv6-7b has its own
-file)."""
+file; whisper-small, whose batches carry encoder inputs, is held in
+``test_torch_families.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,7 @@ torch.set_num_threads(2)
 ARCH = "qwen3-moe-235b-a22b"
 ARCHS = [ARCH, "qwen2-1.5b", "qwen3-1.7b", "nemotron-4-15b",
          "switch-base-128", "switch-base-256", "switch-large-128",
-         "nllb-moe-128", "deepseek-v2-236b"]
+         "nllb-moe-128", "deepseek-v2-236b", "gemma2-2b", "qwen2-vl-72b"]
 TOL = dict(atol=1e-4, rtol=1e-4)     # fp32, sums in other orders
 
 
