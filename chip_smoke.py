@@ -13,11 +13,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      occupancy: 4 tokens x top-8, the other rows and experts zero; at
      DeepSeek-V2's decode occupancy: 160 experts, C = 6, 4 tokens x top-6;
      and at Jamba's: 16 experts of d 8192 x f 24576, C = 4, 4 tokens x
-     top-2), 3b flash_decode (B3, also over a 32768-position cache split
-     across blocks, at Jamba's 64/8 heads, and at the family shapes of
-     phases 9-9c: Gemma-2's hd 256 with softcap 50 over a full and a
-     ragged 4096-position ring, Whisper's cross-attention over 1500
-     encoder positions, Qwen2-VL's 64/8 heads), 3c moe_ffn_quant (B2, int8
+     top-2; under a gradient, its autograd Function at the training shape,
+     E 128, C 41, d 4096, f 1536 bf16, every row filled and routed over 512
+     tokens, and at ragged fp32 shapes: output bit-equal to the plain
+     launch, output and all four gradients against autograd through the
+     plain version, forward and backward timed), 3b flash_decode (B3,
+     also over a 32768-position cache split across blocks, at Jamba's
+     64/8 heads, and at the family shapes of phases 9-9c: Gemma-2's hd
+     256 with softcap 50 over a full and a ragged 4096-position ring,
+     Whisper's cross-attention over 1500 encoder positions, Qwen2-VL's
+     64/8 heads), 3c moe_ffn_quant (B2, int8
      and fp16 slot buffers, every expert filled and at B1's decode
      occupancy; at DeepSeek-V2's over 240 slots), 3d wkv6 (B4, the RWKV6
      recurrence at decode, at each of phase 6's prompt lengths and at
@@ -95,7 +100,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   9d each of the three reduced configs in fp32 on the card against the
      CPU: equal greedy tokens, logits within fp32 limits, Gemma's reduced
      window of 128 crossed;
- 10. one JSON line of per-kernel numbers, then the result line.
+ 10. train qwen3-moe-235b-a22b at every published width, cut to 1 layer
+     (3.733e9 parameters: bf16 weights and gradients and fp32 AdamW
+     moments fill ~45 GB), after freeing every earlier model: 8 steps of
+     batch 4 x seq 128 through ``make_train_step`` (remat on, AdamW, lr
+     1e-3, 2 warm-up steps); finite losses and gradient norms, after step 1
+     a finite gradient for every parameter, non-zero expert gradients and
+     every parameter changed; B1 launches (1 a step at 1 layer: a prefix
+     layer is not rematerialized) and no other kernel; step times, the
+     host's enqueue, peak memory, then 3 more steps timed part by part
+     (forward + backward, AdamW) beside their bytes floors; then the same
+     model cut to 2 layers (two scan groups) takes one remat forward +
+     backward: B1 2 launches a MoE layer, the forward and its recompute;
+ 10b reduced qwen3-moe (its MoE layers rematerialized: B1 2 launches a
+     layer and step) and reduced DeepSeek-V2 in fp32, 5 steps on the card
+     against the same weights on the CPU: losses, gradient norms and
+     parameters within fp32 limits; a checkpoint round trip on the card;
+ 11. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -277,6 +298,7 @@ def check_moe_ffn(gen, card):
         "deepseek_"))
     row.update(check_moe_ffn_occupancy(
         gen, card, make, JAMBA_MOE, JAMBA_TOP_K, (torch.bfloat16,), "jamba_"))
+    row.update(check_moe_ffn_train(gen, card, make))
     return row
 
 
@@ -981,11 +1003,12 @@ JAMBA = "jamba-1.5-large-398b"
 DEPTH = {QWEN3: 4, DEEPSEEK_V2: 4, JAMBA: 5}
 
 
-def _full_cfg(what, arch=QWEN3):
-    """``arch`` at every published width, its depth cut to ``DEPTH``."""
+def _full_cfg(what, arch=QWEN3, depth=None):
+    """``arch`` at every published width, its depth cut to ``depth``
+    (default ``DEPTH``)."""
     from repro_torch.configs import get_config
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=DEPTH[arch])
+    cfg = dataclasses.replace(full, n_layers=depth or DEPTH[arch])
     m, mla = cfg.moe, cfg.attn.mla
     attn = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim_}"
             if mla is None else
@@ -1222,6 +1245,21 @@ def host_rss():
     raise SystemExit("no VmRSS in /proc/self/status")
 
 
+def tensor_bytes():
+    """The bytes the card's live tensors asked for. Not
+    ``memory_allocated``, which counts the caching allocator's blocks: it
+    may hand a request a cached block up to 1 MiB larger, depending on
+    what earlier phases freed. Read as PyTorch's own leak check reads
+    memory: Python garbage collected first (a reference cycle keeps a dead
+    tensor until the collector runs) and cuBLAS's workspaces dropped (a
+    handle takes 32 MiB the first time a thread uses it on a stream, and
+    keeps it)."""
+    import torch
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
 def streaming_path(card, arch=QWEN3,
                    what="phase 4b: main path, streaming experts at rf 0.5 "
                         "over the int8 wire", wire="int8"):
@@ -1237,7 +1275,7 @@ def streaming_path(card, arch=QWEN3,
     rss0 = host_rss()
     model = Model(cfg, device="cuda").init(0)
     torch.cuda.synchronize()
-    resident_bytes = torch.cuda.memory_allocated()
+    resident_bytes = tensor_bytes()
     args = serve_mod.parse_args(SERVE_FLAGS + [
         "--resident-fraction", "0.5", "--transfer-dtype", wire])
     _reset_counts()
@@ -1298,7 +1336,7 @@ def streaming_path(card, arch=QWEN3,
     slot_bytes = nbytes(srv.slot_runtime.slot_cache.bufs.values())
     kv_bytes = nbytes(t for bc in srv.slot_runtime.layer_caches
                       for t in bc.values())
-    stream_bytes = torch.cuda.memory_allocated()
+    stream_bytes = tensor_bytes()
     print(f"  card memory: {resident_bytes} B all-resident after init, "
           f"{stream_bytes} B streaming after serving; experts "
           f"{expert_total} B, slot buffers {slot_bytes} B, pooled decode "
@@ -2025,6 +2063,462 @@ def families_vs_cpu():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training: B1 under a gradient (3a), phase 10 (full width), 10b (vs CPU)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 128     # the train launcher's defaults
+TRAIN_STEPS, TIMED_STEPS = 8, 3
+
+
+# B1's gradients, held per expert normwise (||got_e - want_e|| <= rtol
+# ||want_e|| for each expert e): fp32 with the kernel's rtol; bf16 at
+# 1.5e-2, between sound readings (3.3e-3-4.1e-3 of the whole tensor at the
+# training shape) and a dropped row of xg (~1.4 % of the whole tensor at
+# E 128, C 41, ~15 % of its expert's)
+GRAD_RTOL = {"torch.float32": TOL["torch.float32"][1],
+             "torch.bfloat16": 1.5e-2}
+
+
+def compare_grad(name, got, want):
+    """A gradient (E, ...) against autograd through the plain version, held
+    per expert as a whole: an element sums products whose factors are
+    rounded to the inputs' dtype, some of them near a zero of the
+    activation's derivative, so its error does not scale with its own
+    value, which cancellation can make small; a wrong product, row or
+    expert moves its expert's norm by far more. An expert whose gradient
+    is zero must get exactly zero. -> the worst expert's relative error."""
+    import torch
+    rtol = GRAD_RTOL[str(want.dtype)]
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    err = torch.linalg.vector_norm(g - w, dim=1)
+    ref_n = torch.linalg.vector_norm(w, dim=1)
+    rel = torch.where(ref_n > 0, err / ref_n.clamp_min(1e-30),
+                      torch.where(err > 0, float("inf"), 0.0))
+    worst = float(rel.max())
+    whole = float(torch.linalg.vector_norm(g - w)
+                  / torch.linalg.vector_norm(w))
+    ok = worst <= rtol and bool(torch.isfinite(g).all())
+    print(f"  {name}: per expert ||err||/||want|| <= {worst:.3e} (limit "
+          f"{rtol:g}; whole tensor {whole:.3e}), "
+          f"max_abs_err={float((g - w).abs().max()):.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: B1's gradient disagrees with autograd "
+                         "through the plain version")
+    return worst
+
+
+def routed_xg(gen, E, C, d, top_k, T):
+    """xg (E, C, d) as the dispatch fills it for T tokens routed top-k by
+    a seeded router: each expert's tokens in token order, the first C
+    kept, every other row exactly zero."""
+    import torch
+    x = torch.randn((T, d), generator=gen, device="cuda")
+    w = torch.randn((d, E), generator=gen, device="cuda") * d ** -0.5
+    idx = torch.topk(torch.softmax(x @ w, -1), top_k, dim=-1).indices
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    e = flat[order]
+    rank = torch.arange(T * top_k, device="cuda") \
+        - torch.searchsorted(e, e, side="left")
+    keep = rank < C
+    xg = torch.zeros((E, C, d), device="cuda")
+    xg[e[keep], rank[keep]] = x[order[keep] // top_k]
+    return xg
+
+
+def check_moe_ffn_train(gen, card, make):
+    """Phase 3a under a gradient: B1's autograd Function (``MoEFFN``) at
+    the training shape (E 128, C = capacity(512) at cf 1.25, d 4096, f
+    1536, bf16), every row filled and routed over 512 tokens, and at a
+    ragged fp32 shape: the output bit-equal to the plain launch under
+    inference_mode, and the output and all four gradients against autograd
+    through ``moe_ffn_ref`` on the card; the forward and the backward
+    timed. -> the ``train_*`` keys of B1's row."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import MoEFFN, moe_ffn, moe_ffn_backward
+    from repro_torch.models.moe import capacity
+
+    m = get_config(QWEN3).moe
+    C = capacity(TRAIN_BATCH * TRAIN_SEQ, m)
+    nums = {}
+    cases = [("filled", 128, C, 4096, 1536, "swiglu", torch.bfloat16),
+             ("routed", 128, C, 4096, 1536, "swiglu", torch.bfloat16)]
+    cases += [("ragged", 3, 13, 520, 700, act, torch.float32)
+              for act in ("swiglu", "geglu", "relu2", "gelu")]
+    for what, E, C, d, f, act, dtype in cases:
+        xg, wg, wu, wd = make(E, C, d, f, act, dtype)
+        if what == "routed":
+            xg = routed_xg(gen, E, C, d, m.top_k,
+                           TRAIN_BATCH * TRAIN_SEQ).to(dtype)
+        elif what == "ragged":
+            xg[0, 5:] = 0           # unrouted rows and a whole empty expert
+            xg[2] = 0
+        dy = torch.randn(xg.shape, generator=gen, device="cuda").to(dtype)
+        tag = f"{what} E={E} C={C} d={d} f={f} {act} {dtype}"
+        with torch.inference_mode():
+            same = torch.equal(MoEFFN.apply(xg, wg, wu, wd, act),
+                               moe_ffn(xg, wg, wu, wd, act=act))
+        if not same:
+            raise SystemExit(f"{tag}: MoEFFN's output is not the plain "
+                             "launch's, bit for bit")
+        def leaves():
+            return [None if t is None else t.detach().clone()
+                    .requires_grad_() for t in (xg, wg, wu, wd)]
+        ins, rins = leaves(), leaves()
+        y = MoEFFN.apply(*ins, act)
+        y.backward(dy)
+        want = ref.moe_ffn_ref(*rins, act=act)
+        want.backward(dy)
+        torch.cuda.synchronize()
+        print(f"  B1 Function {tag}: output bit-equal to the plain launch "
+              "under inference_mode")
+        err = compare(f"{tag} output", y.detach(), want.detach())
+        del y, want
+        gerr = max(compare_grad(f"{tag} {n}", a.grad, b.grad)
+                   for n, a, b in zip(("dxg", "dW_gate", "dW_up", "dW_down"),
+                                      ins, rins) if a is not None)
+        del ins, rins
+        torch.cuda.empty_cache()
+        if what == "ragged":
+            continue
+        ms = time_ms(lambda: moe_ffn(xg, wg, wu, wd, act=act), 10)
+        bwd_ms = time_ms(lambda: moe_ffn_backward(xg, wg, wu, wd, dy,
+                                                  act=act), 5)
+
+        def plain_bwd():
+            ins = [None if t is None else t.detach().requires_grad_()
+                   for t in (xg, wg, wu, wd)]
+            torch.autograd.grad(ref.moe_ffn_ref(*ins, act=act),
+                                [t for t in ins if t is not None], dy)
+        plain_ms = time_ms(lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act),
+                           3, ahead=False)
+        bwd_plain_ms = time_ms(plain_bwd, 2, ahead=False)
+        routed = (xg != 0).any(-1)
+        n_exp = int(routed.any(-1).sum())
+        esz, w1 = xg.element_size(), d * f
+        # forward: xg and y once, the weights of experts with a routed row;
+        # backward, the function's least traffic: xg, dy and dxg once, the
+        # three weights of each routed expert read once, three dW written
+        # (every expert); flops of 8 products over the routed rows (h for
+        # dW_down needs the gate and up products). This design also reads
+        # W_gate and W_up a second time for its recompute of h.
+        fwd_bound, fwd_by = bound(esz * (2 * xg.numel() + n_exp * 3 * w1),
+                                  2 * int(routed.sum()) * w1 * 3, dtype)
+        bwd_flops = 2 * int(routed.sum()) * w1 * 8
+        bwd_bound, bwd_by = bound(
+            esz * (3 * xg.numel() + n_exp * 3 * w1 + E * 3 * w1),
+            bwd_flops, dtype)
+        bwd_design_ms, _ = bound(
+            esz * (3 * xg.numel() + n_exp * 5 * w1 + E * 3 * w1),
+            bwd_flops, dtype)
+        print(f"  time {tag}: forward kernel {ms:.4f} ms (bound "
+              f"{fwd_bound:.4f}, {fwd_by}; plain {plain_ms:.4f}); backward "
+              f"products {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, {bwd_by}; "
+              f"this design's own traffic {bwd_design_ms:.4f}; plain "
+              f"autograd {bwd_plain_ms:.4f}); {n_exp} of {E} experts "
+              f"routed [{card}]")
+        nums.update({f"train_{what}_{k}": v for k, v in dict(
+            max_abs_err=err, grad_rel_err=gerr, ms=ms,
+            plain_ms=plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound,
+            bwd_bound_by=bwd_by, bwd_design_bytes_ms=bwd_design_ms,
+            bwd_library_ms=None).items()})
+        del xg, wg, wu, wd, dy
+        torch.cuda.empty_cache()
+    return nums
+
+
+def _moe_launches_per_step(model):
+    """B1 launches of one training step with remat: one forward for each
+    MoE layer, and a recompute in the backward for those of the periodic
+    tail (the reference's scan groups; prefix layers are not
+    rematerialized)."""
+    return sum(2 if i >= model.n_prefix else 1 for i in model.moe_layers)
+
+
+def _params_close_after_steps(init, got, want, lr):
+    """Parameters after AdamW steps on two devices from the same weights:
+    where a gradient is near eps its rounding moves that element's update
+    by a fraction of lr (Adam divides by √v̂ + eps), so each element within
+    0.25 lr, and each tensor's update within 2e-3 of the other's in L2
+    norm. -> the worst relative update difference."""
+    import torch
+    worst = 0.0
+    for n, p in got.items():
+        g, w, i = p.detach().cpu(), want[n].detach(), init[n]
+        if not bool(torch.all((g - w).abs() <= 0.25 * lr)):
+            worst_abs = float((g - w).abs().max())
+            raise SystemExit(f"phase 10b: {n} differs from the CPU by more "
+                             f"than 0.25 lr ({worst_abs:.3e})")
+        rel = float(torch.linalg.vector_norm(g - w)) / max(
+            float(torch.linalg.vector_norm(w - i)), 1e-30)
+        if rel > 2e-3:
+            raise SystemExit(f"phase 10b: {n}'s update differs from the CPU's"
+                             f" by {rel:.3e} of its norm")
+        worst = max(worst, rel)
+    return worst
+
+
+def train_path(card):
+    """Phase 10: full-width qwen3-moe cut to 1 layer, bf16, trained for 8
+    steps through ``make_train_step`` (remat on, AdamW), then 3 more steps
+    timed part by part. -> the launch counts of the 8 steps."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import make_train_step, to_batch
+    from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
+                                         decay_mask)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    cfg = _full_cfg("phase 10: training, remat on, AdamW", QWEN3, depth=1)
+    model = Model(cfg, device="cuda").init(0)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg, remat=True)
+    state = adamw_init(params)
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batches = [to_batch(b, "cuda")
+               for b in data.batches(TRAIN_STEPS + TIMED_STEPS)]
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e9:.3f}e9 params + fp32 moments: "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card "
+          f"({left / 1e9:.2f} GB held before); batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ} from TokenStream over {min(cfg.vocab, DATA_VOCAB)} "
+          f"ids; {opt_cfg}")
+    moe = [f"layers.{i}.moe.{k}" for i in model.moe_layers
+           for k in ("w_gate", "w_up", "w_down")]
+
+    before = {n: p.detach().clone() for n, p in params.items()}
+    _reset_counts()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(TRAIN_STEPS)]
+    losses, gnorms, enqueue = [], [], []
+    for i, batch in enumerate(batches[:TRAIN_STEPS]):
+        if i == 1:
+            del before
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ev[i][0].record()
+        t0 = time.perf_counter()
+        loss, gnorm = step_fn(state, batch)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        ev[i][1].record()
+        losses.append(loss)
+        gnorms.append(gnorm)
+        if i == 0:
+            for n, p in params.items():
+                if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+                    raise SystemExit(f"phase 10: {n} has no finite gradient")
+            for n in moe:
+                if not bool(params[n].grad.any()):
+                    raise SystemExit(f"phase 10: {n}'s gradient is zero")
+            moved = {n: float((p != before[n]).float().mean())
+                     for n, p in params.items()}
+            still = [n for n, v in moved.items() if v == 0]
+            if still:
+                raise SystemExit(f"phase 10: step 1 left {still} unchanged")
+            print("  step 1: every parameter has a finite gradient, the "
+                  f"expert gradients ({', '.join(moe)}) are non-zero, and "
+                  "every parameter changed (share of elements changed: "
+                  + ", ".join(f"{n} {v:.3f}" for n, v in moved.items()
+                              if n in ("embed", "lm_head", *moe[:1])) + ")")
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    gnorms = [float(v) for v in gnorms]
+    if not all(np.isfinite(losses + gnorms)):
+        raise SystemExit(f"phase 10: non-finite loss or gnorm: {losses} "
+                         f"{gnorms}")
+    per_step = _moe_launches_per_step(model)
+    want = {"moe_ffn": per_step * TRAIN_STEPS, "moe_ffn_quant": 0,
+            "flash_decode": 0, "wkv6": 0, "selective_scan": 0}
+    print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; gnorms "
+          f"{', '.join(f'{v:.3f}' for v in gnorms)}")
+    print(f"  launches over {TRAIN_STEPS} steps: {launches} (expected "
+          f"moe_ffn {per_step} a step: {len(model.moe_layers)} MoE layer(s),"
+          f" {model.n_prefix} prefix layer(s) not rematerialized, "
+          f"{model.n_groups} scan group(s); no other kernel)")
+    if launches != want:
+        raise SystemExit("phase 10: launch counts differ from the training "
+                         "step's")
+    steps = [a.elapsed_time(b) for a, b in ev]
+    print(f"  step ms (CUDA events): {', '.join(f'{v:.1f}' for v in steps)};"
+          f" host enqueue ms: {', '.join(f'{v:.1f}' for v in enqueue)}; "
+          f"peak memory (steps 2-{TRAIN_STEPS}) {peak / 1e9:.2f} GB [{card}]")
+
+    # 3 more steps, timed part by part through the same public functions
+    decay = decay_mask(model)
+    parts = []
+    for batch in batches[TRAIN_STEPS:]:
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e[0].record()
+        for p in params.values():
+            p.grad = None
+        model.loss(batch, remat=True).backward()
+        e[1].record()
+        t1 = time.perf_counter()
+        adamw_update(opt_cfg, params, {n: p.grad for n, p in params.items()},
+                     state, decay)
+        e[2].record()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts.append((e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]),
+                      (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    med = np.median(np.asarray(parts), axis=0)
+    adam_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                     for p in params.values())
+    fb_bytes = sum(p.numel() * p.element_size() * (1 if n == "embed" else 3)
+                   for n, p in params.items())
+    b1_bytes = sum(params[n].numel() * params[n].element_size() for n in moe)
+    print(f"  fwd+bwd median {med[0]:.3f} ms (host enqueue {med[2]:.3f} ms);"
+          f" AdamW median {med[1]:.3f} ms (host enqueue {med[3]:.3f} ms), "
+          f"over steps {TRAIN_STEPS + 1}-{TRAIN_STEPS + TIMED_STEPS} "
+          f"[{card}]")
+    print(f"  bytes floors at 3.35 TB/s: AdamW {adam_bytes / 1e9:.2f} GB "
+          f"(reads p, g, m, v; writes p, m, v) = "
+          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; fwd+bwd "
+          f"{fb_bytes / 1e9:.2f} GB (each weight but the embedding table "
+          f"read forward and backward, each gradient written) = "
+          f"{fb_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; B1's forward reads "
+          f"{b1_bytes / 1e9:.2f} GB of experts = "
+          f"{b1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del model, params, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_at_full_width(card, batches[0])
+    return launches
+
+
+def remat_at_full_width(card, batch):
+    """Phase 10's remat check: the same model cut to 2 layers, which
+    ``split_periodic`` makes two scan groups of one layer, so remat
+    recomputes each layer in the backward, through B1. One loss +
+    backward, no optimizer (2 layers' bf16 weights and gradients fit;
+    their fp32 moments would not)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(QWEN3), n_layers=2)
+    model = Model(cfg, device="cuda").init(0).trainable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    loss = model.loss(batch, remat=True)
+    loss.backward()
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = _counts()
+    per_layer = launches["moe_ffn"] / len(model.moe_layers)
+    finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                 for p in model.parameters())
+    print(f"  remat at full width: {cfg.n_layers} layers ({model.n_groups} "
+          f"scan groups of {model.period}), one loss + backward: B1 "
+          f"{launches['moe_ffn']} launches ({per_layer:g} a MoE layer: the "
+          f"forward and its recompute), other kernels "
+          f"{sum(launches.values()) - launches['moe_ffn']}; loss "
+          f"{float(loss.detach()):.4f}, every gradient finite: {finite}; "
+          f"{ev[0].elapsed_time(ev[1]):.3f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    if per_layer != 2 or sum(launches.values()) != launches["moe_ffn"] \
+            or not finite:
+        raise SystemExit("phase 10: remat did not recompute every layer "
+                         "through B1")
+    del model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+TRAIN_CPU_ARCHS = (QWEN3, DEEPSEEK_V2)
+
+
+def train_vs_cpu():
+    """Phase 10b: reduced qwen3-moe (every layer in a scan group, so every
+    MoE layer is rematerialized) and reduced DeepSeek-V2 (a dense prefix
+    layer, then an MoE one) in fp32, 5 AdamW steps on the card and on the
+    CPU from the same weights; then a checkpoint round trip on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.checkpoint import restore, save
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import make_train_step, to_batch
+    from repro_torch.train.optim import OptConfig, adamw_init
+
+    for arch in TRAIN_CPU_ARCHS:
+        cfg = get_config(arch).reduced()
+        print(f"phase 10b: {cfg.name} ({cfg.n_layers} layers, fp32) trained "
+              "5 steps on the card vs the same weights on the CPU")
+        gpu = Model(cfg, device="cuda").init(1)
+        cpu = Model(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=5)
+        data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=16, batch=2))
+        out = {}
+        _reset_counts()
+        for m in (gpu, cpu):
+            step = make_train_step(m, opt_cfg)
+            state = adamw_init(dict(m.named_parameters()))
+            out[m.device.type] = [tuple(float(v) for v in step(
+                state, to_batch(b, m.device))) for b in data.batches(5)]
+            if m is gpu:
+                launches = _counts()
+        got, want = np.asarray(out["cuda"]), np.asarray(out["cpu"])
+        if not np.allclose(got, want, rtol=1e-4, atol=0):
+            raise SystemExit(f"phase 10b: losses/gnorms differ: card {got} "
+                             f"cpu {want}")
+        rel = _params_close_after_steps(
+            init, dict(gpu.named_parameters()),
+            dict(cpu.named_parameters()), opt_cfg.lr)
+        per_step = _moe_launches_per_step(gpu)
+        if launches["moe_ffn"] != 5 * per_step or \
+                sum(launches.values()) != launches["moe_ffn"]:
+            raise SystemExit(f"phase 10b: launches {launches}, expected "
+                             f"moe_ffn {5 * per_step} only")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/ckpt.npz"
+            save(path, gpu)
+            back = restore(path, Model(cfg, device="cuda"))
+        batch = to_batch(next(iter(data.batches(1, seed=99))), "cuda")
+        with torch.no_grad():
+            l1, l2 = float(gpu.loss(batch)), float(back.loss(batch))
+        same = all(torch.equal(a, b) for a, b in
+                   zip(gpu.parameters(), back.parameters()))
+        if not same or abs(l1 - l2) >= 1e-6:
+            raise SystemExit(f"phase 10b: checkpoint round trip: parameters "
+                             f"equal {same}, loss {l1} vs {l2}")
+        print(f"  losses card {', '.join(f'{v:.6f}' for v in got[:, 0])}, "
+              f"max |Δ|/|cpu| {np.max(np.abs(got - want) / want):.2e} over "
+              f"losses and gnorms (rtol 1e-4); parameters within 0.25 lr, "
+              f"worst update difference {rel:.2e} of its norm (limit 2e-3); "
+              f"moe_ffn launches {launches['moe_ffn']} = 5 steps x "
+              f"{per_step}; checkpoint save -> restore on the card: "
+              f"parameters bit-equal, loss {l1:.6f} == {l2:.6f}")
+        del gpu, cpu, back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2077,6 +2571,8 @@ def main() -> int:
     paths["qwen2_vl"] = family_path(card, QWEN2_VL, "9b")
     paths["whisper"] = family_path(card, WHISPER, "9c")
     families_vs_cpu()
+    paths["train"] = train_path(card)
+    train_vs_cpu()
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -2087,7 +2583,8 @@ def main() -> int:
                         ("jamba_streaming", jamba),
                         ("gemma2", ("flash_decode",)),
                         ("qwen2_vl", ("flash_decode",)),
-                        ("whisper", ("flash_decode",))):
+                        ("whisper", ("flash_decode",)),
+                        ("train", ("moe_ffn",))):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "
@@ -2100,6 +2597,9 @@ def main() -> int:
         if paths[path]["moe_ffn_quant"]:
             raise SystemExit(f"moe_ffn_quant was launched on the {path} "
                              "path (its wire is the master dtype)")
+    for name in ("flash_decode", "moe_ffn_quant", "wkv6", "selective_scan"):
+        if paths["train"][name]:
+            raise SystemExit(f"{name} was launched on the train path")
     for row in rows:
         # launches over every main-path run, and per run
         by_path = {path: counts[row["name"]]

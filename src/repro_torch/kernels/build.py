@@ -137,6 +137,18 @@ def check_tensor(name, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through this launch. The
+    kernel writes its outputs through raw pointers, so they have no
+    ``grad_fn``: a backward would silently give no gradient to anything
+    behind them."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: run it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if err != 0:

@@ -47,6 +47,7 @@ def flash_decode(q, k, v, cache_len, softcap: float = 0.0):
     if q.device.type != "cuda":
         raise ValueError("flash_decode kernel needs CUDA tensors; the CPU "
                          "path is kernels.ref.flash_decode_ref")
+    build.check_no_grad("flash_decode", q, k, v)
     if q.dtype not in build.DTYPES:
         raise TypeError(f"flash_decode supports fp32/bf16, got {q.dtype}")
     B, H, hd = q.shape

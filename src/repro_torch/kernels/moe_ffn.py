@@ -12,8 +12,18 @@ kernel (one per call, although each call runs as three launches: a scan
 of xg's non-zero rows, up+activation, then down). Both skip what nothing
 was routed to: a zero row of xg gives a +0.0 row, and an expert with no
 non-zero row has none of its weights (or scales) read.
+
+Under autograd B1 runs as ``MoEFFN``: its forward is the same launch, with
+the same bits; its backward is ``moe_ffn_backward``, plain batched products
+(the reference differentiates its jnp ``grouped_expert_ffn`` outside any
+Pallas kernel, so there is no TPU backward kernel to port). Every raw
+wrapper raises when a gradient is asked of it (``build.check_no_grad``):
+its output is written through pointers and would sit off the graph. B2 is
+decode-only and has no backward.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,6 +78,7 @@ def moe_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu",
     if xg.device.type != "cuda":
         raise ValueError("moe_ffn kernel needs CUDA tensors; the CPU path "
                          "is kernels.ref.moe_ffn_ref")
+    build.check_no_grad("moe_ffn", xg, w_gate, w_up, w_down)
     _check_act(act, w_gate)
     if xg.dtype not in build.DTYPES:
         raise TypeError(f"moe_ffn kernel supports fp32/bf16, got {xg.dtype}")
@@ -106,6 +117,7 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
     if xg.device.type != "cuda":
         raise ValueError("moe_ffn_quant kernel needs CUDA tensors; the CPU "
                          "path is kernels.ref.moe_ffn_quant_ref")
+    build.check_no_grad("moe_ffn_quant", xg, w_gate, w_up, w_down)
     _check_act(act, w_gate)
     out_dtype = xg.dtype if out_dtype is None else out_dtype
     for name, dt in (("xg", xg.dtype), ("out_dtype", out_dtype)):
@@ -145,3 +157,73 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
     build.check("moe_ffn_quant", err)
     quant_launches += 1
     return y
+
+
+# gelu's tanh approximation: 0.5 z (1 + tanh(GELU_C (z + GELU_A z^3)))
+GELU_C, GELU_A = math.sqrt(2.0 / math.pi), 0.044715
+
+
+def _act_grad(act: str, z):
+    """-> (a(z), a'(z)) in fp32 for the activation applied to the gate
+    (gated) or up (plain) pre-activation ``z`` (fp32)."""
+    if act == "swiglu":
+        s = torch.sigmoid(z)
+        return z * s, s * (1.0 + z * (1.0 - s))
+    if act in ("geglu", "gelu"):
+        t = torch.tanh(GELU_C * (z + GELU_A * z * z * z))
+        return (0.5 * z * (1.0 + t),
+                0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * GELU_C
+                * (1.0 + 3.0 * GELU_A * z * z))
+    r = torch.relu(z)                                        # relu2
+    return r * r, 2.0 * r
+
+
+def moe_ffn_backward(xg, w_gate, w_up, w_down, dy, *, act: str = "swiglu"):
+    """Gradients of ``y = act(xg·W_gate, xg·W_up)·W_down`` per expert for
+    the upstream gradient ``dy`` (E, C, d): -> (dxg, dW_gate or None,
+    dW_up, dW_down) in the inputs' dtypes.
+
+    Recomputes the gate and up pre-activations (batched products in the
+    inputs' dtype, fp32 accumulation), takes the activation's value and
+    derivative in fp32, rounds h to the input dtype as the forward does,
+    then ``dW_down = hᵀ·dy``, ``dh = dy·W_downᵀ``, ``dW_gate = xgᵀ·dgate``,
+    ``dW_up = xgᵀ·dup`` and ``dxg = dgate·W_gateᵀ + dup·W_upᵀ``. Plain
+    tensor code on any device."""
+    _check_act(act, w_gate)
+    dt = xg.dtype
+    up = torch.bmm(xg, w_up).float()
+    if w_gate is not None:
+        a, da = _act_grad(act, torch.bmm(xg, w_gate).float())
+        h = a * up
+    else:
+        h, da = _act_grad(act, up)
+    dw_down = torch.bmm(h.to(dt).transpose(1, 2), dy)
+    dh = torch.bmm(dy, w_down.transpose(1, 2)).float()
+    xt = xg.transpose(1, 2)
+    if w_gate is None:
+        d_up = (dh * da).to(dt)
+        dw_gate, dxg = None, torch.bmm(d_up, w_up.transpose(1, 2))
+    else:
+        d_up = (dh * a).to(dt)
+        d_gate = (dh * up * da).to(dt)
+        dw_gate = torch.bmm(xt, d_gate)
+        dxg = torch.baddbmm(torch.bmm(d_gate, w_gate.transpose(1, 2)),
+                            d_up, w_up.transpose(1, 2))
+    return dxg, dw_gate, torch.bmm(xt, d_up), dw_down
+
+
+class MoEFFN(torch.autograd.Function):
+    """B1 on the autograd graph: the forward is ``moe_ffn``'s launch (the
+    same bits), the backward ``moe_ffn_backward``."""
+
+    @staticmethod
+    def forward(ctx, xg, w_gate, w_up, w_down, act):
+        ctx.act = act
+        ctx.save_for_backward(xg, w_gate, w_up, w_down)
+        return moe_ffn(xg, w_gate, w_up, w_down, act=act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = moe_ffn_backward(*ctx.saved_tensors, dy.contiguous(),
+                                 act=ctx.act)
+        return (*grads, None)

@@ -6,16 +6,17 @@ from __future__ import annotations
 from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_quant
+from repro_torch.kernels.moe_ffn import MoEFFN, moe_ffn, moe_ffn_quant
 from repro_torch.kernels.selective_scan import selective_scan as _scan
 from repro_torch.kernels.wkv6 import wkv6
 
 
 def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
-    """Grouped expert FFN (E, C, d) -> (E, C, d)."""
+    """Grouped expert FFN (E, C, d) -> (E, C, d); on CUDA B1 through
+    ``MoEFFN``, so a gradient flows through the kernel's output."""
     if xg.device.type == "cpu":
         return ref.moe_ffn_ref(xg, w_gate, w_up, w_down, act=act)
-    return moe_ffn(xg, w_gate, w_up, w_down, act=act)
+    return MoEFFN.apply(xg, w_gate, w_up, w_down, act)
 
 
 def moe_expert_ffn_slots(xg, bufs, slot_ids, *, act: str = "swiglu",

@@ -28,6 +28,7 @@ def selective_scan(x, dt, A, Bm, Cm, h0):
     if x.device.type != "cuda":
         raise ValueError("selective_scan kernel needs CUDA tensors; the CPU "
                          "path is kernels.ref.selective_scan_ref")
+    build.check_no_grad("selective_scan", x, dt, A, Bm, Cm, h0)
     if x.dtype not in build.DTYPES:
         raise TypeError(f"selective_scan supports fp32/bf16, got {x.dtype}")
     B, T, D = x.shape

@@ -48,6 +48,7 @@ def wkv6(r, k, v, w, u, s0):
     if r.device.type != "cuda":
         raise ValueError("wkv6 kernel needs CUDA tensors; the CPU path is "
                          "kernels.ref.wkv6_ref")
+    build.check_no_grad("wkv6", r, k, v, w, u, s0)
     if r.dtype not in build.DTYPES:
         raise TypeError(f"wkv6 kernel supports fp32/bf16, got {r.dtype}")
     if w.dtype not in (torch.float32, r.dtype):

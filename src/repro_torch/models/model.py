@@ -15,7 +15,9 @@ axis.
 
 Entry points (all under ``torch.inference_mode()`` when serving)
   init(seed)                                      -> self
-  forward(batch)                                  -> (logits, aux)
+  trainable(flag=True)                            -> self
+  forward(batch, capacity_factor=, remat=)        -> (logits, aux)
+  loss(batch, capacity_factor=, remat=True)       -> scalar (LM + MoE aux)
   init_cache(B, cache_len, decode_window=0)       -> cache (zeros)
   prefill(batch, cache, true_len=...)             -> (last_logits, cache, aux)
   serve_step(cache, token_or_embeds, decode_window=0, active=...)
@@ -30,10 +32,14 @@ Expert Activation Matrix, equal to the reference's (None without MoE).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
@@ -100,6 +106,18 @@ def _unsupported(cfg: ArchConfig):
         if bad:
             return what
     return None
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """Selective remat under ``remat_policy == "dots"``: keep the outputs
+    of matrix products with no batch dims (the reference's
+    ``dots_with_no_batch_dims_saveable``; torch's einsum runs those as
+    ``bmm`` over a batch of one) and recompute the rest."""
+    aten = torch.ops.aten
+    dot = func in (aten.mm.default, aten.addmm.default) or (
+        func == aten.bmm.default and args[0].shape[0] == 1)
+    return (CheckpointPolicy.MUST_SAVE if dot
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class Block(nn.Module):
@@ -189,6 +207,13 @@ class Model(nn.Module):
                     blk = w[i:i + rows]
                     blk.copy_(torch.randn(blk.shape, generator=gen,
                                           device=self.device) * std)
+        return self
+
+    def trainable(self, flag: bool = True):
+        """Set ``requires_grad`` on every parameter (built off, for
+        serving). Returns self."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
         return self
 
     # -- full-sequence blocks -------------------------------------------------
@@ -353,16 +378,33 @@ class Model(nn.Module):
         return softcap(logits, self.cfg.final_logit_softcap)
 
     # -- public: forward ------------------------------------------------------
-    def forward(self, batch):
+    def _apply_block(self, p: Block, desc: LayerDesc, x, positions, enc_kv,
+                     capacity_factor):
+        x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions, enc_kv)
+        return self._apply_block_post(p, desc, x_mid, h2,
+                                      capacity_factor=capacity_factor)
+
+    def forward(self, batch, *, capacity_factor=None, remat=False):
         """Full-sequence forward of ``batch`` (see the module docstring).
-        Returns (logits (B,S,V) fp32, {"counts": (n_moe,B,E) or None,
-        "aux_loss"})."""
+        ``capacity_factor`` sizes the MoE capacity (default: the config's).
+        ``remat``: recompute, in the backward, each layer of the periodic
+        tail (the reference's scan groups; prefix layers keep their
+        activations), all of it under ``remat_policy == "full"``, all but
+        the unbatched matrix products under ``"dots"``. Returns (logits
+        (B,S,V) fp32, {"counts": (n_moe,B,E) or None, "aux_loss"})."""
         x, positions = self._embed(batch)
+        ctx = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+               if self.cfg.remat_policy == "dots" else noop_context_fn)
         counts, losses = [], []
-        for p, desc, ekv in zip(self.layers, self.descs,
-                                self._cross_kvs(batch)):
-            x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions, ekv)
-            x, aux = self._apply_block_post(p, desc, x_mid, h2)
+        for i, (p, desc, ekv) in enumerate(zip(self.layers, self.descs,
+                                               self._cross_kvs(batch))):
+            args = (p, desc, x, positions, ekv, capacity_factor)
+            if remat and i >= self.n_prefix:
+                x, aux = checkpoint(self._apply_block, *args,
+                                    use_reentrant=False, context_fn=ctx)
+            else:
+                x, aux = self._apply_block(*args)
             if "counts" in aux:
                 counts.append(aux["counts"])
                 losses.append(aux["aux_loss"])
@@ -371,6 +413,19 @@ class Model(nn.Module):
                     else torch.zeros((), device=x.device))
         return logits, {"counts": torch.stack(counts) if counts else None,
                         "aux_loss": aux_loss}
+
+    def loss(self, batch, *, capacity_factor=None, remat=True):
+        """Next-token LM loss + MoE load-balance aux: over ``batch["labels"]``
+        when given, else each position predicts the next token."""
+        logits, aux = self.forward(batch, capacity_factor=capacity_factor,
+                                   remat=remat)
+        if "labels" in batch:
+            labels, lg = batch["labels"], logits
+        else:
+            labels, lg = batch["tokens"][:, 1:], logits[:, :-1]
+        lp = torch.log_softmax(lg, dim=-1)
+        nll = -torch.gather(lp, -1, labels[..., None].long())[..., 0]
+        return nll.mean() + aux["aux_loss"]
 
     # -- caches ---------------------------------------------------------------
     def init_cache(self, B: int, cache_len: int, decode_window: int = 0):

@@ -34,28 +34,36 @@ def _to_tensor(arr, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _load(module: torch.nn.Module, tree) -> None:
-    for name, arr in _flatten(tree):
-        param = module.get_parameter(name)
-        param.copy_(_to_tensor(arr, param))
+def reference_leaves(model, tree):
+    """{port parameter name: the tree's array for it}: the reference's
+    leaves with the scan-group and encoder axes unstacked (works for any
+    tree of the parameters' structure, e.g. their gradients)."""
+    out = {}
+
+    def add(prefix, sub):
+        for name, arr in _flatten(sub):
+            out[prefix + name] = arr
+    add("", {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                  "pos_embed", "enc_pos_embed",
+                                  "enc_final_norm") if k in tree})
+    for g in range(len(getattr(model, "encoder", ()))):
+        add(f"encoder.{g}.", _index(tree["encoder"], g))
+    for i in range(model.n_prefix):
+        add(f"layers.{i}.", tree["prefix"][i])
+    for pos, stacked in enumerate(tree["blocks"]):
+        for g in range(model.n_groups):
+            layer = model.n_prefix + g * model.period + pos
+            add(f"layers.{layer}.", _index(stacked, g))
+    return out
 
 
 @torch.no_grad()
 def from_reference(model, tree):
     """Copy ``tree`` into ``model`` (a ``repro_torch`` Model of the same
     config) and return the model."""
-    top = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
-                                "pos_embed", "enc_pos_embed",
-                                "enc_final_norm") if k in tree}
-    _load(model, top)
-    for g, block in enumerate(getattr(model, "encoder", ())):
-        _load(block, _index(tree["encoder"], g))
-    for i in range(model.n_prefix):
-        _load(model.layers[i], tree["prefix"][i])
-    for pos, stacked in enumerate(tree["blocks"]):
-        for g in range(model.n_groups):
-            layer = model.n_prefix + g * model.period + pos
-            _load(model.layers[layer], _index(stacked, g))
+    for name, arr in reference_leaves(model, tree).items():
+        param = model.get_parameter(name)
+        param.copy_(_to_tensor(arr, param))
     return model
 
 

@@ -1,5 +1,5 @@
 from repro_torch.serving.engine import (  # noqa: F401
-    EngineConfig, StepEngine, TorchModelServer)
+    EngineConfig, RoutingOracle, ServingEngine, StepEngine, TorchModelServer)
 from repro_torch.serving.guard import (  # noqa: F401
     RecompileError, recompile_guard)
 from repro_torch.serving.scheduler import (  # noqa: F401

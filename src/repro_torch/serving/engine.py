@@ -1,9 +1,11 @@
-"""Model-mode serving on the port: the slot-pool step loop over a PyTorch
-model.
+"""Serving on the port: the trace-mode engine and the slot-pool step loop
+over a PyTorch model.
 
-``EngineConfig`` and ``StepEngine`` are verbatim copies of the reference
-(``repro.serving.engine``): the iteration-level step loop, admission,
-offload-engine bookkeeping and the virtual clock are shared numpy policy.
+``RoutingOracle``, ``EngineConfig``, ``StepEngine`` and ``ServingEngine``
+are verbatim copies of the reference (``repro.serving.engine``): the
+iteration-level step loop, admission, offload-engine bookkeeping and the
+virtual clock are shared numpy policy, and trace mode (``ServingEngine``
+over a ``RoutingOracle``'s synthetic per-task routing) runs no model.
 ``TorchModelServer`` is the port of ``JaxModelServer``: a fixed pool of
 decode slots, each joining request prefilled at B=1 into a power-of-two
 bucket and written into a free slot, and one pooled decode step per
@@ -32,6 +34,37 @@ from repro_torch.serving.perf_model import (expert_bytes, layer_cost,
 from repro_torch.serving.request import DECODE, DONE, PREFILL, Request
 from repro_torch.serving.scheduler import (ContinuousScheduler,
                                            SchedulerConfig, make_scheduler)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic routing oracle (trace mode)
+# ---------------------------------------------------------------------------
+
+
+class RoutingOracle:
+    """Task-conditioned expert routing with temporal locality.
+
+    Each (task, layer) has a Dirichlet-concentrated distribution over
+    experts; all tokens of a sequence route from that distribution, so a
+    sequence reuses few experts (sparse activation + temporal locality),
+    while different tasks use different experts — the structure EAMC mines.
+    """
+
+    def __init__(self, n_layers: int, n_experts: int, n_tasks: int,
+                 top_k: int = 1, concentration: float = 0.05, seed: int = 7):
+        rng = np.random.default_rng(seed)
+        self.top_k = top_k
+        self.n_layers, self.n_experts = n_layers, n_experts
+        self.dist = rng.dirichlet(np.full(n_experts, concentration),
+                                  size=(n_tasks, n_layers))
+
+    def route_tokens(self, task: int, n_tokens: int, rng) -> np.ndarray:
+        """-> (L, E) token counts for one iteration of one sequence."""
+        out = np.zeros((self.n_layers, self.n_experts), np.int64)
+        for l in range(self.n_layers):
+            for _ in range(self.top_k):
+                out[l] += rng.multinomial(n_tokens, self.dist[task, l])
+        return out
 
 
 @dataclass
@@ -324,6 +357,47 @@ class StepEngine:
                      p50=float(np.percentile(lat, 50)),
                      p99=float(np.percentile(lat, 99)))
         return s
+
+
+class ServingEngine(StepEngine):
+    """Trace-mode serving: oracle-routed requests over the step loop."""
+
+    def __init__(self, cfg: EngineConfig, *, eamc: Optional[EAMC] = None,
+                 oracle: Optional[RoutingOracle] = None,
+                 model=None, params=None, seed: int = 0,
+                 prefetcher=None, cache_policy=None):
+        super().__init__(cfg, eamc=eamc, prefetcher=prefetcher,
+                         cache_policy=cache_policy)
+        self.oracle = oracle
+        self.model = model
+        self.params = params
+        self.seed = seed
+        # routing randomness is keyed by request id, not by draw order, so a
+        # request's expert trace is identical whether it runs alone or joins
+        # a continuous batch mid-decode (sequence-lifetime determinism)
+        self._req_rngs: Dict[int, np.random.Generator] = {}
+
+    def _rng_for(self, rid: int) -> np.random.Generator:
+        rng = self._req_rngs.get(rid)
+        if rng is None:
+            rng = np.random.default_rng([self.seed, rid])
+            self._req_rngs[rid] = rng
+        return rng
+
+    def _route_iteration(self, reqs: List[Request], tokens: List[int]
+                         ) -> np.ndarray:
+        E = self.cfg.arch.moe.n_experts
+        out = np.zeros((self.n_moe, len(reqs), E), np.int64)
+        for b, (r, n) in enumerate(zip(reqs, tokens)):
+            if n <= 0:
+                continue
+            out[:, b, :] = self.oracle.route_tokens(r.task_id, n,
+                                                    self._rng_for(r.rid))
+        return out
+
+    def _retire(self, r: Request) -> None:
+        super()._retire(r)
+        self._req_rngs.pop(r.rid, None)
 
 
 # ---------------------------------------------------------------------------

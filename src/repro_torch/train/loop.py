@@ -1,0 +1,69 @@
+"""Training loop: train_step (loss = LM + MoE aux, backward, AdamW) + host
+loop. The port of ``repro.train.loop``: eager autograd in place of a jitted
+``value_and_grad``, with the parameters and moments updated in place."""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
+                                     decay_mask)
+
+
+@dataclass
+class TrainState:
+    params: Any          # {name: parameter} of the model, updated in place
+    opt: Any
+    step: int = 0
+
+
+def make_train_step(model, opt_cfg: OptConfig, *, remat: bool = True,
+                    capacity_factor: Optional[float] = None) -> Callable:
+    """-> ``train_step(opt_state, batch) -> (loss, gnorm)`` (0-d tensors),
+    which updates ``model``'s parameters and ``opt_state`` in place.
+    Makes every parameter trainable."""
+    model.trainable()
+    params = dict(model.named_parameters())
+    decay = decay_mask(model)
+
+    def train_step(opt_state, batch):
+        for p in params.values():
+            p.grad = None
+        loss = model.loss(batch, remat=remat, capacity_factor=capacity_factor)
+        loss.backward()
+        gnorm = adamw_update(opt_cfg, params,
+                             {n: p.grad for n, p in params.items()},
+                             opt_state, decay)
+        return loss.detach(), gnorm
+    return train_step
+
+
+def to_batch(batch, device):
+    """numpy batch (``TokenStream.batches``) -> int64 tensors on device."""
+    return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+            for k, v in batch.items()}
+
+
+def train_loop(model, data_iter, opt_cfg: OptConfig, *, n_steps: int = 100,
+               log_every: int = 10, verbose: bool = True):
+    """Train ``model`` (initialized, on its device) for ``n_steps`` batches
+    of ``data_iter``. -> (TrainState, losses)."""
+    step_fn = make_train_step(model, opt_cfg)
+    params = dict(model.named_parameters())
+    opt_state = adamw_init(params)
+    losses = []
+    t0 = time.time()
+    for i, batch in enumerate(data_iter):
+        if i >= n_steps:
+            break
+        loss, gnorm = step_fn(opt_state, to_batch(batch, model.device))
+        losses.append(float(loss))
+        if verbose and (i % log_every == 0 or i == n_steps - 1):
+            print(f"step {i:5d} loss {float(loss):8.4f} "
+                  f"gnorm {float(gnorm):7.3f} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    # repro-lint: disable=donation-aliasing -- train_step updates opt_state in place and donates nothing; the rule knows the reference's jitted make_train_step by its name
+    return TrainState(params=params, opt=opt_state, step=len(losses)), losses

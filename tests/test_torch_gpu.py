@@ -923,3 +923,138 @@ def test_jamba_streaming_server_on_card_matches_cpu(cuda, wire):
     np.testing.assert_array_equal(g_out, c_out)
     assert g_stats["demand_uploads"] == c_stats["demand_uploads"] > 0
     assert g_stats["upload_bytes"] == c_stats["upload_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# training: B1 under a gradient, the other kernels refuse one
+# ---------------------------------------------------------------------------
+
+
+def _grad_close(got, want, dtype):
+    """A gradient (E, ...) held per expert as a whole, ||got_e - want_e||
+    <= rtol ||want_e|| (chip_smoke.py's ``compare_grad``): an element sums
+    products whose rounded factors can sit near a zero of the activation's
+    derivative, so its error does not scale with its own value, while a
+    wrong row or expert moves its expert's norm. fp32 takes the kernel's
+    rtol; bf16 1.5e-2, between sound readings (~4e-3) and a dropped row.
+    An expert whose gradient is zero must get exactly zero."""
+    rtol = 1.5e-2 if dtype == "bfloat16" else _tol(dtype)["rtol"]
+    g, w = _f32(got), _f32(want)
+    assert np.all(np.isfinite(g))
+    g, w = g.reshape(len(g), -1), w.reshape(len(w), -1)
+    err = np.linalg.norm(g - w, axis=1)
+    assert np.all(err <= rtol * np.linalg.norm(w, axis=1)), err
+
+
+@pytest.mark.parametrize("E,C,d,f", [(16, 41, 4096, 1536),  # the train C
+                                     (3, 13, 520, 700)])     # ragged
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_ffn_function_gradients_match_plain(cuda, E, C, d, f, dtype,
+                                                act):
+    """``MoEFFN`` (B1 on the graph): the output bit-equal to the plain
+    launch under inference_mode (one launch a call), and the output and
+    all four gradients against autograd through ``moe_ffn_ref``, with
+    unrouted rows and an empty expert."""
+    rng = np.random.default_rng(11)
+    xg = _rand(rng, (E, C, d), 1.0, dtype, cuda)
+    xg[0, C // 2:] = 0
+    xg[-1] = 0
+    ws = [_rand(rng, (E, d, f), d ** -0.5, dtype, cuda)
+          if act in ("swiglu", "geglu") else None,
+          _rand(rng, (E, d, f), d ** -0.5, dtype, cuda),
+          _rand(rng, (E, f, d), f ** -0.5, dtype, cuda)]
+    dy = _rand(rng, (E, C, d), 1.0, dtype, cuda)
+    with torch.inference_mode():
+        before = moe_mod.launches
+        y = moe_mod.MoEFFN.apply(xg, *ws, act)
+        assert moe_mod.launches == before + 1
+        assert torch.equal(y, moe_mod.moe_ffn(xg, *ws, act=act))
+
+    def leaves():
+        return [None if t is None else t.clone().requires_grad_()
+                for t in (xg, *ws)]
+    got_in, want_in = leaves(), leaves()
+    y = moe_mod.MoEFFN.apply(*got_in, act)
+    y.backward(dy)
+    want = ref.moe_ffn_ref(*want_in, act=act)
+    want.backward(dy)
+    np.testing.assert_allclose(_f32(y.detach()), _f32(want.detach()),
+                               **_tol(dtype))
+    for a, b in zip(got_in, want_in):
+        if a is not None:
+            _grad_close(a.grad, b.grad, dtype)
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """B2, B3, B4, B5 and the raw B1 launch write their outputs through
+    pointers, off the autograd graph: asked for a gradient they raise, and
+    under no_grad they run."""
+    from repro_torch.kernels import ops
+    x = torch.zeros(2, 4, 8, device=cuda, requires_grad=True)
+    w = torch.zeros(2, 8, 16, device=cuda)
+    wd = torch.zeros(2, 16, 8, device=cuda)
+    with pytest.raises(NotImplementedError, match="moe_ffn has no backward"):
+        moe_mod.moe_ffn(x, w, w, wd)
+    with pytest.raises(NotImplementedError, match="moe_ffn_quant"):
+        ops.moe_expert_ffn_slots(
+            x, {"w_gate": w.half(), "w_up": w.half(), "w_down": wd.half()},
+            torch.arange(2, dtype=torch.int32, device=cuda))
+    q = torch.zeros(1, 4, 64, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 16, 2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="flash_decode"):
+        fd_mod.flash_decode(q, kv, kv, 16)
+    r = torch.zeros(2, 3, 64, device=cuda, requires_grad=True)
+    u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(2, 64, 64,
+                                                         device=cuda)
+    with pytest.raises(NotImplementedError, match="wkv6"):
+        ops.wkv_scan(r, r, r, r, u, s0)
+    xs = torch.zeros(1, 3, 32, device=cuda, requires_grad=True)
+    dt = torch.zeros(1, 3, 32, device=cuda)
+    A, h0 = torch.zeros(32, 16, device=cuda), torch.zeros(1, 32, 16,
+                                                          device=cuda)
+    bc = torch.zeros(1, 3, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="selective_scan"):
+        ops.selective_scan(xs, dt, A, bc, bc, h0)
+    with torch.no_grad():
+        ops.wkv_scan(r, r, r, r, u, s0)
+        ops.selective_scan(xs, dt, A, bc, bc, h0)
+        moe_mod.moe_ffn(x, w, w, wd)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_model_loss_on_card_reaches_every_parameter(cuda, arch, policy):
+    """``Model.loss`` on the card (B1 through ``MoEFFN``, remat on under
+    either policy) gives every parameter a finite gradient, non-zero on the
+    experts, equal to the CPU's within fp32 limits; B1 launches once a MoE
+    layer, plus its recompute in a scan group."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              remat_policy=policy)
+    gpu = Model(cfg, device=cuda).init(4).trainable()
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu.trainable()
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (2, 16)))
+    before = moe_mod.launches
+    lg = gpu.loss({"tokens": toks.to(cuda)}, remat=True)
+    lg.backward()
+    torch.cuda.synchronize()
+    assert moe_mod.launches - before == sum(
+        2 if i >= gpu.n_prefix else 1 for i in gpu.moe_layers)
+    lc = cpu.loss({"tokens": toks}, remat=True)
+    lc.backward()
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()),
+                               rtol=1e-5)
+    cpu_grads = dict(cpu.named_parameters())
+    for n, p in gpu.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+        if ".moe.w_" in n and "router" not in n:
+            assert bool(p.grad.any()), n
+        # fp32 limits, atol scaled by the gradient's RMS (its scale is the
+        # loss's, over sums of many products)
+        want = cpu_grads[n].grad.numpy()
+        np.testing.assert_allclose(
+            _f32(p.grad), want, rtol=1e-4, err_msg=n,
+            atol=2e-5 * float(np.sqrt(np.mean(want * want))))

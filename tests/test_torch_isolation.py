@@ -107,7 +107,8 @@ def test_engine_step_loop_is_the_reference_copy():
                 if isinstance(n, (ast.ClassDef, ast.FunctionDef))}
     ref = top_level((SRC / "repro/serving/engine.py").read_text())
     port = top_level((PORT / "serving/engine.py").read_text())
-    for name in ("EngineConfig", "StepEngine", "_pow2_bucket"):
+    for name in ("RoutingOracle", "EngineConfig", "StepEngine",
+                 "ServingEngine", "_pow2_bucket"):
         assert port[name] == ref[name], name
 
 
@@ -187,3 +188,25 @@ def test_mamba_modules_are_scanned_and_default_to_cuda(monkeypatch):
     cfg = get_config("jamba-1.5-large-398b").reduced()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Model(cfg)
+
+
+def test_training_modules_are_scanned_and_default_to_cuda(monkeypatch):
+    """The training slice's modules and the trace-mode engine's examples
+    are among those the import checks above cover, and the train launcher
+    and both examples refuse to run without CUDA unless asked for the
+    CPU."""
+    from repro_torch.examples import quickstart, train_moe
+    from repro_torch.launch import train as torch_train
+    mods = _port_modules()
+    for m in ("repro_torch.train", "repro_torch.train.optim",
+              "repro_torch.train.loop", "repro_torch.train.checkpoint",
+              "repro_torch.launch.train", "repro_torch.examples.quickstart",
+              "repro_torch.examples.train_moe"):
+        assert m in mods
+    assert torch_train.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for run in (lambda: torch_train.main(["--reduced", "--steps", "1"]),
+                lambda: quickstart.main([]),
+                lambda: train_moe.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
