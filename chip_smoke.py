@@ -116,7 +116,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      layer and step) and reduced DeepSeek-V2 in fp32, 5 steps on the card
      against the same weights on the CPU: losses, gradient norms and
      parameters within fp32 limits; a checkpoint round trip on the card;
- 11. one JSON line of per-kernel numbers, then the result line.
+ 11. phase 10's model and batches under ``moe_dispatch="grouped"``
+     (per-sequence GShard dispatch, capacity C_g per expert and sequence):
+     5 steps through ``make_train_step``, B1 once a step over the (E,
+     B·C_g, d) blocks of every sequence, then 3 timed part by part; finite
+     loss and gradients, non-zero expert gradients; step, forward +
+     backward and AdamW ms and peak memory beside phase 10's; B1 at the
+     grouped shape (E 128, 4 x 11 rows, d 4096, f 1536 bf16) against its
+     plain version, timed beside its bound and 3x ``torch.bmm``; the
+     step's ``model_flops_for`` as an MFU; the dry run's traced FLOPs of
+     the same step against ``torch.utils.flop_counter`` on the card (plus
+     B1's forward products, a launch it cannot see), and its roofline
+     against the measured step;
+ 11b gemma2-2b at full width and all 26 layers prefilled at 4080 and 8192
+     tokens with ``attn_impl="blocked"`` and ``"naive"`` on the same
+     weights: last-token logits within bf16 limits, prefill ms and peak
+     memory of each, no kernel launched; then reduced gemma2-2b in fp32
+     with blocked attention over 1100 tokens (several query and KV blocks,
+     past its 128 window) on the card against the CPU;
+ 11c ``python -m repro_torch.launch.dryrun --all`` in a subprocess (meta
+     tensors, no card): seconds, records by status (an error fails), and
+     qwen3-moe's decode_32k and train_4k rooflines;
+ 12. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -125,6 +146,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -230,6 +252,15 @@ def bound(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def library_ffn(xg, wg, wu, wd):
+    """The swiglu expert FFN as one library call per product: 3
+    ``torch.bmm`` and a silu (a yardstick for B1, used nowhere in the
+    port)."""
+    import torch
+    h = torch.nn.functional.silu(torch.bmm(xg, wg)) * torch.bmm(xg, wu)
+    return torch.bmm(h, wd)
+
+
 def check_moe_ffn(gen, card):
     import torch
     from repro_torch.kernels import ref
@@ -263,11 +294,7 @@ def check_moe_ffn(gen, card):
                 lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act), 5,
                 ahead=False)
 
-            def library():
-                h = torch.nn.functional.silu(torch.bmm(xg, wg)) \
-                    * torch.bmm(xg, wu)
-                return torch.bmm(h, wd)
-            lib_ms = time_ms(library, 10)
+            lib_ms = time_ms(lambda: library_ffn(xg, wg, wu, wd), 10)
             esz = xg.element_size()
             nbytes = esz * (2 * xg.numel() + wg.numel() + wu.numel()
                             + wd.numel())
@@ -2197,6 +2224,7 @@ def check_moe_ffn_train(gen, card, make):
         plain_ms = time_ms(lambda: ref.moe_ffn_ref(xg, wg, wu, wd, act=act),
                            3, ahead=False)
         bwd_plain_ms = time_ms(plain_bwd, 2, ahead=False)
+        lib_ms = time_ms(lambda: library_ffn(xg, wg, wu, wd), 10)
         routed = (xg != 0).any(-1)
         n_exp = int(routed.any(-1).sum())
         esz, w1 = xg.element_size(), d * f
@@ -2216,7 +2244,8 @@ def check_moe_ffn_train(gen, card, make):
             esz * (3 * xg.numel() + n_exp * 5 * w1 + E * 3 * w1),
             bwd_flops, dtype)
         print(f"  time {tag}: forward kernel {ms:.4f} ms (bound "
-              f"{fwd_bound:.4f}, {fwd_by}; plain {plain_ms:.4f}); backward "
+              f"{fwd_bound:.4f}, {fwd_by}; plain {plain_ms:.4f}; "
+              f"library (3x torch.bmm + silu) {lib_ms:.4f}); backward "
               f"products {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, {bwd_by}; "
               f"this design's own traffic {bwd_design_ms:.4f}; plain "
               f"autograd {bwd_plain_ms:.4f}); {n_exp} of {E} experts "
@@ -2224,6 +2253,7 @@ def check_moe_ffn_train(gen, card, make):
         nums.update({f"train_{what}_{k}": v for k, v in dict(
             max_abs_err=err, grad_rel_err=gerr, ms=ms,
             plain_ms=plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+            library_ms=lib_ms,
             bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound,
             bwd_bound_by=bwd_by, bwd_design_bytes_ms=bwd_design_ms,
             bwd_library_ms=None).items()})
@@ -2266,15 +2296,15 @@ def _params_close_after_steps(init, got, want, lr):
 def train_path(card):
     """Phase 10: full-width qwen3-moe cut to 1 layer, bf16, trained for 8
     steps through ``make_train_step`` (remat on, AdamW), then 3 more steps
-    timed part by part. -> the launch counts of the 8 steps."""
+    timed part by part. -> (the launch counts of the 8 steps, {step_ms
+    (median of steps 2-8), peak_gb, fb_ms, adam_ms})."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import DATA_VOCAB
     from repro_torch.models import Model
     from repro_torch.train.data import DataConfig, TokenStream
     from repro_torch.train.loop import make_train_step, to_batch
-    from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
-                                         decay_mask)
+    from repro_torch.train.optim import OptConfig, adamw_init
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2357,28 +2387,10 @@ def train_path(card):
     print(f"  step ms (CUDA events): {', '.join(f'{v:.1f}' for v in steps)};"
           f" host enqueue ms: {', '.join(f'{v:.1f}' for v in enqueue)}; "
           f"peak memory (steps 2-{TRAIN_STEPS}) {peak / 1e9:.2f} GB [{card}]")
+    summary = {"step_ms": float(np.median(steps[1:])), "peak_gb": peak / 1e9}
 
     # 3 more steps, timed part by part through the same public functions
-    decay = decay_mask(model)
-    parts = []
-    for batch in batches[TRAIN_STEPS:]:
-        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e[0].record()
-        for p in params.values():
-            p.grad = None
-        model.loss(batch, remat=True).backward()
-        e[1].record()
-        t1 = time.perf_counter()
-        adamw_update(opt_cfg, params, {n: p.grad for n, p in params.items()},
-                     state, decay)
-        e[2].record()
-        t2 = time.perf_counter()
-        torch.cuda.synchronize()
-        parts.append((e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]),
-                      (t1 - t0) * 1e3, (t2 - t1) * 1e3))
-    med = np.median(np.asarray(parts), axis=0)
+    med = _timed_parts(model, state, opt_cfg, batches[TRAIN_STEPS:])
     adam_bytes = sum(p.numel() * (3 * p.element_size() + 16)
                      for p in params.values())
     fb_bytes = sum(p.numel() * p.element_size() * (1 if n == "embed" else 3)
@@ -2396,11 +2408,12 @@ def train_path(card):
           f"{fb_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; B1's forward reads "
           f"{b1_bytes / 1e9:.2f} GB of experts = "
           f"{b1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    summary.update(fb_ms=float(med[0]), adam_ms=float(med[1]))
     del model, params, state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     remat_at_full_width(card, batches[0])
-    return launches
+    return launches, summary
 
 
 def remat_at_full_width(card, batch):
@@ -2519,6 +2532,409 @@ def train_vs_cpu():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the launch-time variants: grouped MoE dispatch in training (11), blocked
+# attention at prefill (11b), and the dry run (11c)
+# ---------------------------------------------------------------------------
+
+GROUPED_STEPS = 5
+BLOCKED_PROMPTS = (4080, 8192)      # phase 9's longest prompt, and twice it
+BLOCKED_CPU_PROMPT = 1100           # > block_q 512 and block_kv 1024
+# bf16 blocked prefill's distance from the fp32 logits, relative to bf16
+# naive's: sound readings 0.97-1.03 (2 and 26 layers, 512-8192 tokens); a
+# wrong mask or block moves whole rows of attention, O(1)
+BF16_DRIFT = 1.25
+
+
+def _timed_parts(model, state, opt_cfg, batches):
+    """Training steps timed part by part through the public functions:
+    loss + backward, then AdamW. -> medians (fwd+bwd ms, AdamW ms, their
+    host enqueue ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.train.optim import adamw_update, decay_mask
+
+    params = dict(model.named_parameters())
+    decay = decay_mask(model)
+    parts = []
+    for batch in batches:
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e[0].record()
+        for p in params.values():
+            p.grad = None
+        model.loss(batch, remat=True).backward()
+        e[1].record()
+        t1 = time.perf_counter()
+        adamw_update(opt_cfg, params, {n: p.grad for n, p in params.items()},
+                     state, decay)
+        e[2].record()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        parts.append((e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]),
+                      (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+    return np.median(np.asarray(parts), axis=0)
+
+
+def grouped_b1(gen, card, moe):
+    """B1 at the grouped training shape: each of TRAIN_BATCH sequences
+    routed over its own TRAIN_SEQ tokens into C_g rows per expert, the (B,
+    E, C_g, d) blocks as one (E, B·C_g, d) call over the model's experts;
+    output against the plain version on the card; kernel, plain version,
+    3x ``torch.bmm`` and the bound timed. -> B1's ``grouped_*`` keys."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import moe_ffn
+    from repro_torch.models.moe import capacity
+
+    from repro_torch.configs import get_config
+    m = get_config(QWEN3).moe
+    E, d, f = moe.w_up.shape
+    C_g = capacity(TRAIN_SEQ, m)
+    xe = torch.stack([routed_xg(gen, E, C_g, d, m.top_k, TRAIN_SEQ)
+                      for _ in range(TRAIN_BATCH)], 1) \
+        .reshape(E, TRAIN_BATCH * C_g, d).to(moe.w_up.dtype)
+    wg, wu, wd = (w.detach() for w in (moe.w_gate, moe.w_up, moe.w_down))
+    with torch.inference_mode():
+        got = moe_ffn(xe, wg, wu, wd)
+        want = ref.moe_ffn_ref(xe, wg, wu, wd)
+        torch.cuda.synchronize()
+        tag = f"grouped E={E} B*C_g={TRAIN_BATCH}*{C_g} d={d} f={f} swiglu"
+        err = compare(f"{tag} {xe.dtype}", got, want)
+        ms = time_ms(lambda: moe_ffn(xe, wg, wu, wd), 10)
+        plain_ms = time_ms(lambda: ref.moe_ffn_ref(xe, wg, wu, wd), 3,
+                           ahead=False)
+        lib_ms = time_ms(lambda: library_ffn(xe, wg, wu, wd), 10)
+    routed = (xe != 0).any(-1)
+    n_exp = int(routed.any(-1).sum())
+    esz = xe.element_size()
+    bound_ms, by = bound(esz * (2 * xe.numel() + n_exp * 3 * d * f),
+                         2 * int(routed.sum()) * d * f * 3, xe.dtype)
+    print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (3x torch.bmm + silu) {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}); {int(routed.sum())} of "
+          f"{routed.numel()} rows and {n_exp} of {E} experts routed "
+          f"[{card}]")
+    return {f"grouped_{k}": v for k, v in dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=by, library_ms=lib_ms).items()}
+
+
+def grouped_train_path(card, train10):
+    """Phase 11: phase 10's model and batch (full-width qwen3-moe cut to 1
+    layer, 4 x 128) under ``moe_dispatch="grouped"``: GROUPED_STEPS steps
+    through ``make_train_step`` with B1 once a step (its forward over every
+    sequence's blocks as one (E, B·C_g, d) call), then 3 more timed part
+    by part; finite loss and gradients, non-zero expert gradients; B1 at
+    the grouped shape against its plain version; the step's model FLOPs
+    as an MFU; the dry run's traced FLOPs for the same step against
+    ``torch.utils.flop_counter`` on the card, and its roofline against the
+    measured step. -> (launch counts of the GROUPED_STEPS steps, B1's
+    ``grouped_*`` keys)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import InputShape
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.models.moe import capacity
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import make_train_step, to_batch
+    from repro_torch.train.optim import OptConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(
+        _full_cfg("phase 11: training with grouped MoE dispatch, remat on, "
+                  "AdamW", QWEN3, depth=1), moe_dispatch="grouped")
+    model = Model(cfg, device="cuda").init(0)
+    params = dict(model.named_parameters())
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=2, total_steps=GROUPED_STEPS)
+    step_fn = make_train_step(model, opt_cfg, remat=True)
+    state = adamw_init(params)
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batches = [to_batch(b, "cuda")
+               for b in data.batches(GROUPED_STEPS + TIMED_STEPS + 1)]
+    C_g = capacity(TRAIN_SEQ, cfg.moe)
+    print(f"  moe_dispatch=grouped: {TRAIN_BATCH} sequences x {TRAIN_SEQ} "
+          f"tokens, capacity C_g = {C_g} per expert and sequence, B1 over "
+          f"(E, B*C_g, d) = ({cfg.moe.n_experts}, {TRAIN_BATCH * C_g}, "
+          f"{cfg.d_model})")
+    moe = [f"layers.{i}.moe.{k}" for i in model.moe_layers
+           for k in ("w_gate", "w_up", "w_down")]
+    torch.cuda.synchronize()
+    _reset_counts()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(GROUPED_STEPS)]
+    losses = []
+    for i, batch in enumerate(batches[:GROUPED_STEPS]):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ev[i][0].record()
+        loss, gnorm = step_fn(state, batch)
+        ev[i][1].record()
+        losses.append((loss, gnorm))
+        if i == 0:
+            for n, p in params.items():
+                if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+                    raise SystemExit(f"phase 11: {n} has no finite gradient")
+            for n in moe:
+                if not bool(params[n].grad.any()):
+                    raise SystemExit(f"phase 11: {n}'s gradient is zero")
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = np.asarray([[float(a), float(b)] for a, b in losses])
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"phase 11: non-finite loss or gnorm: {losses}")
+    want = {"moe_ffn": GROUPED_STEPS * len(model.moe_layers),
+            "moe_ffn_quant": 0, "flash_decode": 0, "wkv6": 0,
+            "selective_scan": 0}
+    if launches != want:
+        raise SystemExit(f"phase 11: launches {launches}, expected {want}")
+    steps = [a.elapsed_time(b) for a, b in ev]
+    step_ms = float(np.median(steps[1:]))
+    print(f"  step 1: every gradient finite, the expert gradients non-zero; "
+          f"losses {', '.join(f'{v:.4f}' for v in losses[:, 0])}; gnorms "
+          f"{', '.join(f'{v:.3f}' for v in losses[:, 1])}; launches "
+          f"{launches} (B1 once a step: 1 MoE layer, not rematerialized)")
+    med = _timed_parts(model, state, opt_cfg,
+                       batches[GROUPED_STEPS:GROUPED_STEPS + TIMED_STEPS])
+    print(f"  grouped step ms (CUDA events): "
+          f"{', '.join(f'{v:.1f}' for v in steps)}; median of steps 2-"
+          f"{GROUPED_STEPS} {step_ms:.3f} ms; fwd+bwd median {med[0]:.3f} "
+          f"ms, AdamW median {med[1]:.3f} ms; peak {peak:.2f} GB; phase 10 "
+          f"(global dispatch) in this run: step {train10['step_ms']:.3f} ms,"
+          f" fwd+bwd {train10['fb_ms']:.3f} ms, AdamW "
+          f"{train10['adam_ms']:.3f} ms, peak {train10['peak_gb']:.2f} GB "
+          f"[{card}]")
+
+    shape = InputShape("phase11", TRAIN_SEQ, TRAIN_BATCH, "train")
+    model_flops = roofline.model_flops_for(cfg, shape, "train")
+    with FlopCounterMode(display=False) as fc:
+        step_fn(state, batches[-1])
+    torch.cuda.synchronize()
+    fn, args, meta_model = dryrun.build_step(cfg, shape, with_optimizer=True)
+    rec = dryrun.trace(fn, args, meta_model)
+    E, d, f = model.layers[model.moe_layers[0]].moe.w_up.shape
+    b1_fwd = len(model.moe_layers) * 3 * 2.0 * E * TRAIN_BATCH * C_g * d * f
+    counted = fc.get_total_flops()
+    print(f"  mfu {model_flops / (step_ms * 1e-3 * roofline.PEAK_FLOPS):.4f}"
+          f": model_flops_for {model_flops:.6e} over the grouped step "
+          f"{step_ms:.3f} ms x 989 TFLOP/s [{card}]")
+    print(f"  dry run (meta) of the same step: dot FLOPs {rec['dot_flops']:.6e}"
+          f", bytes {rec['bytes_accessed']:.6e}, {rec['n_ops']} aten ops, "
+          f"kernels {rec['kernels']}, traced in {rec['t_trace_s']} s; "
+          f"torch.utils.flop_counter on the card {counted:.6e} + B1's "
+          f"forward products {b1_fwd:.6e} (a ctypes launch it cannot see) "
+          f"= {counted + b1_fwd:.6e}")
+    if abs(counted + b1_fwd - rec["dot_flops"]) > 1e-9 * rec["dot_flops"]:
+        raise SystemExit("phase 11: the dry run's FLOPs are not the card "
+                         "step's")
+    r = roofline.analyze({"n_devices": 1, "cost_corrected": {
+        "dot_flops": rec["dot_flops"],
+        "bytes_accessed": rec["bytes_accessed"]}}, model_flops)
+    print(f"  dry-run roofline of the step on one H100: compute "
+          f"{r.compute_s * 1e3:.3f} ms, memory {r.memory_s * 1e3:.3f} ms "
+          f"({r.dominant}); measured step {step_ms:.3f} ms = "
+          f"{step_ms / (max(r.compute_s, r.memory_s) * 1e3):.2f}x the "
+          f"roofline [{card}]")
+    row = grouped_b1(torch.Generator(device="cuda").manual_seed(11), card,
+                     model.layers[model.moe_layers[0]].moe)
+    row.update(grouped_step_ms=step_ms, grouped_peak_gb=peak,
+               grouped_mfu=model_flops / (step_ms * 1e-3
+                                          * roofline.PEAK_FLOPS))
+    del model, params, state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def _rel_l2(got, want):
+    import torch
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def blocked_prefill_path(card):
+    """Phase 11b: full-width gemma2-2b (all 26 layers) prefilled at
+    BLOCKED_PROMPTS tokens with ``attn_impl="blocked"`` and ``"naive"`` on
+    the same weights, in bf16 (timed: prefill ms and peak memory above the
+    weights) and in fp32 (the same weights widened). Checks: fp32 blocked
+    against fp32 naive within fp32 limits (the algorithm at full size);
+    bf16 blocked no further from the fp32 logits than bf16 naive is
+    (relative L2 within BF16_DRIFT x naive's). 26 bf16 layers put either
+    bf16 path ~0.08 from the fp32 logits at worst, past the kernels' bf16
+    limits, so the two bf16 paths are compared through the fp32 logits.
+    Prefill attention is plain tensor code: no kernel launches. -> the
+    launch counts."""
+    import torch
+    from repro_torch.models import Model
+
+    cfg, desc = _family_cfg(GEMMA2, None)
+    print(f"phase 11b: blocked attention at prefill, {desc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = {("bf16", "naive"): Model(cfg, device="cuda").init(0)}
+    weights = models[("bf16", "naive")].state_dict()
+    for dt, impl in (("bf16", "blocked"), ("fp32", "naive"),
+                     ("fp32", "blocked")):
+        m = Model(dataclasses.replace(
+            cfg, attn_impl=impl,
+            dtype="float32" if dt == "fp32" else cfg.dtype), device="cuda")
+        m.load_state_dict(weights)
+        models[(dt, impl)] = m
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _reset_counts()
+    for S in BLOCKED_PROMPTS:
+        toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                             device="cuda")
+        out = {}
+        for (dt, impl), m in models.items():
+            with torch.inference_mode():
+                if dt == "bf16":                                 # warm-up
+                    m.prefill({"tokens": toks}, m.init_cache(1, S))
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                logits, _, _ = m.prefill({"tokens": toks},
+                                         m.init_cache(1, S))
+                e[1].record()
+                torch.cuda.synchronize()
+            out[(dt, impl)] = (logits, e[0].elapsed_time(e[1]),
+                               (torch.cuda.max_memory_allocated() - held)
+                               / 1e9)
+        ref = out[("fp32", "naive")][0]
+        err = compare(f"prefill of {S} tokens, fp32: blocked vs naive "
+                      "logits", out[("fp32", "blocked")][0], ref,
+                      {"torch.float32": (1e-4, 1e-4)})
+        drift = {impl: _rel_l2(out[("bf16", impl)][0], ref)
+                 for impl in ("naive", "blocked")}
+        diff = (out[("bf16", "blocked")][0] - out[("bf16", "naive")][0]) \
+            .abs()
+        over = int((diff > 5e-2 + 5e-2 * out[("bf16", "naive")][0].abs())
+                   .sum())
+        print(f"  prefill {S} tokens: bf16 naive {out[('bf16', 'naive')][1]:.3f}"
+              f" ms, peak {out[('bf16', 'naive')][2]:.2f} GB above the "
+              f"weights; bf16 blocked {out[('bf16', 'blocked')][1]:.3f} ms, "
+              f"peak {out[('bf16', 'blocked')][2]:.2f} GB [{card}]")
+        print(f"  logits: fp32 blocked vs naive max_abs_err {err:.3e}; bf16 "
+              f"vs fp32 relative L2 naive {drift['naive']:.3e}, blocked "
+              f"{drift['blocked']:.3e} (limit {BF16_DRIFT} x naive's); bf16 "
+              f"blocked vs bf16 naive max_abs_err {float(diff.max()):.3e}, "
+              f"{over} of {diff.numel()} past (5e-2, 5e-2)")
+        if drift["blocked"] > BF16_DRIFT * drift["naive"]:
+            raise SystemExit(f"phase 11b: bf16 blocked prefill of {S} "
+                             "tokens is further from the fp32 logits than "
+                             "bf16 naive")
+        del out, ref
+    launches = _counts()
+    del models, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def blocked_vs_cpu():
+    """Phase 11b's fp32 check: reduced gemma2-2b with blocked attention, a
+    prompt of BLOCKED_CPU_PROMPT tokens (several query and KV blocks,
+    padded, past the reduced window) on the card against the same weights
+    on the CPU, and against the naive path on each: forward and prefill
+    logits within fp32 limits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(GEMMA2).reduced(),
+                              attn_impl="blocked")
+    print(f"phase 11b: {cfg.name} ({cfg.n_layers} layers, fp32, window "
+          f"{cfg.attn.sliding_window}) with blocked attention on the card vs "
+          f"the same weights on the CPU, {BLOCKED_CPU_PROMPT} tokens")
+    gpu = Model(cfg, device="cuda").init(5)
+    weights = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    models = {("card", "blocked"): gpu}
+    for where, impl in (("cpu", "blocked"), ("card", "naive"),
+                        ("cpu", "naive")):
+        m = Model(dataclasses.replace(cfg, attn_impl=impl),
+                  device="cuda" if where == "card" else "cpu")
+        m.load_state_dict(weights)
+        models[(where, impl)] = m
+    toks = torch.randint(0, cfg.vocab, (1, BLOCKED_CPU_PROMPT),
+                         generator=torch.Generator().manual_seed(4))
+    errs = []
+    with torch.inference_mode():
+        for name, fn in (
+                ("forward", lambda m: m.forward(
+                    {"tokens": toks.to(m.device)})[0]),
+                ("prefill", lambda m: m.prefill(
+                    {"tokens": toks.to(m.device)},
+                    m.init_cache(1, BLOCKED_CPU_PROMPT))[0])):
+            out = {k: fn(m).cpu() for k, m in models.items()}
+            for a, b in ((("card", "blocked"), ("cpu", "blocked")),
+                         (("card", "naive"), ("cpu", "naive")),
+                         (("card", "blocked"), ("card", "naive"))):
+                err = (out[a] - out[b]).abs()
+                errs.append(f"{name} {'/'.join(a)} vs {'/'.join(b)} "
+                            f"{float(err.max()):.3e}")
+                if not bool(torch.all(err <= 1e-4 + 1e-4 * out[b].abs())):
+                    print("  " + "; ".join(errs))
+                    raise SystemExit(f"phase 11b: {errs[-1]}: past the fp32 "
+                                     "limits")
+    print(f"  logits within fp32 limits (atol 1e-4, rtol 1e-4), max_abs_err: "
+          f"{'; '.join(errs)}")
+    del gpu, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_sweep():
+    """Phase 11c: ``python -m repro_torch.launch.dryrun --all`` in a
+    subprocess on this machine (meta tensors: no card): the seconds it
+    takes, the records by status (an error record fails the phase), and
+    the roofline of qwen3-moe's decode_32k and train_4k records."""
+    import collections
+    import tempfile
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline
+
+    print("phase 11c: the dry run, --all over meta tensors, in a subprocess")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", tmp], env=env, capture_output=True, text=True,
+            timeout=900)
+        secs = time.perf_counter() - t0
+        recs = roofline.load_records(tmp)
+    status = collections.Counter(r["status"] for r in recs)
+    print(f"  {len(recs)} records in {secs:.1f} s: {dict(status)}; exit "
+          f"code {res.returncode}")
+    if res.returncode or status["error"] or not status["ok"]:
+        print(res.stdout[-3000:], res.stderr[-3000:], sep="\n")
+        raise SystemExit("phase 11c: the dry run wrote error records")
+    for shape in ("decode_32k", "train_4k"):
+        rec = next(r for r in recs if r["arch"] == QWEN3
+                   and r["shape"] == shape and r["mesh"] == "16x16")
+        sh_ = INPUT_SHAPES[shape]
+        r = roofline.analyze(rec, roofline.model_flops_for(
+            get_config(QWEN3), sh_, sh_.kind))
+        print(f"  {QWEN3} {shape} on {rec['n_devices']} H100s (an even "
+              f"split): dominant {r.dominant}; compute {r.compute_s:.4e} s, "
+              f"memory {r.memory_s:.4e} s; dot FLOPs {r.flops:.4e}, bytes "
+              f"{r.bytes_accessed:.4e}, model FLOPs / traced "
+              f"{r.useful_ratio:.3f}; argument bytes per device "
+              f"{rec['argument_bytes_per_device']:.4e}; traced in "
+              f"{rec['t_trace_s']} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2571,8 +2987,13 @@ def main() -> int:
     paths["qwen2_vl"] = family_path(card, QWEN2_VL, "9b")
     paths["whisper"] = family_path(card, WHISPER, "9c")
     families_vs_cpu()
-    paths["train"] = train_path(card)
+    paths["train"], train10 = train_path(card)
     train_vs_cpu()
+    paths["train_grouped"], grouped_row = grouped_train_path(card, train10)
+    rows[0].update(grouped_row)
+    paths["blocked_prefill"] = blocked_prefill_path(card)
+    blocked_vs_cpu()
+    dryrun_sweep()
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -2584,7 +3005,8 @@ def main() -> int:
                         ("gemma2", ("flash_decode",)),
                         ("qwen2_vl", ("flash_decode",)),
                         ("whisper", ("flash_decode",)),
-                        ("train", ("moe_ffn",))):
+                        ("train", ("moe_ffn",)),
+                        ("train_grouped", ("moe_ffn",))):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "
@@ -2597,9 +3019,14 @@ def main() -> int:
         if paths[path]["moe_ffn_quant"]:
             raise SystemExit(f"moe_ffn_quant was launched on the {path} "
                              "path (its wire is the master dtype)")
-    for name in ("flash_decode", "moe_ffn_quant", "wkv6", "selective_scan"):
-        if paths["train"][name]:
-            raise SystemExit(f"{name} was launched on the train path")
+    for path in ("train", "train_grouped"):
+        for name in ("flash_decode", "moe_ffn_quant", "wkv6",
+                     "selective_scan"):
+            if paths[path][name]:
+                raise SystemExit(f"{name} was launched on the {path} path")
+    if any(paths["blocked_prefill"].values()):
+        raise SystemExit("a kernel was launched on the blocked_prefill path "
+                         "(prefill attention is plain tensor code)")
     for row in rows:
         # launches over every main-path run, and per run
         by_path = {path: counts[row["name"]]

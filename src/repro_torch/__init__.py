@@ -7,7 +7,10 @@ engine, memory simulator, scheduler) is kept as a verbatim copy whose
 parity with the reference is checked by ``tests/test_torch_isolation.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-on the CPU the kernels' plain PyTorch versions run instead.
+on the CPU the kernels' plain PyTorch versions run instead. ``Model`` and
+the launch-time analysis (``launch/dryrun.py``) also take
+``device="meta"``: shapes without data, where each kernel is a stand-in
+that counts its launch and computes nothing.
 """
 from __future__ import annotations
 

@@ -1,0 +1,105 @@
+"""Meta-device stand-ins for the kernels (the dry run's shape propagation).
+
+A meta tensor has a shape and a dtype and no data. The dry run
+(``launch/dryrun.py``) traces a whole step over meta tensors to count its
+FLOPs, bytes and memory (``launch/cost_analysis.py``). A kernel called on
+meta tensors is not run, and neither is its plain version (B4's and B5's
+loop over T in Python, 32768 steps at prefill): a stand-in makes outputs of
+the kernel's shapes and dtypes and tells every counter in ``COUNTERS``
+that one launch ran, with the FLOPs of the kernel's products and the bytes
+it reads and writes (each input once, each output once, as
+``chip_smoke.py::bound`` counts them; every expert's weights, since meta
+tensors carry no routing). CUDA tensors never come here: they launch the
+kernel or raise.
+
+Under autograd, B1 keeps ``MoEFFN``'s backward (its ``torch.bmm``
+products, traced like any other op); B4 and B5 have no backward kernel,
+so their stand-in's backward counts twice the forward's products (the
+two products that each product's gradient takes), reading the output
+gradients and writing the input gradients.
+"""
+from __future__ import annotations
+
+import torch
+
+# the active counters: objects with ``kernel(name, inputs, outputs, flops)``
+COUNTERS = []
+
+
+def _report(name, inputs, outputs, flops) -> None:
+    ins = [t for t in inputs if isinstance(t, torch.Tensor)]
+    outs = [t for t in outputs if isinstance(t, torch.Tensor)]
+    for c in COUNTERS:
+        c.kernel(name, ins, outs, float(flops))
+
+
+def _empty(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+class _StandIn(torch.autograd.Function):
+    """A kernel stand-in on the autograd graph (``stand_in``)."""
+
+    @staticmethod
+    def forward(ctx, name, specs, flops, *inputs):
+        ctx.name, ctx.flops = name, flops
+        ctx.specs = [None if t is None else (t.shape, t.dtype)
+                     for t in inputs]
+        outs = tuple(_empty(s, d) for s, d in specs)
+        _report(name, inputs, outs, flops)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gin = tuple(
+            _empty(*s) if s is not None and need else None
+            for s, need in zip(ctx.specs, ctx.needs_input_grad[3:]))
+        _report(f"{ctx.name} backward", grads, gin, 2 * ctx.flops)
+        return (None, None, None) + gin
+
+
+def stand_in(name, inputs, specs, flops):
+    """Outputs of shapes and dtypes ``specs`` [(shape, dtype)] for kernel
+    ``name`` over ``inputs``, reported to the counters with ``flops``."""
+    return _StandIn.apply(name, specs, flops, *inputs)
+
+
+def moe_ffn(xg, w_gate, w_up, w_down, out_dtype=None):
+    """B1 (or B2 over slot buffers): (E, C, d) -> (E, C, d). Products:
+    x·W_gate, x·W_up (E, C, d)x(d, f) and h·W_down."""
+    E, C, d = xg.shape
+    f = w_up.shape[-1]
+    n_mm = 3 if w_gate is not None else 2
+    (y,) = stand_in("moe_ffn", (xg, w_gate, w_up, w_down),
+                    [((E, C, d), out_dtype or xg.dtype)],
+                    n_mm * 2.0 * E * C * d * f)
+    return y
+
+
+def flash_decode(q, k, v):
+    """B3: q (B, H, hd) over k/v (B, S, Hkv, hd) -> (B, H, hd). Products:
+    q·Kᵀ and p·V over every cache position."""
+    B, H, hd = q.shape
+    S = k.shape[1]
+    (o,) = stand_in("flash_decode", (q, k, v), [(q.shape, q.dtype)],
+                    2 * 2.0 * B * H * S * hd)
+    return o
+
+
+def wkv6(r, k, v, w, u, s0):
+    """B4: (BH, T, hd) rows from s0 (BH, hd, hd) -> (o, sN fp32). Product:
+    r_t·S per step (the state update is elementwise)."""
+    BH, T, hd = r.shape
+    return stand_in("wkv6", (r, k, v, w, u, s0),
+                    [(r.shape, r.dtype), (s0.shape, torch.float32)],
+                    2.0 * BH * T * hd * hd)
+
+
+def selective_scan(x, dt, A, Bm, Cm, h0):
+    """B5: (B, T, D) rows from h0 (B, D, N) -> (y fp32, hT fp32). Product:
+    h_t·C_t per step (the state update is elementwise)."""
+    B, T, D = x.shape
+    N = h0.shape[-1]
+    return stand_in("selective_scan", (x, dt, A, Bm, Cm, h0),
+                    [(x.shape, torch.float32), (h0.shape, torch.float32)],
+                    2.0 * B * T * D * N)

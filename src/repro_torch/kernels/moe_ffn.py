@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 ACTS = {"swiglu": 1, "geglu": 2, "relu2": 3, "gelu": 4}
 GATED = ("swiglu", "geglu")
@@ -214,12 +214,15 @@ def moe_ffn_backward(xg, w_gate, w_up, w_down, dy, *, act: str = "swiglu"):
 
 class MoEFFN(torch.autograd.Function):
     """B1 on the autograd graph: the forward is ``moe_ffn``'s launch (the
-    same bits), the backward ``moe_ffn_backward``."""
+    same bits; on meta tensors its stand-in, ``kernels.meta``), the
+    backward ``moe_ffn_backward``."""
 
     @staticmethod
     def forward(ctx, xg, w_gate, w_up, w_down, act):
         ctx.act = act
         ctx.save_for_backward(xg, w_gate, w_up, w_down)
+        if xg.device.type == "meta":
+            return meta.moe_ffn(xg, w_gate, w_up, w_down)
         return moe_ffn(xg, w_gate, w_up, w_down, act=act)
 
     @staticmethod

@@ -1,10 +1,12 @@
 """Device dispatch: a CPU tensor takes the kernel's plain PyTorch version, a
 CUDA tensor launches the hand-written kernel (which raises if it cannot
-build or launch; there is no fallback)."""
+build or launch; there is no fallback), and a meta tensor (the dry run's
+shape propagation) takes the kernel's stand-in in ``kernels.meta``, which
+counts the launch and computes nothing."""
 from __future__ import annotations
 
 from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import MoEFFN, moe_ffn, moe_ffn_quant
 from repro_torch.kernels.selective_scan import selective_scan as _scan
@@ -12,8 +14,9 @@ from repro_torch.kernels.wkv6 import wkv6
 
 
 def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
-    """Grouped expert FFN (E, C, d) -> (E, C, d); on CUDA B1 through
-    ``MoEFFN``, so a gradient flows through the kernel's output."""
+    """Grouped expert FFN (E, C, d) -> (E, C, d); on CUDA (and its meta
+    stand-in) B1 through ``MoEFFN``, so a gradient flows through the
+    kernel's output."""
     if xg.device.type == "cpu":
         return ref.moe_ffn_ref(xg, w_gate, w_up, w_down, act=act)
     return MoEFFN.apply(xg, w_gate, w_up, w_down, act)
@@ -32,6 +35,8 @@ def moe_expert_ffn_slots(xg, bufs, slot_ids, *, act: str = "swiglu",
     if xg.device.type == "cpu":
         return ref.moe_ffn_quant_ref(xg, *ws, *ss, slot_ids, act=act,
                                      out_dtype=out_dtype)
+    if xg.device.type == "meta":
+        return meta.moe_ffn(xg, *ws, out_dtype=out_dtype)
     if ss[1] is None and ws[1].dtype == xg.dtype:
         y = moe_ffn(xg, *ws, act=act, slot_ids=slot_ids)
         return y if out_dtype is None else y.to(out_dtype)
@@ -43,6 +48,8 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
     optional logit softcap."""
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, cache_len, softcap)
+    if q.device.type == "meta":
+        return meta.flash_decode(q, k, v)
     return flash_decode(q, k, v, cache_len, softcap)
 
 
@@ -51,6 +58,8 @@ def wkv_scan(r, k, v, w, u, s0):
     -> (o in r's dtype, sN fp32)."""
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0)
+    if r.device.type == "meta":
+        return meta.wkv6(r, k, v, w, u, s0)
     return wkv6(r, k, v, w, u, s0)
 
 
@@ -59,4 +68,6 @@ def selective_scan(x, dt, A, Bm, Cm, h0):
     -> (y (B, T, D) fp32 before the D skip, hT fp32)."""
     if x.device.type == "cpu":
         return ref.selective_scan_ref(x, dt, A, Bm, Cm, h0)
+    if x.device.type == "meta":
+        return meta.selective_scan(x, dt, A, Bm, Cm, h0)
     return _scan(x, dt, A, Bm, Cm, h0)

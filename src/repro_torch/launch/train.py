@@ -35,8 +35,8 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--mesh", choices=["none", "debug"], default="none",
-                    help="'debug' shards over a 1xN local mesh (not ported "
-                         "yet)")
+                    help="'debug' shards over a 1xN local mesh (waits for "
+                         "torch.distributed)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layers", type=int, default=None,
@@ -58,8 +58,10 @@ def train(args, cfg, model: Optional[Model] = None) -> dict:
     lines. ``model``: weights to train (default ``Model(cfg).init(0)`` on
     ``args.device``). -> {"model", "losses", "gnorms"}."""
     if args.mesh == "debug":
-        raise NotImplementedError("--mesh debug needs launch/sharding.py, "
-                                  "which is not ported yet")
+        raise NotImplementedError(
+            "--mesh debug needs a step sharded over torch.distributed "
+            "(ROADMAP, expert parallelism); launch/sharding.py only sizes "
+            "per-device shares for the dry run")
     if model is None:
         model = Model(cfg, device=args.device).init(0)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),

@@ -2,7 +2,9 @@
 encoder-decoder cross-attention and DeepSeek-V2 MLA, each with an explicit
 per-slot cache.
 
-Prefill attention is plain tensor code (the reference leaves it to XLA);
+Prefill attention is plain tensor code (the reference leaves it to XLA):
+the (S, T) scores, or ``_sdpa_blocked``'s online softmax over KV blocks
+under ``attn_impl="blocked"``;
 GQA's one-token decode, self or cross, goes through
 ``kernels.ops.decode_attention``, i.e. the hand-written flash-decode kernel
 (with the logit softcap) on CUDA. A sliding-window layer decodes over a
@@ -111,6 +113,74 @@ def _sdpa(q, k, v, mask, logit_cap: float):
     return out.reshape(B, S, H, hd)
 
 
+def _sdpa_blocked(q, k, v, logit_cap: float, *, offset: int = 0,
+                  window: int = 0, causal: bool = True,
+                  block_q: int = 512, block_kv: int = 1024):
+    """Flash-style blocked attention (the reference's ``_sdpa_blocked``):
+    query blocks outside, an online softmax over KV blocks inside, so the
+    (S, T) score matrix is never formed; at most a (block_q, block_kv)
+    tile of it per (batch, head). ``offset`` is the absolute position of
+    query 0; ``window`` > 0 keeps keys in (qpos - window, qpos]. q
+    (B,S,H,hd), k/v (B,T,Hkv,hd) -> (B,S,H,hd).
+
+    A KV block that every query of the block masks is skipped: the
+    reference's pass over it leaves the running max, sum and accumulator
+    as they were (after a valid block) or is wiped by the first valid
+    block's rescale by exp(-2e38 - m) = 0 (before one), so skipping gives
+    the same bits while every query has a valid key, which causal
+    self-attention always does."""
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    dev = q.device
+    nkv = -(-T // block_kv)
+    nq = -(-S // block_q)
+    qb = q.reshape(B, S, Hkv, rep, hd)
+    scale = hd ** -0.5
+    outs = []
+    for iq in range(nq):
+        q0 = iq * block_q
+        qc = qb[:, q0:q0 + block_q]
+        if qc.shape[1] < block_q:                  # pad the last block
+            qc = torch.cat([qc, qc.new_zeros(
+                (B, block_q - qc.shape[1]) + qc.shape[2:])], 1)
+        qpos = q0 + offset + torch.arange(block_q, device=dev)
+        lo, hi = q0 + offset, q0 + offset + block_q - 1
+        m = torch.full((B, block_q, Hkv, rep, 1), NEG_INF,
+                       dtype=torch.float32, device=dev)
+        l = torch.zeros((B, block_q, Hkv, rep, 1), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((B, block_q, Hkv, rep, hd), dtype=torch.float32,
+                          device=dev)
+        for j in range(nkv):
+            k0 = j * block_kv
+            if (causal and k0 > hi) or (window and
+                                        k0 + block_kv - 1 <= lo - window):
+                continue
+            kc, vc = k[:, k0:k0 + block_kv], v[:, k0:k0 + block_kv]
+            kpos = k0 + torch.arange(kc.shape[1], device=dev)
+            scores = torch.einsum("bsgrd,btgd->bsgrt", qc, kc).float()
+            scores = softcap(scores * scale, logit_cap)
+            ok = torch.ones((block_q, kc.shape[1]), dtype=torch.bool,
+                            device=dev)
+            if causal:
+                ok = ok & (kpos[None, :] <= qpos[:, None])
+            if window:
+                ok = ok & (kpos[None, :] > qpos[:, None] - window)
+            scores = torch.where(ok[None, :, None, None, :], scores,
+                                 NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+            p = torch.exp(scores - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bsgrt,btgd->bsgrd", p.to(vc.dtype), vc).float()
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)).to(q.dtype))
+    out = torch.cat(outs, 1)[:, :S]
+    return out.reshape(B, S, H, hd)
+
+
 def causal_mask(S: int, T: int, offset: int = 0, window: int = 0,
                 device=None):
     """Additive (1,1,S,T) mask. ``offset`` = absolute position of query 0."""
@@ -181,10 +251,15 @@ def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0,
     """Full-sequence (prefill) self-attention, causal unless ``mask`` (an
     additive (1,1,S,T) mask, e.g. the encoder's zeros) is given; with
     ``kv`` (projected encoder K/V, ``cross_kv``) cross-attention over every
-    encoder position. Returns (out, (k, v)) so prefill can seed the
-    cache."""
+    encoder position. Causal self-attention under ``cfg.attn_impl ==
+    "blocked"`` runs ``_sdpa_blocked`` in place of the (S, T) scores.
+    Returns (out, (k, v)) so prefill can seed the cache."""
     if kv is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
+        if mask is None and cfg.attn_impl == "blocked":
+            out = _sdpa_blocked(q, k, v, cfg.attn.logit_softcap,
+                                window=window)
+            return torch.einsum("bshk,hkd->bsd", out, p.w_o), (k, v)
         if mask is None:
             mask = causal_mask(x.shape[1], k.shape[1], window=window,
                                device=x.device)

@@ -29,6 +29,11 @@ for an encoder-decoder.
 
 ``aux["counts"]`` is (n_moe_layers, B, E) int32: the rows of the paper's
 Expert Activation Matrix, equal to the reference's (None without MoE).
+
+``Model(cfg, device="meta")`` builds the parameters without memory and
+without ``init``: the dry run (``launch/dryrun.py``) traces the entry
+points over meta tensors, where each kernel is a stand-in that counts its
+launch (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -97,17 +102,6 @@ def split_periodic(descs):
 ENCODER_DESC = LayerDesc(BLOCK_ATTN, False, 0)
 
 
-def _unsupported(cfg: ArchConfig):
-    """Why the port cannot run ``cfg`` yet, or None."""
-    checks = [(cfg.attn_impl != "naive", f"attn_impl={cfg.attn_impl!r}"),
-              (cfg.moe_dispatch != "global",
-               f"moe_dispatch={cfg.moe_dispatch!r}")]
-    for bad, what in checks:
-        if bad:
-            return what
-    return None
-
-
 def _save_dots(ctx, func, *args, **kwargs):
     """Selective remat under ``remat_policy == "dots"``: keep the outputs
     of matrix products with no batch dims (the reference's
@@ -150,9 +144,6 @@ class Block(nn.Module):
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
-        why = _unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"{cfg.name}: {why} not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.descs = layer_descs(cfg)

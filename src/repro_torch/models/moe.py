@@ -1,4 +1,5 @@
-"""Routed mixture-of-experts FFN (global sort+gather dispatch).
+"""Routed mixture-of-experts FFN (global or per-sequence sort+gather
+dispatch).
 
 The dispatch is the reference's step for step (``repro.models.moe``): a
 stable argsort of the (token, expert) assignments by expert, capacity
@@ -7,9 +8,10 @@ over-capacity entries land in one extra row that is sliced off (the
 reference's ``mode="drop"``), a gather into ``(E, C, d)`` blocks, the
 grouped expert FFN (the hand-written kernel on CUDA; over the device slot
 cache's buffers on the streaming path), and a gate-weighted ``index_add_``
-back to tokens. Pad tokens route to the sentinel expert
-``E``. The per-sequence counts (the paper's EAM rows) equal the reference's
-exactly: they feed the shared numpy host policy.
+back to tokens. Pad tokens route to the sentinel expert ``E``.
+``moe_dispatch="grouped"`` does the same per sequence
+(``moe_ffn_grouped``). The per-sequence counts (the paper's EAM rows)
+equal the reference's exactly: they feed the shared numpy host policy.
 """
 from __future__ import annotations
 
@@ -73,6 +75,26 @@ def route(p, m: MoEConfig, xf):
     return gates, idx, probs
 
 
+def _aux(m: MoEConfig, idx, probs, token_mask):
+    """{"counts": (B, E) int32 per-sequence expert counts (the EAM rows;
+    masked tokens add nothing), "aux_loss": the load-balance loss, 0 when
+    routing came precomputed (``probs`` None)} from idx (B, S·k)."""
+    B, Sk = idx.shape
+    E = m.n_experts
+    one_hot = F.one_hot(idx, E).to(torch.int32)
+    if token_mask is not None:
+        one_hot = one_hot * token_mask.to(torch.int32) \
+            .repeat_interleave(m.top_k, dim=1)[..., None]
+    counts = one_hot.sum(dim=1, dtype=torch.int32)
+    if probs is None:
+        aux_loss = torch.zeros((), device=idx.device)
+    else:
+        frac_tokens = counts.sum(dim=0).float() / (B * Sk)
+        frac_probs = probs.mean(dim=0)
+        aux_loss = m.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
+    return {"counts": counts, "aux_loss": aux_loss}
+
+
 def slot_out_dtype(x_dtype, slot_weights):
     """The expert output dtype of the reference's slot path: its gather
     widens fp16/int8 wires to fp32 weights (a master-dtype wire stays as
@@ -96,9 +118,16 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     upload the routed experts before the expert FFN runs); ``aux_loss`` is
     0 then. ``slot_weights``/``slot_ids``: the expert weights are the
     device slot cache's buffers and (E,) int32 expert -> slot table
-    (``ops.moe_expert_ffn_slots``) instead of ``p``'s."""
+    (``ops.moe_expert_ffn_slots``) instead of ``p``'s. Under
+    ``cfg.moe_dispatch == "grouped"`` a batch of more than one sequence
+    takes ``moe_ffn_grouped``."""
     if cfg.moe_dispatch == "grouped" and x.shape[0] > 1:
-        raise NotImplementedError("grouped MoE dispatch is not ported yet")
+        if slot_weights is not None:
+            raise NotImplementedError(
+                "grouped dispatch over slot-cache weights: the streaming "
+                "runtime requires global dispatch")
+        return moe_ffn_grouped(p, cfg, x, capacity_factor=capacity_factor,
+                               token_mask=token_mask, routing=routing)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -160,16 +189,81 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     if m.n_shared_experts:
         y = y + apply_ffn(p.shared, x, cfg.act)
 
-    # aux: per-sequence expert counts (EAM row) + load-balance loss
-    one_hot = F.one_hot(idx.reshape(B, S * k), E).to(torch.int32)
-    if token_mask is not None:
-        one_hot = one_hot * token_mask.to(torch.int32) \
-            .repeat_interleave(k, dim=1)[..., None]
-    counts = one_hot.sum(dim=1, dtype=torch.int32)            # (B, E)
-    if probs is None:
-        aux_loss = torch.zeros((), device=dev)
+    return y, _aux(m, idx.reshape(B, S * k), probs, token_mask)
+
+
+def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
+                    capacity_factor: float | None = None, token_mask=None,
+                    routing=None):
+    """Per-sequence dispatch (GShard grouping, one group per sequence):
+    the reference's ``moe_ffn_grouped``. Each row of x (B, S, d) sorts,
+    clips at its own capacity C = capacity(S) and fills its own (E, C, d)
+    blocks; ``token_mask`` rows drop at their own real token count's
+    capacity. The experts' weights are shared across rows, so the (B, E,
+    C, d) blocks go through the grouped expert FFN as one (E, B·C, d)
+    call (B1 on CUDA) and come back: the reference's ``becd,edf->becf``
+    chain. Returns (y, aux) as ``moe_ffn`` does.
+
+    The reference's ``set_dispatch_constraint`` (a sharding hint that
+    keeps the (B, E, C, d) blocks batch-sharded on a device mesh) has no
+    counterpart on one device."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    dev = x.device
+    if routing is None:
+        gates, idx, probs = route(p, m, x.reshape(B * S, d))
     else:
-        frac_tokens = counts.sum(dim=0).float() / (T * k)
-        frac_probs = probs.mean(dim=0)
-        aux_loss = m.aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
-    return y, {"counts": counts, "aux_loss": aux_loss}
+        (gates, idx), probs = routing, None
+    C = capacity(S, m, capacity_factor)
+
+    flat_e = idx.reshape(B, S * k)
+    C_drop = C
+    if token_mask is not None:
+        # sentinel expert E: pads sort last and take no capacity; each row
+        # drops at its own real token count's capacity
+        real = token_mask.repeat_interleave(k, dim=1)
+        flat_e = torch.where(real, flat_e, torch.full_like(flat_e, E))
+        C_drop = _traced_capacity(token_mask.sum(dim=1), m,
+                                  capacity_factor)[:, None]
+    order = torch.argsort(flat_e, dim=-1, stable=True)          # (B, S·k)
+    sorted_e = torch.gather(flat_e, 1, order)
+    token_of = order // k
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev, dtype=sorted_e.dtype)
+        .expand(B, E).contiguous(), side="left")                # (B, E)
+    e_clip = torch.clamp(sorted_e, max=E - 1)
+    pos_in_e = torch.arange(S * k, device=dev) - torch.gather(
+        seg_start, 1, e_clip)
+    keep = (pos_in_e < C_drop) & (sorted_e < E)
+    slot = e_clip * C + torch.clamp(pos_in_e, max=C - 1)
+    # one flat row of E*C + 1 slots per sequence; over-capacity entries
+    # scatter to each row's extra slot, which is sliced off
+    row = torch.arange(B, device=dev)[:, None] * (E * C + 1)
+    slot_idx = row + torch.where(keep, slot, torch.full_like(slot, E * C))
+    slot_token = torch.full((B, E * C + 1), S, dtype=torch.long, device=dev)
+    slot_token.view(-1)[slot_idx.reshape(-1)] = token_of.reshape(-1)
+    slot_token = slot_token[:, :E * C]
+    x_pad = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
+    xg = torch.gather(x_pad, 1, slot_token[..., None].expand(B, E * C, d))
+
+    # (B, E, C, d) -> (E, B·C, d): one grouped FFN over every row's blocks
+    xe = xg.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    ye = ops.moe_expert_ffn(xe, getattr(p, "w_gate", None), p.w_up,
+                            p.w_down, act=cfg.act)
+    yg = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+
+    gate_flat = torch.gather(gates.reshape(B, S * k), 1, order)
+    slot_gate = torch.zeros(B * (E * C + 1), dtype=gates.dtype, device=dev)
+    slot_gate[slot_idx.reshape(-1)] = gate_flat.reshape(-1)
+    slot_gate = slot_gate.reshape(B, E * C + 1)[:, :E * C]
+    contrib = yg * slot_gate[..., None].to(yg.dtype)
+    y = torch.zeros(B * (S + 1), d, dtype=contrib.dtype, device=dev)
+    dest = torch.arange(B, device=dev)[:, None] * (S + 1) + slot_token
+    y.index_add_(0, dest.reshape(-1), contrib.reshape(B * E * C, d))
+    y = y.reshape(B, S + 1, d)[:, :S].to(x.dtype)
+
+    if m.n_shared_experts:
+        y = y + apply_ffn(p.shared, x, cfg.act)
+
+    return y, _aux(m, idx.reshape(B, S * k), probs, token_mask)

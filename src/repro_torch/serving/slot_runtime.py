@@ -50,6 +50,12 @@ class SlotStreamRuntime:
     def __init__(self, model, *, n_pool_slots: int, n_weight_slots: int,
                  victim_fn=None, transfer_dtype: str = "fp32",
                  fenced: bool = False):
+        if model.cfg.moe_dispatch == "grouped":
+            raise NotImplementedError(
+                "slot-cache streaming requires global dispatch "
+                "(moe_dispatch='grouped' runs the expert FFN over every "
+                "row's (E, C) blocks at once, which the slot table's "
+                "per-layer walk does not take); serve it all-resident")
         if model.cfg.is_encoder_decoder:
             raise NotImplementedError(
                 "slot-cache streaming does not support encoder-decoder "

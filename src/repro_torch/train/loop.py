@@ -7,6 +7,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
@@ -42,9 +43,18 @@ def make_train_step(model, opt_cfg: OptConfig, *, remat: bool = True,
 
 
 def to_batch(batch, device):
-    """numpy batch (``TokenStream.batches``) -> int64 tensors on device."""
-    return {k: torch.as_tensor(v, dtype=torch.long, device=device)
-            for k, v in batch.items()}
+    """numpy batch -> tensors on ``device``: integer arrays (tokens,
+    labels, positions) as int64, float arrays (embeddings) floating, as the
+    reference's ``jnp.asarray`` keeps them (float64 as float32)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if t.dtype == torch.float64:
+            t = t.float()
+        elif not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device)
+    return out
 
 
 def train_loop(model, data_iter, opt_cfg: OptConfig, *, n_steps: int = 100,

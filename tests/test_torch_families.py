@@ -27,7 +27,6 @@ from repro_torch.configs import ARCH_IDS
 from repro_torch.kernels import ref
 from repro_torch.models import Model
 from repro_torch.models import attention, layers
-from repro_torch.models.model import _unsupported
 from repro_torch.params import from_reference
 
 torch.set_num_threads(2)
@@ -101,14 +100,13 @@ def _torch(batch):
 
 
 def test_model_accepts_every_config():
-    """Only the dry run's hill-climb knobs are refused."""
+    """Every config builds, and so do the dry run's hill-climb knobs
+    (blocked attention, grouped dispatch) since their slice."""
     for name in ARCH_IDS:
-        assert _unsupported(torch_get_config(name)) is None, name
-    cfg = torch_get_config("gemma2-2b")
-    assert "attn_impl" in _unsupported(
-        dataclasses.replace(cfg, attn_impl="blocked"))
-    assert "moe_dispatch" in _unsupported(
-        dataclasses.replace(cfg, moe_dispatch="grouped"))
+        cfg = torch_get_config(name)
+        for knobs in ({}, dict(attn_impl="blocked", moe_dispatch="grouped")):
+            model = Model(dataclasses.replace(cfg, **knobs), device="meta")
+            assert len(model.layers) == cfg.n_layers, name
 
 
 def test_from_reference_loads_every_parameter(pair):

@@ -1058,3 +1058,59 @@ def test_model_loss_on_card_reaches_every_parameter(cuda, arch, policy):
         np.testing.assert_allclose(
             _f32(p.grad), want, rtol=1e-4, err_msg=n,
             atol=2e-5 * float(np.sqrt(np.mean(want * want))))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v2-236b"])
+def test_grouped_dispatch_on_card_runs_b1_and_matches_cpu(cuda, arch):
+    """``moe_dispatch="grouped"`` on the card: the loss and every gradient
+    equal the CPU's within fp32 limits, and each MoE layer's expert FFN is
+    one B1 launch a forward (its recompute in a scan group) over every
+    sequence's blocks, through ``MoEFFN``'s backward."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              moe_dispatch="grouped")
+    gpu = Model(cfg, device=cuda).init(6).trainable()
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu.trainable()
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (3, 16)))
+    before = moe_mod.launches
+    lg = gpu.loss({"tokens": toks.to(cuda)}, remat=True)
+    lg.backward()
+    torch.cuda.synchronize()
+    assert moe_mod.launches - before == sum(
+        2 if i >= gpu.n_prefix else 1 for i in gpu.moe_layers)
+    lc = cpu.loss({"tokens": toks}, remat=True)
+    lc.backward()
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()),
+                               rtol=1e-5)
+    cpu_grads = dict(cpu.named_parameters())
+    for n, p in gpu.named_parameters():
+        want = cpu_grads[n].grad.numpy()
+        np.testing.assert_allclose(
+            _f32(p.grad), want, rtol=1e-4, err_msg=n,
+            atol=2e-5 * float(np.sqrt(np.mean(want * want))))
+
+
+def test_blocked_attention_on_card_matches_cpu(cuda):
+    """``attn_impl="blocked"`` prefill of 1100 tokens (three query blocks,
+    two KV blocks, past the reduced window) on the card equals the CPU's
+    within fp32 limits and the card's naive prefill; no kernel runs."""
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              attn_impl="blocked")
+    gpu = Model(cfg, device=cuda).init(7)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    naive = Model(dataclasses.replace(cfg, attn_impl="naive"), device=cuda)
+    naive.load_state_dict(gpu.state_dict())
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab, (1, 1100)))
+    before = (moe_mod.launches, fd_mod.launches)
+    with torch.inference_mode():
+        got = [m.prefill({"tokens": toks.to(m.device)},
+                         m.init_cache(1, 1100))[0].cpu()
+               for m in (gpu, naive, cpu)]
+    assert (moe_mod.launches, fd_mod.launches) == before
+    for other in got[1:]:
+        np.testing.assert_allclose(got[0].numpy(), other.numpy(), rtol=1e-4,
+                                   atol=1e-4)

@@ -210,3 +210,26 @@ def test_training_modules_are_scanned_and_default_to_cuda(monkeypatch):
                 lambda: train_moe.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run()
+
+
+def test_launch_analysis_modules_are_scanned_and_need_no_gpu(monkeypatch):
+    """The launch-time analysis modules and the kernels' meta stand-ins are
+    among those the import checks above cover. ``Model`` still defaults
+    to CUDA and refuses without it; the dry run takes ``device="meta"``
+    and needs no GPU; a CUDA tensor never reaches a stand-in."""
+    from repro_torch.kernels import ops
+    mods = _port_modules()
+    for m in ("repro_torch.launch.dryrun", "repro_torch.launch.cost_analysis",
+              "repro_torch.launch.sharding", "repro_torch.launch.mesh",
+              "repro_torch.launch.input_specs", "repro_torch.launch.roofline",
+              "repro_torch.kernels.meta"):
+        assert m in mods
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-moe-235b-a22b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg.reduced())
+    model = Model(cfg, device="meta")
+    assert next(model.parameters()).is_meta
+    q = torch.empty((2, 8, 64), device="meta")
+    kv = torch.empty((2, 16, 2, 64), device="meta")
+    assert ops.decode_attention(q, kv, kv, 16).is_meta

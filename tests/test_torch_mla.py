@@ -39,6 +39,7 @@ from repro_torch.serving import EngineConfig as TorchEngineConfig
 from repro_torch.serving import SchedulerConfig as TorchSchedulerConfig
 from repro_torch.serving import TorchModelServer
 from repro_torch.serving.request import Request as TorchRequest
+from repro_torch.serving.slot_runtime import SlotStreamRuntime
 
 torch.set_num_threads(2)
 
@@ -320,11 +321,16 @@ def test_launcher_report_lines_match_reference(pair, stream):
 
 def test_model_accepts_deepseek_and_still_refuses_the_rest():
     """Every family builds (Gemma-2, Qwen2-VL and Whisper since their
-    slice); what is still refused is the dry run's hill-climb knobs."""
+    slice), and so do the dry run's hill-climb knobs (blocked attention,
+    grouped dispatch) since theirs; what is still refused is grouped
+    dispatch in the streaming slot runtime."""
     for arch in (ARCH, "jamba-1.5-large-398b", "whisper-small",
                  "qwen2-vl-72b", "gemma2-2b"):
         Model(torch_get_config(arch).reduced(), device="cpu")
     cfg = torch_get_config(ARCH).reduced()
     for knob in (dict(attn_impl="blocked"), dict(moe_dispatch="grouped")):
-        with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(cfg, **knob), device="cpu")
+        Model(dataclasses.replace(cfg, **knob), device="cpu")
+    grouped = Model(dataclasses.replace(cfg, moe_dispatch="grouped"),
+                    device="cpu").init(0)
+    with pytest.raises(NotImplementedError, match="global dispatch"):
+        SlotStreamRuntime(grouped, n_pool_slots=2, n_weight_slots=16)

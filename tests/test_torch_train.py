@@ -10,6 +10,7 @@ import re
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -39,7 +40,8 @@ from repro_torch.serving import workload as torch_workload
 from repro_torch.serving.engine import RoutingOracle
 from repro_torch.train import OptConfig, train_loop
 from repro_torch.train import optim
-from repro_torch.train.checkpoint import restore, save
+from repro_torch.train.checkpoint import BF16_KEY, restore, save
+from repro_torch.train.loop import to_batch
 
 torch.set_num_threads(2)
 
@@ -164,29 +166,58 @@ LOSS_CASES = [(False, "full", None, False), (True, "full", None, False),
               (True, "dots", 0.5, True)]
 
 
-@pytest.mark.parametrize("remat,policy,cf,labels", LOSS_CASES,
-                         ids=["plain", "remat-full", "remat-dots-cf0.5"])
-def test_loss_and_every_gradient_match_reference(arch, remat, policy, cf,
-                                                 labels):
+LOSS_IDS = ["plain", "remat-full", "remat-dots-cf0.5"]
+
+
+def family_batch(cfg, rng, B=2, S=12, labels=False):
+    """A numpy training batch for ``cfg``'s family: tokens (+ labels); for
+    Qwen2-VL seeded ``embeds`` with (3, B, S) positions whose planes differ
+    and labels; for Whisper seeded ``enc_embeds`` too."""
+    V, d = cfg.vocab, cfg.d_model
+    if cfg.attn.mrope_sections:
+        pos = np.stack([np.arange(S), np.arange(S) // 2, np.arange(S) % 3])
+        batch = {"embeds": (rng.standard_normal((B, S, d))
+                            * d ** -0.5).astype(np.float32),
+                 "positions": np.broadcast_to(pos[:, None], (3, B, S))
+                 .astype(np.int32).copy(),
+                 "labels": rng.integers(0, V, (B, S)).astype(np.int32)}
+    else:
+        batch = {"tokens": rng.integers(0, V, (B, S)).astype(np.int32)}
+        if labels:
+            batch["labels"] = rng.integers(0, V, (B, S)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = rng.standard_normal(
+            (B, cfg.encoder_seq_len, d)).astype(np.float32)
+    return batch
+
+
+def check_loss_and_every_gradient(arch, remat, policy, cf, labels):
+    """``Model.loss`` and every parameter's gradient against
+    ``jax.value_and_grad(model.loss)`` on the reduced config. A parameter
+    the loss does not reach (the embedding table under ``embeds``) has no
+    gradient on the port and a zero one in the reference."""
     jm, params, tm = _pair(arch, remat_policy=policy)
     tm.trainable()
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, 512, (2, 12)).astype(np.int32)}
-    if labels:
-        batch["labels"] = rng.integers(0, 512, (2, 12)).astype(np.int32)
+    batch = family_batch(jm.cfg, np.random.default_rng(0), labels=labels)
     jl, jg = jax.jit(jax.value_and_grad(
         lambda p: jm.loss(p, {k: jnp.asarray(v) for k, v in batch.items()},
                           capacity_factor=cf, remat=remat)))(
         jax.tree.map(jnp.asarray, params))
-    tl = tm.loss({k: torch.as_tensor(v, dtype=torch.long)
-                  for k, v in batch.items()}, capacity_factor=cf,
-                 remat=remat)
+    tl = tm.loss(to_batch(batch, "cpu"), capacity_factor=cf, remat=remat)
     tl.backward()
     np.testing.assert_allclose(float(tl.detach()), float(jl), **TOL)
     want = reference_leaves(tm, jax.tree.map(np.asarray, jg))
     for n, p in tm.named_parameters():
-        assert p.grad is not None, n
+        if p.grad is None:
+            assert "embeds" in batch and not np.any(want[n]), n
+            continue
         np.testing.assert_allclose(_np(p.grad), want[n], err_msg=n, **TOL)
+
+
+@pytest.mark.parametrize("remat,policy,cf,labels", LOSS_CASES, ids=LOSS_IDS)
+def test_loss_and_every_gradient_match_reference(arch, remat, policy, cf,
+                                                 labels):
+    check_loss_and_every_gradient(arch, remat, policy, cf, labels)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu", "relu2", "gelu"])
@@ -280,6 +311,70 @@ def test_checkpoint_roundtrip(tmp_path, dtype):
         restore(path, Model(wider, device="cpu"))
 
 
+@pytest.mark.parametrize("src,dst", [("bfloat16", "float32"),
+                                     ("float32", "bfloat16"),
+                                     ("bfloat16", "bfloat16")])
+def test_checkpoint_restores_into_another_dtype(tmp_path, src, dst):
+    """Each parameter comes back as the reference's ``arr.astype(dtype)``
+    of what was saved: bf16 -> fp32 exactly, fp32 -> bf16 rounded to
+    nearest, bf16 -> bf16 bit for bit."""
+    cfg = torch_get_config("qwen3-1.7b").reduced()
+    model = Model(dataclasses.replace(cfg, dtype=src), device="cpu").init(0)
+    path = str(tmp_path / "ckpt.npz")
+    save(path, model)
+    back = restore(path, Model(dataclasses.replace(cfg, dtype=dst),
+                               device="cpu"))
+    casts = set()
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              back.named_parameters()):
+        want = _np(a.float()).astype(
+            ml_dtypes.bfloat16 if b.dtype == torch.bfloat16 else np.float32)
+        np.testing.assert_array_equal(_np(b.float()), want.astype(np.float32),
+                                      err_msg=n)
+        if a.dtype == b.dtype == torch.bfloat16:
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16)), n
+        casts.add((a.dtype, b.dtype))
+    assert (getattr(torch, src), getattr(torch, dst)) in casts
+
+
+def test_checkpoint_without_the_bf16_key_restores(tmp_path):
+    """A checkpoint written before ``BF16_KEY`` existed (bf16 as int16
+    bits, nothing listed) restores bit for bit into a bf16 model and as
+    values into an fp32 one."""
+    cfg = dataclasses.replace(torch_get_config("qwen3-1.7b").reduced(),
+                              dtype="bfloat16")
+    model = Model(cfg, device="cpu").init(0)
+    path = str(tmp_path / "old.npz")
+    np.savez(path, **{n: _np(p.view(torch.int16) if p.dtype == torch.bfloat16
+                            else p) for n, p in model.named_parameters()})
+    bf16 = restore(path, Model(cfg, device="cpu"))
+    fp32 = restore(path, Model(dataclasses.replace(cfg, dtype="float32"),
+                               device="cpu"))
+    for (n, a), b, c in zip(model.named_parameters(), bf16.parameters(),
+                            fp32.parameters()):
+        assert torch.equal(a, b), n
+        assert torch.equal(a.float(), c), n
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-72b"])
+def test_train_loop_keeps_float_inputs(arch):
+    """One ``train_loop`` step on a batch with float fields (Whisper's
+    ``enc_embeds``, Qwen2-VL's ``embeds``) gives the reference
+    ``train_loop``'s loss: the fields stay floating."""
+    jm, params, tm = _pair(arch)
+    batch = family_batch(jm.cfg, np.random.default_rng(4))
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=2)
+    _, jl = jax_train_loop(jm, iter([batch]), JaxOptConfig(**kw),
+                           params=jax.tree.map(jnp.asarray, params),
+                           n_steps=1, verbose=False)
+    _, tl = train_loop(tm, iter([batch]), OptConfig(**kw), n_steps=1,
+                       verbose=False)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    got = to_batch(batch, "cpu")
+    for k, v in batch.items():
+        assert got[k].is_floating_point() == (v.dtype.kind == "f"), k
+
+
 def _lines(fn):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -318,7 +413,8 @@ def test_launcher_matches_reference(tmp_path):
     assert np.allclose(lines, [(round(a, 4), round(b, 3)) for a, b in
                                zip(out["losses"], out["gnorms"])])
     with np.load(path) as ck:
-        assert set(ck.files) == {n for n, _ in model.named_parameters()}
+        assert set(ck.files) == {n for n, _ in model.named_parameters()} \
+            | {BF16_KEY}
     with pytest.raises(NotImplementedError, match="sharding"):
         torch_train_launch.main(["--reduced", "--device", "cpu", "--mesh",
                                  "debug"])
