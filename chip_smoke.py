@@ -137,7 +137,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
  11c ``python -m repro_torch.launch.dryrun --all`` in a subprocess (meta
      tensors, no card): seconds, records by status (an error fails), and
      qwen3-moe's decode_32k and train_4k rooflines;
- 12. one JSON line of per-kernel numbers, then the result line.
+ 12. expert parallelism over D shards of this one card (``ExpertMesh``
+     of cuda:0 repeated; the shards share its SMs and its host link, so
+     this measures what sharding costs, not a speed-up): at one MoE
+     layer's decode shape ``moe_ffn_sharded`` (B1) and
+     ``moe_ffn_sharded_slots`` (B1 over bf16 slots, B2 over int8 and
+     fp16) at D = 2 and 4 bit-equal to the unsharded launch, each shard
+     against its plain version and timed beside its bytes bound, and the
+     exchange's copies a layer; then phase 4's model and requests through
+     the launcher with ``--devices D``: (a) rf 0.5 int8 at D = 2 and (b)
+     at D = 4 (256 slots split over the shards; phase 4b's tokens), (c)
+     all-resident at D = 2 (512 bf16 home slots, B1 through each shard's
+     slot table; phase 4's tokens); the slot kernel D times a MoE layer
+     and step, the shards' counters summing to ``stats()``, rebalances
+     > 0, the ``devices:`` line, no card memory beyond the slots and the
+     pool cache; step medians, host and device busy time beside phase
+     4b's D = 1, per-shard uploads and GB/s on each copy stream;
+ 13. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -1207,7 +1223,7 @@ def main_path(card, arch=QWEN3,
         _, _, aux = model.serve_step(srv._cache, tok, active=act)
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        busy_ms, n_kernels, n_ops, top = profile_step(
+        busy_ms, n_kernels, n_ops, top, _ = profile_step(
             lambda: model.serve_step(srv._cache, tok, active=act))
     print(f"  one more decode step: host enqueue {enqueue_ms:.3f} ms; "
           f"torch.profiler: {n_ops} top-level aten ops, {n_kernels} device "
@@ -1235,10 +1251,11 @@ def main_path(card, arch=QWEN3,
             not bool(torch.isfinite(logits).all()):
         raise SystemExit("full-width forward logits are not finite")
     print(f"  full-width forward logits {tuple(logits.shape)} finite")
+    tokens = out["tokens"]
     del model, srv, out, logits
     gc.collect()          # the server holds reference cycles
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens
 
 
 def upload_gbps(stream, expert, reps=10):
@@ -1416,14 +1433,50 @@ def streaming_path(card, arch=QWEN3,
               f"{size / gbps / 1e6:.3f} ms [{card}]")
     rt = srv.slot_runtime
     tok = srv._tok.copy()
+    readings = stream_step_readings(srv, steps, "D = 1", card)
     print("  one more streaming step, every other row active: "
           + frozen_rows_step(
               lambda act: rt.decode(tok, act.cpu().numpy()),
               lambda: rt.layer_caches, lambda: rt.pos, srv.n_slots))
+    tokens = out["tokens"]
     del model, srv, out, store, stream, rt
     gc.collect()          # frees the card and unlocks the host store
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens, readings
+
+
+def stream_step_readings(srv, steps, what, card):
+    """Three more steps of the streaming runtime, every row active: one to
+    upload what the new routes miss, one for the host's time (the runtime
+    waits on the device once a MoE layer to read the routing, so this is
+    its wall time), one for the device's busy time (torch.profiler).
+    -> {"median_ms", "host_ms", "busy_ms"}, the first the served steps'
+    median."""
+    import numpy as np
+    import torch
+    rt = srv.slot_runtime
+    tok = srv._tok.copy()
+    active = np.ones(srv.n_slots, bool)
+    rt.decode(tok, active)
+    n0 = srv._uploads()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rt.decode(tok, active)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    n1 = srv._uploads()
+    busy_ms, n_kernels, n_ops, _, copy_ms = profile_step(
+        lambda: rt.decode(tok, active))
+    median = float(np.median(steps))
+    print(f"  {what}: decode step median {median:.3f} ms over {len(steps)} "
+          f"served steps; after one step to upload what new routes miss, "
+          f"one more: host {host_ms:.3f} ms with {n1 - n0} uploads (it "
+          f"waits on the routing once a MoE layer), then torch.profiler: "
+          f"{n_ops} top-level aten ops, {n_kernels} device kernels/copies, "
+          f"device busy {busy_ms:.3f} ms ({copy_ms:.3f} of it copies, "
+          f"{srv._uploads() - n1} uploads among them) [{card}]")
+    return {"median_ms": median, "host_ms": host_ms, "busy_ms": busy_ms,
+            "copy_ms": copy_ms}
 
 
 def port_vs_cpu(cfg=None, phase="5"):
@@ -1608,8 +1661,9 @@ def profile_step(fn):
     """Run ``fn`` once under torch.profiler. -> (device busy ms: the summed
     durations of its kernels and copies, their count, the number of
     top-level aten ops dispatched, [(op name, calls, host ms)] of the five
-    top-level op names with the most host time, nested ops included).
-    Zeros if the profiler sees no device."""
+    top-level op names with the most host time, nested ops included, the
+    copies' ms within the busy ms). Zeros if the profiler sees no
+    device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1626,8 +1680,11 @@ def profile_step(fn):
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    copies = sum(e.time_range.elapsed_us() for e in dev
+                 if e.name.startswith("Memcpy"))
     return (sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev),
-            len(ops), [(name, n, us / 1e3) for name, (n, us) in top])
+            len(ops), [(name, n, us / 1e3) for name, (n, us) in top],
+            copies / 1e3)
 
 
 RWKV_PROMPTS = (16, 100, 256, 512)     # 512 takes the two-chunk length rule
@@ -1704,7 +1761,7 @@ def rwkv_path(card):
         # one more step with every row inactive (the pool is unchanged)
         # under the profiler: what the device does in a step
         idle_rows = torch.zeros(B, dtype=torch.bool, device="cuda")
-        busy_ms, n_kernels, n_ops, _ = profile_step(
+        busy_ms, n_kernels, n_ops, _, _ = profile_step(
             lambda: model.serve_step(pool, tok, active=idle_rows))
     n_steps = len(steps_ms)
     want = dict.fromkeys(launches, 0)
@@ -1957,7 +2014,7 @@ def family_path(card, arch, phase):
         # one more step with every row inactive (the pool is unchanged)
         # under the profiler: what the device does in a step
         idle_rows = torch.zeros(B, dtype=torch.bool, device="cuda")
-        busy_ms, n_kernels, n_ops, top = profile_step(
+        busy_ms, n_kernels, n_ops, top, _ = profile_step(
             lambda: model.serve_step(pool, tok, active=idle_rows))
     n_steps, per_step = len(steps_ms), _b3_per_step(cfg)
     want = dict.fromkeys(launches, 0)
@@ -2935,6 +2992,349 @@ def dryrun_sweep():
               f"{rec['t_trace_s']} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: expert-parallel serving over D shards of one card
+# ---------------------------------------------------------------------------
+
+# (path, D, wire or None for all-resident, the phase whose tokens it must
+# print)
+EP_PATHS = (("ep_streaming_d2", 2, "int8", "streaming"),
+            ("ep_streaming_d4", 4, "int8", "streaming"),
+            ("ep_all_resident_d2", 2, None, "all_resident"))
+SHARED_CARD = ("the D shards share one card, its SMs and its one "
+               "host link")
+
+
+def one_card_mesh(D):
+    from repro_torch.launch.mesh import ExpertMesh
+    return ExpertMesh(["cuda:0"] * D)
+
+
+def shard_bytes(xg, routed, weights, out_dtype, sl):
+    """The least bytes one shard's launch moves: its xg block and output
+    block once, the slot rows, and the weights (and int8 scales) of its
+    experts with a routed row."""
+    import torch
+    E, C, d = xg[sl].shape
+    busy = routed[sl].any(-1)
+    per_expert = sum(w[0].numel() * w.element_size() for w in weights)
+    return (xg[sl].numel() * xg.element_size() + 4 * E
+            + int(busy.sum()) * per_expert
+            + E * C * d * torch.finfo(out_dtype).bits // 8)
+
+
+def check_sharded_exchange(gen, card):
+    """Phase 12's kernel check at one MoE layer's decode shape (E 128, C 8,
+    d 4096, f 1536; 4 tokens x top-8): ``moe_ffn_sharded`` (B1, bf16) and
+    ``moe_ffn_sharded_slots`` (B1 through the slot table over bf16 slots,
+    B2 over int8 and fp16 slots) at D = 2 and 4 over one card's shards,
+    each bit-equal to the unsharded launch; each shard's launch against
+    its plain version; each shard's ms beside its bytes bound and the
+    unsharded launch's ms; the exchange's copies a layer.
+    -> {(form, D): {"shard_ms", "shard_bound_ms", "unsharded_ms",
+    "exchange_ms"}}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.moe_ffn import (moe_ffn_sharded,
+                                             moe_ffn_sharded_slots)
+    E, C, d, f = (MAIN[k] for k in "ECdf")
+    print(f"phase 12: the expert-parallel exchange at one MoE layer's decode "
+          f"shape (E {E}, C {C}, d {d}, f {f}; {TOKENS} tokens x top-{TOP_K})"
+          f", D shards of one card ({SHARED_CARD}): bit-equal to the "
+          f"unsharded launch")
+
+    def rnd(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(dtype)
+    xg = rnd((E, C, d), 1.0)
+    routed, n_exp = route_decode(xg)
+    out = {}
+    forms = [("b1 dense bf16", None), ("b1 slots bf16", "bf16"),
+             ("b2 slots int8", "int8"), ("b2 slots fp16", "fp16")]
+    for form, wire in forms:
+        if wire in (None, "bf16"):
+            ws = [rnd((E, d, f), d ** -0.5), rnd((E, d, f), d ** -0.5),
+                  rnd((E, f, d), f ** -0.5)]
+            bufs = dict(zip(("w_gate", "w_up", "w_down"), ws))
+            slots = torch.randperm(E, generator=gen, device="cuda") \
+                .to(torch.int32)
+            out_dtype = torch.bfloat16
+        else:
+            args = quant_inputs(gen, E, C, d, f, 2 * E, "swiglu", wire,
+                                torch.bfloat16)
+            ws, slots = list(args[1:4]), args[7]
+            bufs = dict(zip(("w_gate", "w_up", "w_down"), ws))
+            if wire == "int8":
+                bufs.update(zip(("w_gate_scale", "w_up_scale",
+                                 "w_down_scale"), args[4:7]))
+            out_dtype = torch.float32
+        if wire is None:
+            def unsharded():
+                return ops.moe_expert_ffn(xg, *ws, act="swiglu")
+
+            def sharded(mesh):
+                return moe_ffn_sharded(xg, *ws, mesh=mesh, act="swiglu")
+
+            def shard(sl):
+                return ops.moe_expert_ffn(xg[sl], *(w[sl] for w in ws),
+                                          act="swiglu")
+
+            def plain(sl):
+                return ref.moe_ffn_ref(xg[sl], *(w[sl] for w in ws),
+                                       act="swiglu")
+        else:
+            def unsharded():
+                return ops.moe_expert_ffn_slots(xg, bufs, slots, act="swiglu",
+                                                out_dtype=out_dtype)
+
+            def sharded(mesh):
+                D = mesh.shape["expert"]
+                Eb = E // D
+                return moe_ffn_sharded_slots(
+                    xg, [bufs] * D,
+                    [slots[i * Eb:(i + 1) * Eb] for i in range(D)],
+                    mesh=mesh, act="swiglu", out_dtype=out_dtype)
+
+            def shard(sl):
+                return ops.moe_expert_ffn_slots(xg[sl], bufs, slots[sl],
+                                                act="swiglu",
+                                                out_dtype=out_dtype)
+
+            def plain(sl):
+                return ref.moe_ffn_quant_ref(
+                    xg[sl], *(bufs.get(n) for n in ("w_gate", "w_up",
+                                                    "w_down")),
+                    *(bufs.get(n + "_scale") for n in ("w_gate", "w_up",
+                                                       "w_down")),
+                    slots[sl], act="swiglu", out_dtype=out_dtype)
+        want = unsharded()
+        full_ms = time_ms(unsharded, 10)
+        weights = [bufs[n] for n in sorted(bufs)]
+        full_bound, _ = bound(shard_bytes(xg, routed, weights, out_dtype,
+                                          slice(0, E)), 0, torch.float32)
+        for D in (2, 4):
+            mesh = one_card_mesh(D)
+            got = sharded(mesh)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"phase 12: {form} at D = {D} differs from "
+                                 "the unsharded launch")
+            Eb = E // D
+            ms, bnd = [], []
+            for i in range(D):
+                sl = slice(i * Eb, (i + 1) * Eb)
+                compare(f"{form} D={D} shard {i} (experts {sl.start}-"
+                        f"{sl.stop - 1}, {int(routed[sl].any(-1).sum())} "
+                        f"routed) vs plain", shard(sl), plain(sl))
+                ms.append(time_ms(lambda: shard(sl), 10))
+                bnd.append(bound(shard_bytes(xg, routed, weights, out_dtype,
+                                             sl), 0, torch.float32)[0])
+            # the exchange a layer as the runtime runs it on one card:
+            # placement order in, the D result blocks concatenated, expert
+            # order out (the shard copies are no-ops on one card)
+            perm = torch.randperm(E, device="cuda")
+            inv = torch.argsort(perm)
+            blocks = [want[i * Eb:(i + 1) * Eb].clone() for i in range(D)]
+
+            def exchange():
+                xg.index_select(0, perm)
+                return torch.cat(blocks).index_select(0, inv)
+            ex_ms = time_ms(exchange, 10)
+            sharded_ms = time_ms(lambda: sharded(mesh), 10)
+            print(f"  {form} D={D}: bit-equal to the unsharded launch; "
+                  f"per-shard kernel ms "
+                  f"{', '.join(f'{t:.4f}' for t in ms)} against bytes "
+                  f"bounds {', '.join(f'{b:.4f}' for b in bnd)}; the "
+                  f"D launches together {sharded_ms:.4f} ms; unsharded "
+                  f"launch {full_ms:.4f} ms (bound {full_bound:.4f}); "
+                  f"exchange copies a layer {ex_ms:.4f} ms [{card}]")
+            out[(form, D)] = dict(shard_ms=ms, shard_bound_ms=bnd,
+                                  sharded_ms=sharded_ms,
+                                  unsharded_ms=full_ms,
+                                  unsharded_bound_ms=full_bound,
+                                  exchange_ms=ex_ms)
+        del want, got, bufs, ws, blocks
+        args = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_combine_order(card, reps=20):
+    """Why the MoE combine accumulates in fp32: at a prefill's shape (32
+    tokens x top-8 into 33 rows of 4096) ``index_add_`` on CUDA adds with
+    atomics in no fixed order. Into a bf16 accumulator every add rounds,
+    so repeats may differ; into fp32 the 8 bf16 terms of a row sum
+    exactly, so every repeat must give the same bits."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    T, k, d = 32, TOP_K, MAIN["d"]
+    contrib = torch.randn((T * k, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    rows = torch.randperm(T * k, generator=gen, device="cuda") // k
+    distinct = {}
+    for acc in (torch.bfloat16, torch.float32):
+        outs = []
+        for _ in range(reps):
+            y = torch.zeros((T + 1, d), dtype=acc, device="cuda")
+            y.index_add_(0, rows, contrib.to(acc))
+            outs.append(y.to(torch.bfloat16))
+        distinct[acc] = 1 + sum(not torch.equal(o, outs[0]) for o in outs)
+    print(f"  the combine's index_add_ at a prefill's shape ({T} tokens x "
+          f"top-{k}, d {d}), {reps} repeats: {distinct[torch.bfloat16] - 1} "
+          f"differ from the first with a bf16 accumulator, "
+          f"{distinct[torch.float32] - 1} with fp32 (what moe_ffn uses) "
+          f"[{card}]")
+    if distinct[torch.float32] != 1:
+        raise SystemExit("phase 12: the fp32 combine is not reproducible")
+
+
+def expert_parallel_path(card, path, D, wire, want_tokens):
+    """Phase 12 (a)-(c): the launcher's ``serve()`` with SERVE_FLAGS and
+    ``--devices D`` over ``one_card_mesh(D)``: rf 0.5 over ``wire``, or
+    all-resident (wire None: every expert a home slot, the bf16 master
+    wire, B1 through each shard's slot table). Checks the tokens, the
+    launch counts (the slot kernel D times a MoE layer and step), the
+    per-shard accounting, the ``devices:`` line and the card memory.
+    -> (launch counts, step readings)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import Model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    what = (f"phase 12{'abc'[[p[0] for p in EP_PATHS].index(path)]}: "
+            f"expert-parallel D = {D}, "
+            + (f"rf 0.5 over the {wire} wire" if wire else
+               "all-resident (every expert a home slot, bf16 master wire)"))
+    cfg = _full_cfg(what, QWEN3)
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    resident_bytes = tensor_bytes()
+    flags = SERVE_FLAGS + ["--devices", str(D)]
+    if wire:
+        flags += ["--resident-fraction", "0.5", "--transfer-dtype", wire]
+    args = serve_mod.parse_args(flags)
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve_mod.serve(args, cfg, model, mesh=one_card_mesh(D))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    report = buf.getvalue().splitlines()
+    for line in report:
+        if line.startswith(("slots:", "devices:")):
+            print(f"  {line}")
+    srv = out["server"]
+    rt = srv.slot_runtime
+    st = srv.stats()
+    n_moe = len(model.moe_layers)
+    _check_budgets(out, cfg)
+    if out["tokens"] != want_tokens:
+        raise SystemExit(f"{path}: tokens differ from D = 1's: "
+                         f"{out['tokens']} against {want_tokens}")
+    served = srv.n_prefills + srv.n_decode_steps
+    slot_kernel = "moe_ffn_quant" if wire else "moe_ffn"
+    want = {"moe_ffn": n_moe * out["n_warmup"], "moe_ffn_quant": 0,
+            "flash_decode": _b3_per_step(cfg) * srv.n_decode_steps,
+            "wkv6": 0, "selective_scan": 0}
+    want[slot_kernel] += D * n_moe * served
+    print(f"  tokens equal D = 1's; launches: {slot_kernel} "
+          f"{launches[slot_kernel]} (expected {D} shards x {n_moe} MoE layers"
+          f" x ({srv.n_prefills} prefills + {srv.n_decode_steps} decode "
+          f"steps)" + (f" + {n_moe} x {out['n_warmup']} EAMC warm-up "
+                       "forwards" if not wire else "")
+          + f" = {want[slot_kernel]}); {launches}; serve wall {wall:.1f} s")
+    if launches != want:
+        raise SystemExit(f"{path}: launch counts differ from {want}")
+    per = st["per_device"]
+    for key in ("weight_slots", "slot_hits", "slot_misses", "demand_uploads",
+                "prefetch_uploads", "slot_evictions", "upload_bytes"):
+        if st[key] != sum(p[key] for p in per):
+            raise SystemExit(f"{path}: the shards' {key} do not sum to "
+                             "stats()")
+    n_up = st["demand_uploads"] + st["prefetch_uploads"]
+    if st["upload_bytes"] != n_up * st["wire_expert_bytes"]:
+        raise SystemExit(f"{path}: upload bytes disagree with the uploads")
+    if st["n_devices"] != D or st["placement_rebalances"] <= 0:
+        raise SystemExit(f"{path}: n_devices {st['n_devices']}, "
+                         f"rebalances {st['placement_rebalances']}")
+    if not any(ln.startswith(f"devices: D={D} ") for ln in report):
+        raise SystemExit(f"{path}: no devices: line")
+    print(f"  accounting: the {D} shards' slot counters sum to stats(); "
+          f"uploaded {st['upload_bytes']} B = {n_up} x "
+          f"{st['wire_expert_bytes']} B; rebalances "
+          f"{st['placement_rebalances']}, migrations "
+          f"{st['placement_migrations']}")
+    for cache in rt.slot_caches:
+        cache.commit()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    slot_bytes = nbytes(t for c in rt.slot_caches for t in c.bufs.values())
+    kv_bytes = nbytes(t for bc in rt.layer_caches for t in bc.values())
+    expert_total = n_moe * cfg.moe.n_experts * rt.store.expert_bytes
+    stream_bytes = tensor_bytes()
+    print(f"  card memory: {resident_bytes} B all-resident after init, "
+          f"{stream_bytes} B after serving; experts {expert_total} B, slot "
+          f"buffers {slot_bytes} B over {D} caches, pooled decode cache "
+          f"{kv_bytes} B")
+    if resident_bytes + kv_bytes - stream_bytes < expert_total - slot_bytes:
+        raise SystemExit(f"{path}: the card holds more than the slots and "
+                         "the pool cache")
+    steps = _steps(srv, f"expert-parallel D = {D} "
+                        f"{wire or 'all-resident'} ({SHARED_CARD})", card)
+    readings = stream_step_readings(srv, steps, f"D = {D}", card)
+    expert = (rt.store.wire_expert(0, 0) if wire else rt.store.expert(0, 0))
+    ups = []
+    for i, (cache, p) in enumerate(zip(rt.slot_caches, per)):
+        gbps, size = upload_gbps(cache._copy_stream, expert)
+        ups.append(f"shard {i}: {p['demand_uploads']} demand + "
+                   f"{p['prefetch_uploads']} prefetch uploads, "
+                   f"{gbps:.2f} GB/s")
+    print(f"  per-shard uploads and one expert's upload ({size} B) on each "
+          f"cache's copy stream: {'; '.join(ups)} ({SHARED_CARD}) [{card}]")
+    del model, srv, out, rt, expert, cache
+    gc.collect()          # frees the card and unlocks the host store
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def expert_parallel(card, gen, tokens, d1):
+    """Phase 12: the exchange's kernel check, then (a)-(c), then the step
+    table beside phase 4b's D = 1. -> ({path: launch counts}, the
+    exchange's readings by "<form> D=<D>")."""
+    exch = check_sharded_exchange(gen, card)
+    check_combine_order(card)
+    paths, readings = {}, {1: d1}
+    for path, D, wire, ref_path in EP_PATHS:
+        paths[path], r = expert_parallel_path(card, path, D, wire,
+                                              tokens[ref_path])
+        if wire:
+            readings[D] = r
+    print(f"  rf 0.5 int8 decode step by D ({SHARED_CARD}; D = 1 is phase "
+          f"4b of this run): "
+          + "; ".join(f"D = {D}: median {r['median_ms']:.3f} ms, host "
+                      f"{r['host_ms']:.3f} ms, device busy "
+                      f"{r['busy_ms']:.3f} ms ({r['copy_ms']:.3f} copies)"
+                      for D, r in sorted(readings.items()))
+          + f" [{card}]")
+    for D in (2, 4):
+        x = exch[("b2 slots int8", D)]
+        print(f"  B2 int8 per shard at D = {D}: "
+              f"{', '.join(f'{t:.4f}' for t in x['shard_ms'])} ms against "
+              f"{', '.join(f'{b:.4f}' for b in x['shard_bound_ms'])}; "
+              f"unsharded {x['unsharded_ms']:.4f} ms; exchange "
+              f"{x['exchange_ms']:.4f} ms a layer [{card}]")
+    return paths, {f"{form} D={D}": x for (form, D), x in exch.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2965,21 +3365,22 @@ def main() -> int:
     rows = [check_moe_ffn(gen, card), check_moe_ffn_quant(gen, card),
             check_flash_decode(gen, card), check_wkv6(gen, card),
             check_selective_scan(gen, card)]
-    paths = {"all_resident": main_path(card),
-             "streaming": streaming_path(card)}
+    paths, tokens = {}, {}
+    paths["all_resident"], tokens["all_resident"] = main_path(card)
+    paths["streaming"], tokens["streaming"], d1 = streaming_path(card)
     port_vs_cpu()
     streaming_vs_cpu()
     paths["rwkv"] = rwkv_path(card)
     rwkv_vs_cpu()
-    paths["deepseek_all_resident"] = main_path(
+    paths["deepseek_all_resident"], _ = main_path(
         card, DEEPSEEK_V2, "phase 7: DeepSeek-V2, every expert resident")
-    paths["deepseek_streaming"] = streaming_path(
+    paths["deepseek_streaming"], _, _ = streaming_path(
         card, DEEPSEEK_V2, "phase 7b: DeepSeek-V2, streaming experts at rf "
                            "0.5 over the int8 wire")
     deepseek_vs_cpu()
-    paths["jamba_all_resident"] = main_path(
+    paths["jamba_all_resident"], _ = main_path(
         card, JAMBA, "phase 8: Jamba, every expert resident")
-    paths["jamba_streaming"] = streaming_path(
+    paths["jamba_streaming"], _, _ = streaming_path(
         card, JAMBA, "phase 8b: Jamba, streaming experts at rf 0.5 over the "
                      "master-dtype (bf16) wire", wire="fp32")
     jamba_vs_cpu()
@@ -2994,6 +3395,11 @@ def main() -> int:
     paths["blocked_prefill"] = blocked_prefill_path(card)
     blocked_vs_cpu()
     dryrun_sweep()
+    ep_paths, sharded = expert_parallel(card, gen, tokens, d1)
+    paths.update(ep_paths)
+    for row, prefix in ((rows[0], "b1"), (rows[1], "b2")):
+        row["sharded"] = {k: v for k, v in sharded.items()
+                          if k.startswith(prefix)}
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -3006,7 +3412,13 @@ def main() -> int:
                         ("qwen2_vl", ("flash_decode",)),
                         ("whisper", ("flash_decode",)),
                         ("train", ("moe_ffn",)),
-                        ("train_grouped", ("moe_ffn",))):
+                        ("train_grouped", ("moe_ffn",)),
+                        ("ep_streaming_d2", ("flash_decode",
+                                             "moe_ffn_quant")),
+                        ("ep_streaming_d4", ("flash_decode",
+                                             "moe_ffn_quant")),
+                        ("ep_all_resident_d2", ("flash_decode",
+                                                "moe_ffn"))):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "

@@ -201,9 +201,14 @@ class ExpertSlotCache:
     """
 
     def __init__(self, store: HostExpertStore, n_slots: int, *,
-                 fenced: bool = False):
+                 fenced: bool = False, device=None):
         self.store = store
-        self.device = store.device
+        # expert-parallel serving runs one cache per mesh device: the
+        # buffers, the staged uploads and the copy stream live on
+        # ``device`` (default the store's), so each shard has its own
+        # host->device upload stream
+        self.device = (store.device if device is None
+                       else torch.device(device))
         self.n_slots = int(n_slots)
         self.fenced = bool(fenced)
         self.bufs = {

@@ -20,6 +20,9 @@ Pallas kernel, so there is no TPU backward kernel to port). Every raw
 wrapper raises when a gradient is asked of it (``build.check_no_grad``):
 its output is written through pointers and would sit off the graph. B2 is
 decode-only and has no backward.
+
+``moe_ffn_sharded`` and ``moe_ffn_sharded_slots`` run the same launches per
+shard of an expert mesh (expert parallelism): one B1 or B2 launch a shard.
 """
 from __future__ import annotations
 
@@ -157,6 +160,88 @@ def moe_ffn_quant(xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids,
     build.check("moe_ffn_quant", err)
     quant_launches += 1
     return y
+
+
+def _shard_blocks(xg, mesh):
+    """-> (xg zero-padded along C to a multiple of D, C, [(device, expert
+    slice)] per shard), after checking that D divides E."""
+    D = int(mesh.shape["expert"])
+    E, C, _ = xg.shape
+    if E % D != 0:
+        raise ValueError(f"n_experts {E} must divide by the expert-parallel "
+                         f"degree {D}")
+    Cp = -(-C // D) * D
+    if Cp != C:
+        xg = torch.nn.functional.pad(xg, (0, 0, 0, Cp - C))
+    Eb = E // D
+    return xg, C, [(dev, slice(i * Eb, (i + 1) * Eb))
+                   for i, dev in enumerate(mesh.devices)]
+
+
+def _gather_blocks(xg, C, blocks):
+    """The shards' (E/D, Cp, d) results back on ``xg``'s device, in expert
+    order, the pad rows dropped."""
+    y = torch.cat([b.to(xg.device, non_blocking=True) for b in blocks])
+    return y[:, :C] if y.shape[1] != C else y
+
+
+def moe_ffn_sharded(xg, w_gate, w_up, w_down, *, mesh, act: str = "swiglu"):
+    """Expert-parallel grouped FFN over an ``ExpertMesh``
+    (``launch.mesh``): the reference's ``moe_ffn_sharded``.
+
+    xg: (E, C, d) dispatched token blocks; w_*: (E, d, f) / (E, f, d)
+    expert weights, shard i holding experts [i E/D, (i+1) E/D). C is
+    zero-padded to a multiple of D (a zero row gives a zero row and
+    touches no other row). Each shard's (E/D, Cp, d) token block and
+    (E/D, ...) weight blocks are copied to its device (no copy when it is
+    xg's), the grouped FFN runs there (``ops.moe_expert_ffn``: B1 on CUDA,
+    the plain version on the CPU), and the results come back to xg's
+    device in expert order. The reference exchanges C-sharded token blocks
+    with two tiled all-to-alls; over a replicated input that is this exact
+    permutation, and no contraction dim is split, so every D gives the
+    D = 1 result bit for bit. -> (E, C, d). Raises ``ValueError`` when D
+    does not divide E."""
+    from repro_torch.kernels import ops
+    xg, C, shards = _shard_blocks(xg, mesh)
+    out = []
+    for dev, sl in shards:
+        ws = [None if w is None else w[sl].to(dev, non_blocking=True)
+              for w in (w_gate, w_up, w_down)]
+        out.append(ops.moe_expert_ffn(xg[sl].to(dev, non_blocking=True),
+                                      *ws, act=act))
+    return _gather_blocks(xg, C, out)
+
+
+def moe_ffn_sharded_slots(xg, shard_bufs, shard_rows, *, mesh,
+                          act: str = "swiglu", out_dtype=None):
+    """``moe_ffn_sharded`` over per-shard slot caches: the exchange of the
+    expert-parallel serving runtime.
+
+    xg: (E, C, d), position p holding the expert the runtime placed there
+    (shard i owns positions [i E/D, (i+1) E/D)); ``shard_bufs[i]``: shard
+    i's slot buffers ({w_gate?, w_up, w_down} (n_slots, ...) in the wire
+    dtype, plus ``<name>_scale`` under int8) on ``mesh.devices[i]``;
+    ``shard_rows[i]``: its (E/D,) int32 position -> slot row, on that
+    device. Each shard runs ``ops.moe_expert_ffn_slots`` on its own
+    buffers: B2 over fp16/int8, B1 through the slot table over the master
+    dtype. -> (E, C, d) in ``out_dtype`` (default xg's), on xg's device.
+
+    The reference gathers each device's experts, dequantized to fp32, and
+    then runs ``moe_ffn_sharded(impl="jnp")`` on them. At full width that
+    is 64 x 3 x 4096 x 1536 x 4 B, ~4.8 GB of fp32 a shard and layer, so
+    the port keeps the weights in their slots and dequantizes inside the
+    kernel, as its single-device path does (``ops.moe_expert_ffn_slots``).
+    The function is the same: every shard's rows equal the unsharded slot
+    FFN's bit for bit."""
+    from repro_torch.kernels import ops
+    xg, C, shards = _shard_blocks(xg, mesh)
+    if not len(shard_bufs) == len(shard_rows) == len(shards):
+        raise ValueError(f"{len(shards)} shards, {len(shard_bufs)} buffer "
+                         f"sets, {len(shard_rows)} rows")
+    out = [ops.moe_expert_ffn_slots(xg[sl].to(dev, non_blocking=True), bufs,
+                                    rows, act=act, out_dtype=out_dtype)
+           for (dev, sl), bufs, rows in zip(shards, shard_bufs, shard_rows)]
+    return _gather_blocks(xg, C, out)
 
 
 # gelu's tanh approximation: 0.5 z (1 + tanh(GELU_C (z + GELU_A z^3)))

@@ -13,13 +13,18 @@ The ``e2e=``/``tok-lat=`` figures are the ``MemSim`` virtual clock under the
 ``PAPER_8GPU`` hardware preset (the paper's testbed), not measurements of
 the device this runs on. ``--resident-fraction < 1`` moves the experts to
 a host store after the EAMC warm-up and streams them through device weight
-slots (``--transfer-dtype``, ``--fenced-uploads``).
+slots (``--transfer-dtype``, ``--fenced-uploads``). ``--devices D`` serves
+expert-parallel over D shards, each with its own slot cache: D cards under
+``--device cuda`` (fewer cards raise), D logical shards of the CPU under
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --requests 4 --prompt-len 32 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
         --resident-fraction 0.5 --transfer-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \
+        --resident-fraction 0.5 --devices 4
 """
 from __future__ import annotations
 
@@ -134,8 +139,10 @@ def parse_args(argv=None):
                          "file exists (warm restart) and rewritten at exit "
                          "— the learned-brain counterpart of --eamc-path")
     ap.add_argument("--devices", type=int, default=1,
-                    help="expert-parallel degree (DESIGN.md §8); only 1 is "
-                         "ported so far")
+                    help="expert-parallel degree (DESIGN.md §8): D "
+                         "shards, each with its own slot cache and upload "
+                         "stream; D cards under --device cuda, D logical "
+                         "shards under --device cpu")
     ap.add_argument("--tenants", default=None,
                     help="multi-tenant spec JSON (a TenantSpec list or a "
                          "full ServeSpec document, DESIGN.md §11): "
@@ -182,12 +189,14 @@ def request_shapes(args):
             for _ in range(args.requests)]
 
 
-def serve(args, cfg, model: Optional[Model] = None) -> dict:
+def serve(args, cfg, model: Optional[Model] = None, mesh=None) -> dict:
     """Serve ``args.requests`` open-loop requests of ``cfg`` and print the
     report. ``model``: weights to serve (default: ``Model(cfg).init(0)`` on
     ``args.device``; with device weight slots the server moves its experts
-    to the host store). Returns {"server", "requests", "tokens" (rid ->
-    generated tokens), "n_warmup" (model.forward calls of the EAMC pass)}.
+    to the host store). ``mesh``: the ``ExpertMesh`` of ``--devices`` > 1
+    (default ``make_expert_mesh(args.devices, args.device)``). Returns
+    {"server", "requests", "tokens" (rid -> generated tokens), "n_warmup"
+    (model.forward calls of the EAMC pass)}.
     """
     tenants = _tenants(args)
     if cfg.moe is None:
@@ -253,7 +262,7 @@ def serve(args, cfg, model: Optional[Model] = None) -> dict:
                      predictor=args.predictor,
                      tenants=tenants),
         model, eamc=eamc, cache_len=args.prompt_len + args.max_new,
-        device=dev)
+        device=dev, mesh=mesh)
 
     # eamc brains inherit the collection's provenance; learned state is
     # cold unless --predictor-path warm-restarts it
@@ -335,6 +344,15 @@ def serve(args, cfg, model: Optional[Model] = None) -> dict:
               f"schedule={'fenced' if args.fenced_uploads else 'overlap'}")
     else:
         print("slots: all-resident (resident-fraction 1.0)")
+    if args.devices > 1:
+        links = stats["gpu_link_stats"]
+        util = " ".join(f"{l['utilization']:.3f}" for l in links)
+        busy = " ".join(f"{l['busy_s']*1e3:.1f}" for l in links)
+        print(f"devices: D={args.devices} links={stats['n_gpu_links']} "
+              f"link-util=[{util}] link-busy-ms=[{busy}] "
+              f"rebalances={stats['placement_rebalances']} "
+              f"migrations={stats['placement_migrations']} "
+              f"replicated={stats['replicated_experts']}")
     learned = stats["eamc_online_inserts"] + stats["eamc_online_merges"]
     print(f"eamc: source={eamc_source} entries={stats['eamc_entries']} "
           f"learned={learned} "

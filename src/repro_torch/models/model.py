@@ -242,11 +242,13 @@ class Model(nn.Module):
         return x, p.norm2(x), aux
 
     def _apply_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
-                          capacity_factor=None, token_mask=None, routing=None,
-                          slot_weights=None, slot_ids=None):
+                          capacity_factor=None, expert_fn=None,
+                          token_mask=None, routing=None, slot_weights=None,
+                          slot_ids=None):
         """FFN half. Returns (x_out, aux) with MoE counts/aux_loss, or with
         aux["rwkv_cm"] (the last h2 row: rwkv's channel-mix shift).
-        ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
+        ``expert_fn``/``routing``/``slot_weights``/``slot_ids``: see
+        ``moe.moe_ffn``."""
         aux = {}
         if desc.kind == BLOCK_RWKV:
             y2, _ = rwkv_channel_mix(p.rwkv, self.cfg, h2)
@@ -254,6 +256,7 @@ class Model(nn.Module):
         elif desc.is_moe:
             y2, moe_aux = moe_ffn(p.moe, self.cfg, h2,
                                   capacity_factor=capacity_factor,
+                                  expert_fn=expert_fn,
                                   token_mask=token_mask, routing=routing,
                                   slot_weights=slot_weights,
                                   slot_ids=slot_ids)
@@ -370,19 +373,22 @@ class Model(nn.Module):
 
     # -- public: forward ------------------------------------------------------
     def _apply_block(self, p: Block, desc: LayerDesc, x, positions, enc_kv,
-                     capacity_factor):
+                     capacity_factor, expert_fn=None):
         x_mid, h2, _ = self._apply_block_pre(p, desc, x, positions, enc_kv)
         return self._apply_block_post(p, desc, x_mid, h2,
-                                      capacity_factor=capacity_factor)
+                                      capacity_factor=capacity_factor,
+                                      expert_fn=expert_fn)
 
-    def forward(self, batch, *, capacity_factor=None, remat=False):
+    def forward(self, batch, *, capacity_factor=None, remat=False,
+                expert_fn=None):
         """Full-sequence forward of ``batch`` (see the module docstring).
         ``capacity_factor`` sizes the MoE capacity (default: the config's).
         ``remat``: recompute, in the backward, each layer of the periodic
         tail (the reference's scan groups; prefix layers keep their
         activations), all of it under ``remat_policy == "full"``, all but
-        the unbatched matrix products under ``"dots"``. Returns (logits
-        (B,S,V) fp32, {"counts": (n_moe,B,E) or None, "aux_loss"})."""
+        the unbatched matrix products under ``"dots"``. ``expert_fn``: see
+        ``moe.moe_ffn``. Returns (logits (B,S,V) fp32, {"counts":
+        (n_moe,B,E) or None, "aux_loss"})."""
         x, positions = self._embed(batch)
         ctx = (functools.partial(create_selective_checkpoint_contexts,
                                  _save_dots)
@@ -390,7 +396,7 @@ class Model(nn.Module):
         counts, losses = [], []
         for i, (p, desc, ekv) in enumerate(zip(self.layers, self.descs,
                                                self._cross_kvs(batch))):
-            args = (p, desc, x, positions, ekv, capacity_factor)
+            args = (p, desc, x, positions, ekv, capacity_factor, expert_fn)
             if remat and i >= self.n_prefix:
                 x, aux = checkpoint(self._apply_block, *args,
                                     use_reentrant=False, context_fn=ctx)
@@ -521,12 +527,13 @@ class Model(nn.Module):
         return x, p.norm2(x), bc
 
     def _decode_block_post(self, p: Block, desc: LayerDesc, x_mid, h2, *,
-                           bc=None, active=None, routing=None,
+                           bc=None, expert_fn=None, active=None, routing=None,
                            slot_weights=None, slot_ids=None):
         """FFN half of one-token decode. Returns (x_out, counts or None).
         rwkv reads its channel-mix shift from the block cache ``bc`` and
         replaces ``bc["cm"]`` on ``active`` rows (all when None).
-        ``routing``/``slot_weights``/``slot_ids``: see ``moe.moe_ffn``."""
+        ``expert_fn``/``routing``/``slot_weights``/``slot_ids``: see
+        ``moe.moe_ffn``."""
         cfg = self.cfg
         counts = None
         if desc.kind == BLOCK_RWKV:
@@ -538,7 +545,8 @@ class Model(nn.Module):
             cf = (cfg.decode_capacity_factor
                   or cfg.moe.n_experts / cfg.moe.top_k)
             y2, aux = moe_ffn(p.moe, cfg, h2, capacity_factor=cf,
-                              routing=routing, slot_weights=slot_weights,
+                              expert_fn=expert_fn, routing=routing,
+                              slot_weights=slot_weights,
                               slot_ids=slot_ids)
             counts = aux["counts"]
         else:
@@ -548,14 +556,15 @@ class Model(nn.Module):
         return x_mid + y2, counts
 
     # -- public: prefill / serve_step -----------------------------------------
-    def prefill(self, batch, cache, *, true_len=None):
+    def prefill(self, batch, cache, *, expert_fn=None, true_len=None):
         """Run the prompt, fill ``cache`` (in place), return last-token
         logits. ``true_len``: optional per-row real prompt length for a
         right-padded prompt: pad tokens are causally invisible to real
         ones, take no MoE capacity, add no counts, and the logits come from
         each row's last real token. As in the reference, recurrent (mamba,
         rwkv) state is not pad-corrected: prefill those at exact lengths.
-        Returns (logits (B,V), cache, aux)."""
+        ``expert_fn``: see ``moe.moe_ffn``. Returns (logits (B,V), cache,
+        aux)."""
         x, positions = self._embed(batch)
         B, S = x.shape[:2]
         token_mask = None
@@ -571,6 +580,7 @@ class Model(nn.Module):
                                                    ekv)
             x, aux_ffn = self._apply_block_post(p, desc, x_mid, h2,
                                                 capacity_factor=2.0,
+                                                expert_fn=expert_fn,
                                                 token_mask=token_mask)
             self._seed_mixer(bc, desc, aux)
             if desc.kind == BLOCK_RWKV:
@@ -590,14 +600,15 @@ class Model(nn.Module):
         return logits, cache, {
             "counts": torch.stack(counts) if counts else None}
 
-    def serve_step(self, cache, token_or_embeds, *, decode_window: int = 0,
-                   active=None):
+    def serve_step(self, cache, token_or_embeds, *, expert_fn=None,
+                   decode_window: int = 0, active=None):
         """One decode step for ``token_or_embeds`` ((B,) tokens or (B, 1,
         d) embeddings) at the per-slot positions ``cache["pos"]``.
         ``decode_window``: the one the cache was made with. ``active``:
         optional (B,) bool mask; inactive slots are computed (fixed batch
         shape) but their cache rows, position and counts stay untouched.
-        Returns (logits (B,V), cache, aux)."""
+        ``expert_fn``: see ``moe.moe_ffn``. Returns (logits (B,V), cache,
+        aux)."""
         pos = cache["pos"]
         x = self._embed_step(token_or_embeds, pos)
         counts = []
@@ -606,6 +617,7 @@ class Model(nn.Module):
                 p, desc, bc, x, pos, active=active,
                 decode_window=decode_window)
             x, cnt = self._decode_block_post(p, desc, x_mid, h2, bc=bc,
+                                             expert_fn=expert_fn,
                                              active=active)
             if cnt is not None:
                 counts.append(cnt)

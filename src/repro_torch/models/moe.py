@@ -8,8 +8,8 @@ over-capacity entries land in one extra row that is sliced off (the
 reference's ``mode="drop"``), a gather into ``(E, C, d)`` blocks, the
 grouped expert FFN (the hand-written kernel on CUDA; over the device slot
 cache's buffers on the streaming path), and a gate-weighted ``index_add_``
-back to tokens. Pad tokens route to the sentinel expert ``E``.
-``moe_dispatch="grouped"`` does the same per sequence
+back to tokens, accumulated in fp32 at least. Pad tokens route to the
+sentinel expert ``E``. ``moe_dispatch="grouped"`` does the same per sequence
 (``moe_ffn_grouped``). The per-sequence counts (the paper's EAM rows)
 equal the reference's exactly: they feed the shared numpy host policy.
 """
@@ -95,6 +95,15 @@ def _aux(m: MoEConfig, idx, probs, token_mask):
     return {"counts": counts, "aux_loss": aux_loss}
 
 
+def _acc_dtype(dtype):
+    """The combine's accumulator: fp32 at least. A token's k bf16
+    contributions then sum exactly unless their magnitudes span more than
+    ~2^16, so CUDA's atomic ``index_add_`` gives the same bits whatever
+    order its adds land in (a bf16 accumulator rounds at every add, in that
+    order); fp32 inputs are unchanged."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def slot_out_dtype(x_dtype, slot_weights):
     """The expert output dtype of the reference's slot path: its gather
     widens fp16/int8 wires to fp32 weights (a master-dtype wire stays as
@@ -106,11 +115,14 @@ def slot_out_dtype(x_dtype, slot_weights):
 
 
 def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
-            token_mask=None, routing=None, slot_weights=None, slot_ids=None):
+            expert_fn=None, token_mask=None, routing=None, slot_weights=None,
+            slot_ids=None):
     """Apply the routed MoE to x (B, S, d).
 
     Returns (y, aux) with aux = {"counts": (B, E) int32 per-sequence expert
-    activation counts, "aux_loss": load-balance loss}. ``token_mask``:
+    activation counts, "aux_loss": load-balance loss}. ``expert_fn``:
+    optional ``(xg (E, C, d), p) -> (E, C, d)`` that replaces the grouped
+    expert FFN (the expert-parallel runtime's sharded FFN). ``token_mask``:
     optional (B, S) bool validity mask; masked tokens take no expert
     capacity and add nothing to ``counts``. ``routing``: optional
     precomputed (gates (T,k), idx (T,k)) from :func:`route` over the
@@ -127,7 +139,8 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
                 "grouped dispatch over slot-cache weights: the streaming "
                 "runtime requires global dispatch")
         return moe_ffn_grouped(p, cfg, x, capacity_factor=capacity_factor,
-                               token_mask=token_mask, routing=routing)
+                               expert_fn=expert_fn, token_mask=token_mask,
+                               routing=routing)
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -169,7 +182,9 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     x_pad = torch.cat([xf, xf.new_zeros(1, d)], dim=0)
     xg = x_pad[slot_token].reshape(E, C, d)
 
-    if slot_weights is None:
+    if expert_fn is not None:
+        yg = expert_fn(xg, p)
+    elif slot_weights is None:
         yg = ops.moe_expert_ffn(xg, getattr(p, "w_gate", None), p.w_up,
                                 p.w_down, act=cfg.act)
     else:
@@ -182,8 +197,9 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=dev)
     slot_gate[slot_idx] = gate_flat
     contrib = yg * slot_gate[:E * C, None].to(yg.dtype)
-    y = torch.zeros(T + 1, d, dtype=contrib.dtype, device=dev)
-    y.index_add_(0, slot_token, contrib)
+    acc = _acc_dtype(contrib.dtype)
+    y = torch.zeros(T + 1, d, dtype=acc, device=dev)
+    y.index_add_(0, slot_token, contrib.to(acc))
     y = y[:T].reshape(B, S, d).to(x.dtype)
 
     if m.n_shared_experts:
@@ -193,8 +209,8 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
 
 
 def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
-                    capacity_factor: float | None = None, token_mask=None,
-                    routing=None):
+                    capacity_factor: float | None = None, expert_fn=None,
+                    token_mask=None, routing=None):
     """Per-sequence dispatch (GShard grouping, one group per sequence):
     the reference's ``moe_ffn_grouped``. Each row of x (B, S, d) sorts,
     clips at its own capacity C = capacity(S) and fills its own (E, C, d)
@@ -202,7 +218,9 @@ def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
     capacity. The experts' weights are shared across rows, so the (B, E,
     C, d) blocks go through the grouped expert FFN as one (E, B·C, d)
     call (B1 on CUDA) and come back: the reference's ``becd,edf->becf``
-    chain. Returns (y, aux) as ``moe_ffn`` does.
+    chain. ``expert_fn`` (see ``moe_ffn``) is called once a sequence on
+    its (E, C, d) blocks, as the reference ``vmap``s it. Returns (y, aux)
+    as ``moe_ffn`` does.
 
     The reference's ``set_dispatch_constraint`` (a sharding hint that
     keeps the (B, E, C, d) blocks batch-sharded on a device mesh) has no
@@ -247,20 +265,26 @@ def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
     x_pad = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
     xg = torch.gather(x_pad, 1, slot_token[..., None].expand(B, E * C, d))
 
-    # (B, E, C, d) -> (E, B·C, d): one grouped FFN over every row's blocks
-    xe = xg.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-    ye = ops.moe_expert_ffn(xe, getattr(p, "w_gate", None), p.w_up,
-                            p.w_down, act=cfg.act)
-    yg = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    if expert_fn is not None:
+        yg = torch.stack([expert_fn(g, p) for g in xg.reshape(B, E, C, d)])
+        yg = yg.reshape(B, E * C, d)
+    else:
+        # (B, E, C, d) -> (E, B·C, d): one grouped FFN over every row's
+        # blocks
+        xe = xg.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+        ye = ops.moe_expert_ffn(xe, getattr(p, "w_gate", None), p.w_up,
+                                p.w_down, act=cfg.act)
+        yg = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     gate_flat = torch.gather(gates.reshape(B, S * k), 1, order)
     slot_gate = torch.zeros(B * (E * C + 1), dtype=gates.dtype, device=dev)
     slot_gate[slot_idx.reshape(-1)] = gate_flat.reshape(-1)
     slot_gate = slot_gate.reshape(B, E * C + 1)[:, :E * C]
     contrib = yg * slot_gate[..., None].to(yg.dtype)
-    y = torch.zeros(B * (S + 1), d, dtype=contrib.dtype, device=dev)
+    acc = _acc_dtype(contrib.dtype)
+    y = torch.zeros(B * (S + 1), d, dtype=acc, device=dev)
     dest = torch.arange(B, device=dev)[:, None] * (S + 1) + slot_token
-    y.index_add_(0, dest.reshape(-1), contrib.reshape(B * E * C, d))
+    y.index_add_(0, dest.reshape(-1), contrib.reshape(B * E * C, d).to(acc))
     y = y.reshape(B, S + 1, d)[:, :S].to(x.dtype)
 
     if m.n_shared_experts:

@@ -432,25 +432,29 @@ class TorchModelServer(StepEngine):
     With ``resident_fraction < 1`` or ``n_weight_slots`` the experts live
     in a host store and stream through ``n_weight_slots`` device slots
     (``slot_runtime``): constructing the server then moves ``model``'s
-    experts to the host. Expert parallelism (``n_devices > 1``) is not
-    ported. Eager PyTorch traces nothing, so ``compile_counts`` stays
-    empty. On CUDA, ``decode_ms`` records each pooled decode step's time
-    between CUDA events; when streaming, ``decode_uploads`` records the
-    slot uploads (demand and planned) each step issued.
+    experts to the host. ``n_devices > 1`` serves expert-parallel
+    (``ShardedSlotRuntime``) over ``mesh`` (default ``make_expert_mesh(
+    n_devices, device)``: distinct cards, or logical shards of the CPU),
+    each expert streamed through the slot cache of the shard the
+    placement policy homes it on. Eager PyTorch traces nothing, so
+    ``compile_counts`` stays empty. On CUDA, ``decode_ms`` records each
+    pooled decode step's time between CUDA events; when streaming,
+    ``decode_uploads`` records the slot uploads (demand and planned) each
+    step issued.
     """
 
     def __init__(self, cfg: EngineConfig, model, *,
                  eamc: Optional[EAMC] = None,
                  n_slots: Optional[int] = None,
-                 cache_len: Optional[int] = None, device="cuda"):
+                 cache_len: Optional[int] = None, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, server on "
                              f"{self.device}")
-        if cfg.n_devices > 1:
-            raise NotImplementedError(
-                "expert-parallel serving (n_devices > 1) is not ported yet: "
-                "it needs a ShardedSlotRuntime (ROADMAP A10)")
+        if mesh is not None and mesh.shape["expert"] != cfg.n_devices:
+            raise ValueError(f"mesh {mesh} has {mesh.shape['expert']} "
+                             f"shards, n_devices is {cfg.n_devices}")
         cfg, n_weight_slots = self._resolve_weight_slots(cfg)
         super().__init__(cfg, eamc=eamc)
         self.model = model
@@ -478,13 +482,26 @@ class TorchModelServer(StepEngine):
         # layered runtime; None = the all-resident fused step
         self.slot_runtime = None
         if n_weight_slots is not None:
-            from repro_torch.serving.slot_runtime import SlotStreamRuntime
-            self.slot_runtime = SlotStreamRuntime(
-                model, n_pool_slots=self.n_slots,
-                n_weight_slots=n_weight_slots,
-                victim_fn=self.offload.gpu_cache.policy.victim,
-                transfer_dtype=cfg.transfer_dtype,
-                fenced=cfg.fenced_uploads)
+            kw = dict(n_pool_slots=self.n_slots,
+                      n_weight_slots=n_weight_slots,
+                      victim_fn=self.offload.gpu_cache.policy.victim,
+                      transfer_dtype=cfg.transfer_dtype,
+                      fenced=cfg.fenced_uploads)
+            if cfg.n_devices > 1:
+                # expert parallelism: per-device slot caches and the
+                # sharded expert FFN over the ("expert",) mesh, homes
+                # decided by the offload engine's placement policy
+                from repro_torch.launch.mesh import make_expert_mesh
+                from repro_torch.serving.slot_runtime import \
+                    ShardedSlotRuntime
+                self.slot_runtime = ShardedSlotRuntime(
+                    model, mesh=mesh or make_expert_mesh(cfg.n_devices,
+                                                         self.device),
+                    placement=self.offload.placement, **kw)
+            else:
+                from repro_torch.serving.slot_runtime import \
+                    SlotStreamRuntime
+                self.slot_runtime = SlotStreamRuntime(model, **kw)
             # sim<->real crosswalk: the simulator charges exactly the bytes
             # the host store ships per expert
             self.offload.sim.expert_bytes = \
@@ -577,11 +594,9 @@ class TorchModelServer(StepEngine):
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0.record()
         if self.slot_runtime is not None:
-            sc = self.slot_runtime.slot_cache
-            n0 = sc.demand_uploads + sc.prefetch_uploads
+            n0 = self._uploads()
             tok_new, counts = self.slot_runtime.decode(self._tok, active)
-            self.decode_uploads.append(
-                sc.demand_uploads + sc.prefetch_uploads - n0)
+            self.decode_uploads.append(self._uploads() - n0)
         else:
             tok = torch.from_numpy(self._tok).to(dev, torch.long)
             act = torch.from_numpy(active).to(dev)
@@ -595,6 +610,11 @@ class TorchModelServer(StepEngine):
             self.decode_ms.append(t0.elapsed_time(t1))
         self.n_decode_steps += 1
         return tok_new, counts
+
+    def _uploads(self) -> int:
+        """Slot uploads issued so far (demand and prefetch, every shard)."""
+        st = self.slot_runtime.slot_cache.stats()
+        return st["demand_uploads"] + st["prefetch_uploads"]
 
     # -- routing: prefill joiners into free slots, one pool decode step -------
     def _route_iteration(self, reqs: List[Request], tokens: List[int]
@@ -646,7 +666,9 @@ class TorchModelServer(StepEngine):
     def stats(self) -> dict:
         """Adds the measured slot-cache counters (expert-granularity hits
         and misses, real upload traffic, wall-clock demand stall) next to
-        the simulator's modeled ones."""
+        the simulator's modeled ones; expert-parallel, summed over the
+        shards, with ``n_devices`` and each shard's own under
+        ``per_device``."""
         s = super().stats()
         if self.slot_runtime is not None:
             rs = self.slot_runtime.slot_cache.stats()

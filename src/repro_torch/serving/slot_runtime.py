@@ -30,6 +30,13 @@ for the copy stream on every demand miss.
 PyTorch runs eagerly, so there is nothing to trace and ``compile_counts``
 stays empty. On the CPU the same walk runs the kernels' plain versions and
 the numbers equal the fused path's bit for bit at the fp32 wire.
+
+Expert parallelism (:class:`ShardedSlotRuntime`): one slot cache per device
+of an ``ExpertMesh``, residency split by the placement policy's home
+device, and each MoE ``post`` running the expert FFN shard by shard
+(``kernels.moe_ffn.moe_ffn_sharded_slots``) through ``moe_ffn``'s
+``expert_fn`` seam. One process drives every shard, as the reference's
+single controller does.
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
-from repro_torch.models.moe import route
+from repro_torch.kernels.moe_ffn import moe_ffn_sharded_slots
+from repro_torch.models.moe import route, slot_out_dtype
 
 
 class SlotStreamRuntime:
@@ -64,8 +72,7 @@ class SlotStreamRuntime:
         self.cfg = model.cfg
         self.device = model.device
         self.store = HostExpertStore(model, transfer_dtype=transfer_dtype)
-        self.slot_cache = ExpertSlotCache(self.store, n_weight_slots,
-                                          fenced=fenced)
+        self._init_slot_caches(n_weight_slots, fenced)
         self.fenced = bool(fenced)
         self._upload_plan: Dict[int, List] = {}
         self.victim_fn = victim_fn
@@ -79,6 +86,12 @@ class SlotStreamRuntime:
         self._rows = torch.zeros(
             (len(model.moe_layers), self.store.n_experts), dtype=torch.int32,
             pin_memory=self.device.type == "cuda")
+
+    def _init_slot_caches(self, n_weight_slots: int, fenced: bool) -> None:
+        """One slot cache on the model's device (the sharded runtime
+        overrides this with one cache per mesh device)."""
+        self.slot_cache = ExpertSlotCache(self.store, n_weight_slots,
+                                          fenced=fenced)
 
     # -- pool lifecycle ------------------------------------------------------
     def build_pool(self, cache_len: int) -> None:
@@ -146,6 +159,22 @@ class SlotStreamRuntime:
         row = self._rows[li].to(self.device, non_blocking=True)
         return self.slot_cache.commit(), row
 
+    def _run_decode_post(self, desc, li, p, x_mid, h2, gates, idx):
+        """Enqueue one MoE layer's decode ``post`` against the freshly
+        committed slot buffers (the sharded runtime overrides this with the
+        expert-parallel exchange)."""
+        bufs, row = self._slot_args(li)
+        return self.model._decode_block_post(
+            p, desc, x_mid, h2, routing=(gates, idx), slot_weights=bufs,
+            slot_ids=row)
+
+    def _run_prefill_post(self, desc, li, p, x_mid, h2, gates, idx,
+                          token_mask):
+        bufs, row = self._slot_args(li)
+        return self.model._apply_block_post(
+            p, desc, x_mid, h2, capacity_factor=2.0, token_mask=token_mask,
+            routing=(gates, idx), slot_weights=bufs, slot_ids=row)
+
     # -- decode --------------------------------------------------------------
     @torch.inference_mode()
     def decode(self, tok_np: np.ndarray, active_np: np.ndarray):
@@ -171,10 +200,8 @@ class SlotStreamRuntime:
             used = (np.unique(idx_np[rows]) if rows.any()
                     else np.empty(0, np.int64))
             self._ensure(li, used)
-            bufs, row = self._slot_args(li)
-            x, cnts = model._decode_block_post(
-                p, desc, x_mid, h2, routing=(gates, idx), slot_weights=bufs,
-                slot_ids=row)
+            x, cnts = self._run_decode_post(desc, li, p, x_mid, h2, gates,
+                                            idx)
             # double-buffered overlap: issue the next MoE layer's planned
             # uploads while this post computes
             self._stage_plan(li + 1)
@@ -213,11 +240,8 @@ class SlotStreamRuntime:
             gates, idx = self._route(p, h2)
             idx_np = idx.cpu().numpy()[:true_len]      # real tokens only
             self._ensure(li, np.unique(idx_np))
-            bufs, row = self._slot_args(li)
-            x, aux2 = model._apply_block_post(
-                p, desc, x_mid, h2, capacity_factor=2.0,
-                token_mask=token_mask, routing=(gates, idx),
-                slot_weights=bufs, slot_ids=row)
+            x, aux2 = self._run_prefill_post(desc, li, p, x_mid, h2, gates,
+                                             idx, token_mask)
             self._stage_plan(li + 1)
             counts_rows.append(aux2["counts"][0])
         last = (tl.long() - 1)[:, None, None].expand(1, 1, x.shape[-1])
@@ -226,3 +250,199 @@ class SlotStreamRuntime:
         tok0 = int(torch.argmax(logits[0]))
         self.pos[slot] = true_len
         return tok0, torch.stack(counts_rows).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel sharded runtime
+# ---------------------------------------------------------------------------
+
+
+class _CacheGroupView:
+    """Aggregate view over the per-device slot caches: summed counters for
+    the engine's stats crosswalk, plus the union residency view the
+    consistency checks read. Not a cache: movement goes through the
+    per-device instances."""
+
+    def __init__(self, caches):
+        self.caches = caches
+
+    @property
+    def n_slots(self) -> int:
+        return sum(c.n_slots for c in self.caches)
+
+    @property
+    def resident(self):
+        return [k for c in self.caches for k in c.resident]
+
+    def __contains__(self, key) -> bool:
+        return any(key in c for c in self.caches)
+
+    def stats(self) -> dict:
+        per_dev = [c.stats() for c in self.caches]
+        agg = dict(per_dev[0])
+        for s in per_dev[1:]:
+            for k, v in s.items():
+                if isinstance(v, (int, float)):
+                    agg[k] = agg[k] + v
+        # non-additive fields: identical across devices, keep one copy
+        agg["transfer_dtype"] = per_dev[0]["transfer_dtype"]
+        agg["wire_expert_bytes"] = per_dev[0]["wire_expert_bytes"]
+        agg["n_devices"] = len(per_dev)
+        agg["per_device"] = per_dev
+        return agg
+
+
+class ShardedSlotRuntime(SlotStreamRuntime):
+    """Expert-parallel serving over a 1-D ("expert",) ``ExpertMesh``
+    (port of ``repro.serving.slot_runtime.ShardedSlotRuntime``).
+
+    The same per-layer walk as :class:`SlotStreamRuntime`, with:
+
+    * per-device slot caches: one :class:`ExpertSlotCache` on each mesh
+      device, each with its own copy stream, so D host->device upload
+      streams run at once; residency is partitioned by the placement
+      policy's home assignment (the OffloadEngine's global Algorithm-2
+      verdicts still decide what is resident);
+    * sharded expert compute: each MoE ``post`` hands ``moe_ffn`` an
+      ``expert_fn`` that puts the dispatched (E, C, d) blocks in placement
+      order (``perm``: position p holds expert ``perm[p]``, shard i owns
+      positions [i cap, (i+1) cap)), runs
+      :func:`~repro_torch.kernels.moe_ffn.moe_ffn_sharded_slots` (each
+      shard's slot kernel over its own buffers and its (cap,) row of home
+      experts' slots) and restores expert order (``inv_perm``);
+    * one controller: the routers, attention and the pooled decode cache
+      stay on the model's device and run there once. The reference commits
+      them replicated to every mesh device and runs each per-layer jit
+      SPMD, which computes the same values D times. Replicated values, an
+      exchange that is an exact permutation and a local FFN that splits no
+      contraction dim give the D = 1 tokens bit for bit in both.
+
+    A placement rebalance changes only ``perm``, ``inv_perm`` and the slot
+    rows, which are uploaded with each layer.
+    """
+
+    def __init__(self, model, *, mesh, placement, **kw):
+        if model.cfg.moe_dispatch == "grouped":
+            raise NotImplementedError(
+                "expert-parallel serving requires global dispatch "
+                "(moe_dispatch='grouped' runs the expert FFN once a "
+                "sequence, which the sharded slot exchange does not take)")
+        D = mesh.shape["expert"]
+        E = model.cfg.moe.n_experts
+        if E % D != 0:
+            raise ValueError(f"n_experts {E} must divide by the "
+                             f"expert-parallel degree {D}")
+        self.mesh = mesh
+        self.placement = placement
+        super().__init__(model, **kw)
+        # per-layer host rows (perm, inv_perm, the slot of the expert at
+        # each position on its home shard), page-locked on a GPU
+        self._perm_rows = torch.zeros(
+            (len(model.moe_layers), 3, E), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+
+    def _init_slot_caches(self, n_weight_slots: int, fenced: bool) -> None:
+        devices = self.mesh.devices
+        D = len(devices)
+        # every device must at least hold one layer's worst-case routed
+        # slice of its own homes (cap = E/D experts)
+        per_dev = max(n_weight_slots // D, self.placement.cap)
+        self.slot_caches = [
+            ExpertSlotCache(self.store, per_dev, fenced=fenced, device=dev)
+            for dev in devices]
+        self.slot_cache = _CacheGroupView(self.slot_caches)
+
+    def _partition_targets(self, target_keys):
+        """Split a global residency target by placement home, trimmed to
+        each device's capacity (already-resident keys keep their slots
+        first: minimal churn under a home flip)."""
+        targets = [set() for _ in self.slot_caches]
+        for key in target_keys:
+            targets[self.placement.device_of(*key)].add(key)
+        out = []
+        for cache, tgt in zip(self.slot_caches, targets):
+            if len(tgt) > cache.n_slots:
+                keep = sorted(k for k in tgt if k in cache)
+                rest = sorted(k for k in tgt if k not in cache)
+                tgt = set((keep + rest)[: cache.n_slots])
+            out.append(tgt)
+        return out
+
+    def sync_residency(self, target_keys) -> int:
+        targets = self._partition_targets(target_keys)
+        if self.fenced:
+            return sum(c.sync(t)
+                       for c, t in zip(self.slot_caches, targets))
+        plan: Dict[int, List] = {}
+        for dev, (cache, tgt) in enumerate(zip(self.slot_caches, targets)):
+            for key in cache.resident:
+                if key not in tgt:
+                    cache.evict(key)
+            for key in sorted(tgt):
+                if key not in cache:
+                    plan.setdefault(key[0], []).append((dev, key))
+        self._upload_plan = plan
+        return self._stage_plan(0)
+
+    def _stage_plan(self, li: int) -> int:
+        entries = self._upload_plan.pop(li, None)
+        if not entries:
+            return 0
+        return sum(self.slot_caches[dev].prefetch([key])
+                   for dev, key in entries)
+
+    def flush_pending(self) -> None:
+        for li in sorted(self._upload_plan):
+            for dev, key in self._upload_plan[li]:
+                self.slot_caches[dev].prefetch([key])
+        self._upload_plan.clear()
+        for cache in self.slot_caches:
+            cache.commit()
+
+    def _ensure(self, li: int, expert_ids) -> None:
+        groups: Dict[int, List] = {}
+        for e in expert_ids:
+            e = int(e)
+            groups.setdefault(self.placement.device_of(li, e),
+                              []).append((li, e))
+        for dev, keys in groups.items():
+            self.slot_caches[dev].ensure(keys, self.victim_fn)
+
+    # -- sharded expert compute ---------------------------------------------
+    def _expert_fn(self, li: int):
+        """MoE layer ``li``'s ``expert_fn`` over the shards. Commits each
+        shard's staged uploads (the point where the unsharded runtime
+        commits its one cache) and uploads the layer's host rows."""
+        perm = self.placement.perm(li)
+        cap = self.placement.cap
+        rows = self._perm_rows[li]
+        rows[0].copy_(torch.from_numpy(perm))
+        rows[1].copy_(torch.from_numpy(self.placement.inv_perm(li)))
+        bufs = []
+        for dev, cache in enumerate(self.slot_caches):
+            homes = perm[dev * cap:(dev + 1) * cap]
+            rows[2, dev * cap:(dev + 1) * cap].copy_(
+                torch.from_numpy(np.maximum(cache.slot_of[li, homes], 0)))
+            bufs.append(cache.commit())
+        rows = rows.to(self.device, non_blocking=True)
+        shard_rows = [rows[2, i * cap:(i + 1) * cap].to(dev, non_blocking=True)
+                      for i, dev in enumerate(self.mesh.devices)]
+        mesh, act = self.mesh, self.cfg.act
+
+        def expert_fn(xg, _p):
+            yg = moe_ffn_sharded_slots(
+                xg.index_select(0, rows[0]), bufs, shard_rows, mesh=mesh,
+                act=act, out_dtype=slot_out_dtype(xg.dtype, bufs[0]))
+            return yg.index_select(0, rows[1])
+        return expert_fn
+
+    def _run_decode_post(self, desc, li, p, x_mid, h2, gates, idx):
+        return self.model._decode_block_post(
+            p, desc, x_mid, h2, routing=(gates, idx),
+            expert_fn=self._expert_fn(li))
+
+    def _run_prefill_post(self, desc, li, p, x_mid, h2, gates, idx,
+                          token_mask):
+        return self.model._apply_block_post(
+            p, desc, x_mid, h2, capacity_factor=2.0, token_mask=token_mask,
+            routing=(gates, idx), expert_fn=self._expert_fn(li))

@@ -1114,3 +1114,108 @@ def test_blocked_attention_on_card_matches_cpu(cuda):
     for other in got[1:]:
         np.testing.assert_allclose(got[0].numpy(), other.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- expert parallelism: D shards of one card --------------------------------
+
+def _one_card_mesh(cuda, D):
+    from repro_torch.launch.mesh import ExpertMesh
+    return ExpertMesh([cuda] * D)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("act", ["swiglu", "relu2"])
+def test_moe_ffn_sharded_bit_equal_on_card(cuda, D, act):
+    """B1 shard by shard (E/D experts each, C = 6 padded to a multiple of
+    D) gives the unsharded launch bit for bit, one launch a shard."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    E, C, d, f = 8, 6, 4096, 1536
+    xg, _ = _decode_occupancy_xg(gen, torch.bfloat16, cuda, E=E, C=C, d=d,
+                                 tokens=4, top_k=3)
+    wg = _randn(gen, (E, d, f), d ** -0.5, torch.bfloat16, cuda) \
+        if act == "swiglu" else None
+    wu = _randn(gen, (E, d, f), d ** -0.5, torch.bfloat16, cuda)
+    wd = _randn(gen, (E, f, d), f ** -0.5, torch.bfloat16, cuda)
+    want = moe_mod.moe_ffn(xg, wg, wu, wd, act=act)
+    before = moe_mod.launches
+    got = moe_mod.moe_ffn_sharded(xg, wg, wu, wd, act=act,
+                                  mesh=_one_card_mesh(cuda, D))
+    assert moe_mod.launches == before + D
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("wire", ["bf16", "int8", "fp16"])
+def test_moe_ffn_sharded_slots_bit_equal_on_card(cuda, D, wire):
+    """The runtime's exchange over per-shard slot buffers: each shard's
+    buffers hold only its experts (B1 through the slot table over the
+    master-dtype wire, B2 over int8/fp16); the result equals the unsharded
+    slot launch bit for bit, and the shard kernel's counter rises by D."""
+    from repro_torch.core.slot_cache import quantize_weight
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    E, C, d, f, n = 16, 8, 4096, 1536, 24
+    xg, _ = _decode_occupancy_xg(gen, torch.bfloat16, cuda, E=E, C=C, d=d,
+                                 tokens=4, top_k=8)
+    bufs = {}
+    for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                        ("w_down", (f, d))):
+        w = _randn(gen, (n,) + shape, shape[0] ** -0.5, torch.bfloat16, cuda)
+        if wire == "bf16":
+            bufs[name] = w
+            continue
+        qs = [quantize_weight(w[i].cpu(), wire) for i in range(n)]
+        bufs[name] = torch.stack([q for q, _ in qs]).to(cuda)
+        if qs[0][1] is not None:
+            bufs[name + "_scale"] = torch.stack([s for _, s in qs]).to(cuda)
+    table = torch.randperm(n, generator=gen, device=cuda)[:E] \
+        .to(torch.int32)
+    out = torch.bfloat16 if wire == "bf16" else torch.float32
+    want = ops.moe_expert_ffn_slots(xg, bufs, table, act="swiglu",
+                                    out_dtype=out)
+    Eb = E // D
+    own = [{k: v.index_select(0, table[i * Eb:(i + 1) * Eb].long())
+            for k, v in bufs.items()} for i in range(D)]
+    rows = [torch.arange(Eb, dtype=torch.int32, device=cuda)] * D
+    counter = "launches" if wire == "bf16" else "quant_launches"
+    before = getattr(moe_mod, counter)
+    got = moe_mod.moe_ffn_sharded_slots(xg, own, rows, act="swiglu",
+                                        out_dtype=out,
+                                        mesh=_one_card_mesh(cuda, D))
+    assert getattr(moe_mod, counter) == before + D
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wire", ["fp32", "int8"])
+def test_sharded_server_on_card_matches_cpu(cuda, wire):
+    """A D = 2 server on one card's two shards, rf 0.5, against the same
+    weights over two logical CPU shards and against the card's D = 1:
+    equal tokens and summed slot counters; the slot kernel launches twice
+    a MoE layer and step."""
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    gpu = Model(cfg, device=cuda).init(3)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (3, 9))
+
+    def serve(model, device, D, mesh=None):
+        srv = TorchModelServer(
+            EngineConfig(arch=cfg, gpu_cache_experts=3, dram_cache_experts=6,
+                         resident_fraction=0.5, transfer_dtype=wire,
+                         n_devices=D),
+            copy.deepcopy(model), cache_len=32, device=device, mesh=mesh)
+        n0 = moe_mod.launches + moe_mod.quant_launches
+        out, stats = srv.generate(prompts.astype(np.int32), 6)
+        n = moe_mod.launches + moe_mod.quant_launches - n0
+        return out, stats, n, srv
+    g_out, g_stats, n, srv = serve(gpu, cuda, 2, _one_card_mesh(cuda, 2))
+    c_out, c_stats, _, _ = serve(cpu, "cpu", 2)
+    one_out, _, _, _ = serve(gpu, cuda, 1)
+    np.testing.assert_array_equal(g_out, c_out)
+    np.testing.assert_array_equal(g_out, one_out)
+    for key in ("demand_uploads", "prefetch_uploads", "upload_bytes",
+                "slot_hits"):
+        assert g_stats[key] == c_stats[key], key
+    assert g_stats["n_devices"] == 2
+    n_moe = len(gpu.moe_layers)
+    assert n == 2 * n_moe * (srv.n_prefills + srv.n_decode_steps)

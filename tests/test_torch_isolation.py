@@ -112,6 +112,18 @@ def test_engine_step_loop_is_the_reference_copy():
         assert port[name] == ref[name], name
 
 
+def test_cache_group_view_is_the_reference_copy():
+    """The aggregate view over the expert-parallel runtime's per-device
+    slot caches (summed counters, ``n_devices``, ``per_device``) is the
+    reference's ``_CacheGroupView``."""
+    def klass(text):
+        return next(ast.dump(n) for n in _code(text).body
+                    if isinstance(n, ast.ClassDef)
+                    and n.name == "_CacheGroupView")
+    assert klass((PORT / "serving/slot_runtime.py").read_text()) == \
+        klass((SRC / "repro/serving/slot_runtime.py").read_text())
+
+
 def test_resolve_weight_slots_is_the_reference_copy():
     """The slot-count rule (fraction, explicit count, one-layer floor) is
     ``JaxModelServer._resolve_weight_slots``'s code."""
@@ -233,3 +245,33 @@ def test_launch_analysis_modules_are_scanned_and_need_no_gpu(monkeypatch):
     q = torch.empty((2, 8, 64), device="meta")
     kv = torch.empty((2, 16, 2, 64), device="meta")
     assert ops.decode_attention(q, kv, kv, 16).is_meta
+
+
+def test_expert_parallel_modules_are_scanned_and_default_to_cuda(
+        monkeypatch):
+    """The expert-parallel pieces live in modules the import checks above
+    cover; the expert mesh takes only cards that exist, and the sharded
+    server refuses to run without CUDA unless asked for the CPU."""
+    from repro_torch.kernels import moe_ffn
+    from repro_torch.launch import mesh
+    from repro_torch.serving import slot_runtime
+    mods = _port_modules()
+    for m in ("repro_torch.launch.mesh", "repro_torch.kernels.moe_ffn",
+              "repro_torch.serving.slot_runtime"):
+        assert m in mods
+    assert callable(moe_ffn.moe_ffn_sharded)
+    assert callable(moe_ffn.moe_ffn_sharded_slots)
+    assert issubclass(slot_runtime.ShardedSlotRuntime,
+                      slot_runtime.SlotStreamRuntime)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="available devices"):
+        mesh.make_expert_mesh(2, "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    ec = EngineConfig(arch=cfg, gpu_cache_experts=2, dram_cache_experts=4,
+                      n_devices=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchModelServer(ec, Model(cfg, device="cpu").init(0))
+    srv = TorchModelServer(ec, Model(cfg, device="cpu").init(0),
+                           device="cpu")
+    assert isinstance(srv.slot_runtime, slot_runtime.ShardedSlotRuntime)

@@ -182,6 +182,24 @@ def test_store_takes_the_experts_off_the_model(models):
     assert store.expert_bytes > 0
 
 
-def test_server_refuses_expert_parallel(models):
-    with pytest.raises(NotImplementedError, match="A10"):
-        _torch_server(models[2], n_devices=2)
+def test_server_serves_expert_parallel(models, fused_reference):
+    """n_devices = 2 on the CPU: two logical shards, each with its own slot
+    cache of half the slots; the fused path's tokens and EAMs, with every
+    routed expert uploaded to its home shard."""
+    from repro_torch.serving.slot_runtime import ShardedSlotRuntime
+    tm = models[2]
+    out_ref, eams_ref = fused_reference
+    srv = _torch_server(tm, n_devices=2, resident_fraction=0.5)
+    rt = srv.slot_runtime
+    assert isinstance(rt, ShardedSlotRuntime)
+    assert rt.mesh.shape == {"expert": 2}
+    assert [c.n_slots for c in rt.slot_caches] == [TOTAL // 4] * 2
+    out, stats = _generate(srv, tm.cfg.vocab)
+    assert np.array_equal(out, out_ref)
+    for a, b in zip(stats["eams"], eams_ref):
+        assert np.array_equal(a, b)
+    assert stats["n_devices"] == 2 and len(stats["per_device"]) == 2
+    assert all(d["demand_uploads"] > 0 for d in stats["per_device"])
+    for cache in rt.slot_caches:
+        for key in cache.resident:
+            assert rt.placement.device_of(*key) == rt.slot_caches.index(cache)
