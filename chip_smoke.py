@@ -36,12 +36,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      slots), every expert resident, and check every request's budget and
      the kernels' launch counts; time each pooled decode step with CUDA
      events, and the host's enqueue and the device's busy time of one more
-     step (torch.profiler); finite full-width logits;
+     step (torch.profiler); finite full-width logits; then one more warmed
+     server decode step, and ``Model.serve_step`` alone, under
+     ``torch.cuda.set_sync_debug_mode("warn")``: every sync the card
+     reports is attributed to its source line (the innermost frame under
+     ``src/repro_torch``) and must lie in a function the port's linter
+     declares a fence, or on a line it reports as suppressed;
+     ``serve_step`` alone must sync only where the linter predicts
+     (nowhere);
   4b the same through the streaming path (--resident-fraction 0.5
      --transfer-dtype int8): experts in page-locked host memory, 256
      device slots, real uploads; check budgets, slot counters, upload
      bytes, B2's launch count and the memory the card no longer holds;
-     time decode steps, the demand stall and one expert's upload;
+     time decode steps, the demand stall and one expert's upload; one more
+     warmed decode step under the sync debug mode, held as in phase 4;
   5. the whole port stack on the card against the same weights on the CPU
      (reduced config, fp32);
   5b the streaming server on the card (reduced, fp32): a slot for every
@@ -153,12 +161,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      > 0, the ``devices:`` line, no card memory beyond the slots and the
      pool cache; step medians, host and device busy time beside phase
      4b's D = 1, per-shard uploads and GB/s on each copy stream;
- 13. one JSON line of per-kernel numbers, then the result line.
+ 13. the port's linter (``python -m repro_torch.analysis.lint``, standard
+     library only) over ``src/repro_torch`` in a subprocess: exit 0 and no
+     new finding; files, rule ids, suppressed findings by rule, declared
+     fences and step entries; the capture map (step entries, what they
+     reach, kernel launch sites) written to ``experiments/lint_torch/``;
+ 14. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1170,8 +1185,172 @@ def weight_floor(model, counts):
     return dense + distinct * one, dense, distinct, one
 
 
+# -- the linter's host-sync verdicts held against the card (4, 4b, 13) ------
+
+_LINT = {}
+
+
+def lint_verdicts():
+    """The port's linter over ``src/repro_torch``, run once in this process
+    (it imports only the standard library and reads only the AST). ->
+    {"graph": its device-boundary graph, "suppressed": {(path, line):
+    rule} of the host-sync and capture-hazard findings that ``torch-lint``
+    directives suppress, "predicted": {(path, line)} of the syncs it finds
+    inside ``Model.serve_step``'s capture}."""
+    if not _LINT:
+        from repro_torch.analysis.lint import run_lint
+        # a path relative to the root: the linter skips any file with a
+        # hidden directory among its path's parts, the root's own included
+        with contextlib.chdir(ROOT):
+            res = run_lint([Path("src/repro_torch")], root=ROOT)
+        if res.n_files == 0:
+            raise SystemExit("the port's linter found no file to lint")
+        if res.new_findings:
+            raise SystemExit("the port's linter has new findings:\n" +
+                             "\n".join(f.format() for f in res.new_findings))
+        sup = [f for f in res.suppressed
+               if f["rule"] in ("host-sync", "capture-hazard")]
+        _LINT.update(
+            graph=res.graph,
+            suppressed={(f["path"], f["line"]): f["rule"] for f in sup},
+            predicted={(f["path"], f["line"]) for f in sup
+                       if f["rule"] == "capture-hazard"
+                       and "Model.serve_step" in f["message"]
+                       and "closure variable" not in f["message"]})
+    return _LINT
+
+
+@contextlib.contextmanager
+def synced_sites():
+    """Run the body under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    yield the list it fills with (path, line, function) of every sync the
+    card reports: the innermost frame under ``src/repro_torch`` of the
+    stack that raised the warning (the warning's own location can be
+    inside torch). The mode is set back to 0 on the way out, and an error
+    in the body propagates."""
+    import traceback
+    import warnings
+
+    import torch
+    port = (ROOT / "src" / "repro_torch").resolve()
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            shown(message, category, filename, lineno, file, line)
+            return
+        for frame in reversed(traceback.extract_stack()[:-1]):
+            path = Path(frame.filename).resolve()
+            if path.is_relative_to(port):
+                sites.append((path.relative_to(ROOT.resolve()).as_posix(),
+                              frame.lineno, frame.name))
+                return
+        sites.append((filename, lineno, "<outside src/repro_torch>"))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+        warnings.showwarning = hook
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def held_syncs(what, sites):
+    """Print the syncs of one step by site, each with the linter's verdict,
+    and fail unless every one lies in a declared fence or on a suppressed
+    line."""
+    from repro_torch.analysis.rules.host_sync import site_verdict
+    lint = lint_verdicts()
+    parts, bad = [], []
+    for (path, line, name), n in sorted(collections.Counter(sites).items()):
+        verdict = site_verdict(lint["graph"], path, line)
+        if verdict is not None:
+            verdict = verdict.split(":")[0]
+        elif (path, line) in lint["suppressed"]:
+            verdict = f"suppressed {lint['suppressed'][(path, line)]}"
+        else:
+            bad.append(f"{path}:{line} ({name})")
+        parts.append(f"{path.removeprefix('src/repro_torch/')}:{line} "
+                     f"{name} x{n} [{verdict or 'NOT A FENCE'}]")
+    print(f"  {what}: {len(sites)} syncs at {len(parts)} sites"
+          + (": " + "; ".join(parts) if parts else ""))
+    if bad:
+        raise SystemExit(f"{what}: syncs outside every declared fence and "
+                         f"suppressed line: {', '.join(bad)}")
+
+
+def sync_check(srv, what, serve_step=None):
+    """One more warmed decode step of the server, every row active, under
+    the sync debug mode, held against the linter's fences; with
+    ``serve_step`` (a no-argument callable running ``Model.serve_step``
+    over the server's pool) also that step alone, which must sync only
+    where the linter predicts."""
+    import numpy as np
+    import torch
+    lint = lint_verdicts()
+    with torch.inference_mode(), synced_sites() as sites:
+        srv._decode(np.ones(srv.n_slots, bool))
+    held_syncs(f"{what}: one more server decode step under "
+               "set_sync_debug_mode('warn')", sites)
+    if serve_step is None:
+        return
+    with torch.inference_mode(), synced_sites() as alone:
+        serve_step()
+    held_syncs("Model.serve_step alone under the same mode", alone)
+    predicted = sorted(lint["predicted"])
+    stray = sorted({(p, ln) for p, ln, _ in alone} - lint["predicted"])
+    print(f"  the linter predicts {len(predicted)} sync sites inside "
+          f"Model.serve_step's capture"
+          + (f" ({', '.join(f'{p}:{ln}' for p, ln in predicted)})"
+             if predicted else "") + f"; the card reports {len(alone)}")
+    if stray:
+        raise SystemExit("Model.serve_step synced where the linter predicts "
+                         "no sync: " + ", ".join(f"{p}:{ln}"
+                                                 for p, ln in stray))
+
+
+def lint_phase():
+    """Phase 13: the port's linter as CI runs it, in a subprocess on the
+    card's host."""
+    out = ROOT / "experiments" / "lint_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    report, cmap = out / "report.json", out / "capture_map.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lint", "--json",
+         str(report), "--capture-map", str(cmap), "src/repro_torch"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 13: the linter exited {proc.returncode}:\n"
+                         f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    doc = json.loads(report.read_text())
+    s, graph = doc["summary"], json.loads(cmap.read_text())
+    if s["files"] == 0 or s["new"] != 0 or s["baselined"] != 0:
+        raise SystemExit(f"phase 13: {s['files']} files, {s['new']} new, "
+                         f"{s['baselined']} baselined findings")
+    by_rule = collections.Counter(f["rule"] for f in doc["suppressed"])
+    print(f"phase 13: python -m repro_torch.analysis.lint over "
+          f"src/repro_torch in a subprocess: exit 0 in {secs:.1f} s; "
+          f"{s['files']} files; rules {', '.join(sorted(doc['rules']))}; "
+          f"{s['new']} new, {s['baselined']} baselined, {s['suppressed']} "
+          f"suppressed by torch-lint directives ("
+          + ", ".join(f"{r} {n}" for r, n in sorted(by_rule.items()))
+          + f"); {s['declared_fences']} declared fences; "
+          f"{s['step_entries']} step entries reaching "
+          f"{len(graph['step_reachable'])} functions; "
+          f"{len(graph['kernel_launch_sites'])} kernel launch sites; capture "
+          f"map in experiments/lint_torch/capture_map.json")
+
+
 def main_path(card, arch=QWEN3,
-              what="phase 4: main path, every expert resident"):
+              what="phase 4: main path, every expert resident",
+              check_syncs=False):
     import numpy as np
     import torch
     from repro_torch.launch import serve as serve_mod
@@ -1251,6 +1430,9 @@ def main_path(card, arch=QWEN3,
             not bool(torch.isfinite(logits).all()):
         raise SystemExit("full-width forward logits are not finite")
     print(f"  full-width forward logits {tuple(logits.shape)} finite")
+    if check_syncs:
+        sync_check(srv, what.split(":")[0], lambda: model.serve_step(
+            srv._cache, tok, active=act))
     tokens = out["tokens"]
     del model, srv, out, logits
     gc.collect()          # the server holds reference cycles
@@ -1306,7 +1488,7 @@ def tensor_bytes():
 
 def streaming_path(card, arch=QWEN3,
                    what="phase 4b: main path, streaming experts at rf 0.5 "
-                        "over the int8 wire", wire="int8"):
+                        "over the int8 wire", wire="int8", check_syncs=False):
     """The launcher at rf 0.5 over ``wire``: int8 and fp16 take B2, the
     master dtype ("fp32": no wire image, bf16 slot buffers) takes B1
     through the slot table."""
@@ -1438,6 +1620,8 @@ def streaming_path(card, arch=QWEN3,
           + frozen_rows_step(
               lambda act: rt.decode(tok, act.cpu().numpy()),
               lambda: rt.layer_caches, lambda: rt.pos, srv.n_slots))
+    if check_syncs:
+        sync_check(srv, what.split(":")[0])
     tokens = out["tokens"]
     del model, srv, out, store, stream, rt
     gc.collect()          # frees the card and unlocks the host store
@@ -3366,8 +3550,10 @@ def main() -> int:
             check_flash_decode(gen, card), check_wkv6(gen, card),
             check_selective_scan(gen, card)]
     paths, tokens = {}, {}
-    paths["all_resident"], tokens["all_resident"] = main_path(card)
-    paths["streaming"], tokens["streaming"], d1 = streaming_path(card)
+    paths["all_resident"], tokens["all_resident"] = main_path(
+        card, check_syncs=True)
+    paths["streaming"], tokens["streaming"], d1 = streaming_path(
+        card, check_syncs=True)
     port_vs_cpu()
     streaming_vs_cpu()
     paths["rwkv"] = rwkv_path(card)
@@ -3400,6 +3586,7 @@ def main() -> int:
     for row, prefix in ((rows[0], "b1"), (rows[1], "b2")):
         row["sharded"] = {k: v for k, v in sharded.items()
                           if k.startswith(prefix)}
+    lint_phase()
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),

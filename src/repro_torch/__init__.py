@@ -14,12 +14,13 @@ that counts its launch and computes nothing.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The device an entry point runs on. Asking for CUDA on a machine
-    without a usable GPU raises instead of silently running on the CPU."""
+    without a usable GPU raises instead of silently running on the CPU.
+    (``torch`` is imported here, not with the package, so that
+    ``repro_torch.analysis`` runs before any dependency is importable.)"""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -569,6 +569,7 @@ class Model(nn.Module):
         B, S = x.shape[:2]
         token_mask = None
         if true_len is not None:
+            # torch-lint: disable=capture-hazard -- the servers pass a (B,) int32 tensor on the device, which as_tensor returns as it is; a host int or array is copied, so a captured prefill must take the tensor form
             true_len = torch.as_tensor(true_len, dtype=torch.int32,
                                        device=x.device).expand(B)
             token_mask = (torch.arange(S, device=x.device)[None, :]

@@ -31,6 +31,7 @@ def _to_tensor(arr, like: torch.Tensor) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr))          # a writable copy
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"shape {tuple(t.shape)} != {tuple(like.shape)}")
+    # torch-lint: disable=host-sync -- loading weights before serving or training starts: a blocking upload from pageable memory is the load
     return t.to(device=like.device, dtype=like.dtype)
 
 

@@ -32,7 +32,9 @@ HOST_COPIES = (
                                 "predictor", "memsim", "offload",
                                 "placement", "quant", "tracer")]
     + [f"serving/{n}.py" for n in ("request", "scheduler", "spec",
-                                   "workload", "perf_model", "guard")])
+                                   "workload", "perf_model", "guard")]
+    + [f"analysis/{n}.py" for n in ("findings", "baseline",
+                                    "rules/config_drift")])
 
 
 def _port_modules():
@@ -275,3 +277,45 @@ def test_expert_parallel_modules_are_scanned_and_default_to_cuda(
     srv = TorchModelServer(ec, Model(cfg, device="cpu").init(0),
                            device="cpu")
     assert isinstance(srv.slot_runtime, slot_runtime.ShardedSlotRuntime)
+
+
+def test_analysis_source_is_the_reference_with_its_own_prefix():
+    """The port's linter reads ``# torch-lint:`` directives where the
+    reference's reads ``# repro-lint:``, and is otherwise the reference's
+    ``source.py``; its rule registry is the reference's but for ``_load``,
+    which imports the port's rule modules."""
+    ref = (SRC / "repro/analysis/source.py").read_text(encoding="utf-8")
+    port = (PORT / "analysis/source.py").read_text(encoding="utf-8")
+    assert "repro-lint" not in ast.dump(_code(port))
+    assert ast.dump(_code(port)) == \
+        ast.dump(_code(ref.replace("repro-lint", "torch-lint")))
+
+    def registry(text):
+        return [ast.dump(n) for n in _code(text).body
+                if not (isinstance(n, ast.FunctionDef) and n.name == "_load")]
+    assert registry((PORT / "analysis/rules/__init__.py").read_text()) == \
+        registry((SRC / "repro/analysis/rules/__init__.py").read_text())
+
+
+def test_analysis_modules_are_scanned_and_need_no_dependency():
+    """The linter's modules are among those the import checks above cover,
+    and importing it (package ``__init__`` included) loads neither torch
+    nor numpy: it runs before any dependency is importable."""
+    mods = _port_modules()
+    for m in ("repro_torch.analysis", "repro_torch.analysis.lint",
+              "repro_torch.analysis.callgraph",
+              "repro_torch.analysis.rules.host_sync",
+              "repro_torch.analysis.rules.capture",
+              "repro_torch.analysis.rules.staging",
+              "repro_torch.analysis.rules.kernel_launch",
+              "repro_torch.analysis.rules.config_drift"):
+        assert m in mods
+    code = ("import sys\n"
+            "import repro_torch.analysis.lint\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'numpy', 'jax', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
