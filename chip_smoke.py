@@ -30,7 +30,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      decode shape, also timed with a cold L2, at B = 1 for each of phase
      8's prompt lengths and its warm-up length and over 256 and 2048
      steps, and at ragged shapes, bf16 and fp32 inputs; beside its bound,
-     the time its exps alone take on the special-function units);
+     the time its exps alone take on the special-function units), 3f B4
+     under a gradient (``WKV6``: its output bit-equal to the serving
+     launch, every gradient of ``wkv6_backward`` against ``wkv6_bwd_ref``
+     normwise per row, two backward launches bit-equal) at the training
+     shape (BH 256, T 128, hd 64) and at T 512, bf16 and fp32, the
+     backward and the forward with and without its checkpoints timed,
+     3g the same for B5 (``SelectiveScan``, ``selective_scan_backward``)
+     at Jamba's training shape (B 4, T 128, d_in 16384, N 16) and T 512;
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -166,7 +173,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      new finding; files, rule ids, suppressed findings by rule, declared
      fences and step entries; the capture map (step entries, what they
      reach, kernel launch sites) written to ``experiments/lint_torch/``;
- 14. one JSON line of per-kernel numbers, then the result line.
+ 14. train rwkv6-7b (cut 32 -> 4 layers, ~1.34e9 parameters) and
+     jamba-1.5-large-398b (cut 72 -> 1 layer, (mamba, dense), ~2.1e9) at
+     every published width in bf16 through the launcher's ``train``
+     (``python -m repro_torch.launch.train --arch A --layers L --steps
+     4``: remat on, AdamW), after freeing every earlier model and
+     reckoning the bytes from the model first: finite losses and gradient
+     norms, every parameter with a finite, non-zero gradient and moved;
+     B4 (B5) forward and backward launches per step as reckoned (rwkv: 2
+     forward a layer, its recompute included, 1 backward; jamba: 1 and 1);
+     then 3 steps timed part by part (forward + backward, AdamW), peak
+     memory, and one forward + backward profiled for the recurrent
+     kernels' device time; then the same cut in fp32: the loss's central
+     difference along the gradient (over every parameter, the recurrent
+     blocks' and the recurrence's own parameters) equals |g| within
+     1e-3;
+ 14b reduced rwkv6-7b and jamba-1.5-large-398b in fp32, 5 AdamW steps on
+     the card against the same weights on the CPU, as 10b;
+ 15. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -1109,6 +1133,7 @@ def _reset_counts():
     from repro_torch.kernels import wkv6 as wkv_mod
     moe_mod.launches = moe_mod.quant_launches = fd_mod.launches = 0
     wkv_mod.launches = scan_mod.launches = 0
+    wkv_mod.bwd_launches = scan_mod.bwd_launches = 0
 
 
 def _counts():
@@ -1120,7 +1145,14 @@ def _counts():
             "moe_ffn_quant": moe_mod.quant_launches,
             "flash_decode": fd_mod.launches,
             "wkv6": wkv_mod.launches,
-            "selective_scan": scan_mod.launches}
+            "selective_scan": scan_mod.launches,
+            "wkv6_bwd": wkv_mod.bwd_launches,
+            "selective_scan_bwd": scan_mod.bwd_launches}
+
+
+def _want(**counts):
+    """Expected launch counts: ``counts``, every other kernel 0."""
+    return {k: counts.get(k, 0) for k in _counts()}
 
 
 def _b3_per_step(cfg):
@@ -1376,9 +1408,9 @@ def main_path(card, arch=QWEN3,
     n_mamba = _n_mamba(cfg)
     _check_budgets(out, cfg)
     calls = out["n_warmup"] + srv.n_prefills + srv.n_decode_steps
-    want = {"moe_ffn": n_moe * calls, "moe_ffn_quant": 0,
-            "flash_decode": n_b3 * srv.n_decode_steps, "wkv6": 0,
-            "selective_scan": n_mamba * calls}
+    want = _want(moe_ffn=n_moe * calls,
+                 flash_decode=n_b3 * srv.n_decode_steps,
+                 selective_scan=n_mamba * calls)
     print(f"  launches: moe_ffn {launches['moe_ffn']} (expected {n_moe} MoE "
           f"layers x ({out['n_warmup']} warm-up forwards + {srv.n_prefills} "
           f"prefills + {srv.n_decode_steps} decode steps) = "
@@ -1517,10 +1549,9 @@ def streaming_path(card, arch=QWEN3,
     _check_budgets(out, cfg)
     served = srv.n_prefills + srv.n_decode_steps
     slot_kernel = "moe_ffn" if wire == "fp32" else "moe_ffn_quant"
-    want = {"moe_ffn": n_moe * out["n_warmup"], "moe_ffn_quant": 0,
-            "flash_decode": _b3_per_step(cfg) * srv.n_decode_steps,
-            "wkv6": 0,
-            "selective_scan": n_mamba * (out["n_warmup"] + served)}
+    want = _want(moe_ffn=n_moe * out["n_warmup"],
+                 flash_decode=_b3_per_step(cfg) * srv.n_decode_steps,
+                 selective_scan=n_mamba * (out["n_warmup"] + served))
     want[slot_kernel] += n_moe * served
     print(f"  launches: {slot_kernel} {launches[slot_kernel]} (expected "
           f"{n_moe} MoE layers x ({srv.n_prefills} prefills + "
@@ -2372,8 +2403,8 @@ def compare_grad(name, got, want):
           f"max_abs_err={float((g - w).abs().max()):.3e} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"{name}: B1's gradient disagrees with autograd "
-                         "through the plain version")
+        raise SystemExit(f"{name}: the kernel's gradient disagrees with "
+                         "the plain version's")
     return worst
 
 
@@ -2503,15 +2534,25 @@ def check_moe_ffn_train(gen, card, make):
     return nums
 
 
-def _moe_launches_per_step(model):
-    """B1 launches of one training step with remat: one forward for each
-    MoE layer, and a recompute in the backward for those of the periodic
-    tail (the reference's scan groups; prefix layers are not
-    rematerialized)."""
-    return sum(2 if i >= model.n_prefix else 1 for i in model.moe_layers)
+def _train_launches_per_step(model):
+    """Kernel launches of one training step with remat: B1 in each MoE
+    layer, B4 in each RWKV layer and B5 in each Mamba layer once forward,
+    plus a recompute in the backward for the layers of the periodic tail
+    (the reference's scan groups; prefix layers are not rematerialized);
+    B4's and B5's backward once a layer. -> {kernel: launches}."""
+    from repro_torch.config import BLOCK_MAMBA, BLOCK_RWKV
+    cfg = model.cfg
+
+    def fwd(layers):
+        return sum(2 if i >= model.n_prefix else 1 for i in layers)
+    rwkv, mamba = ([i for i in range(cfg.n_layers) if cfg.block_kind(i) == k]
+                   for k in (BLOCK_RWKV, BLOCK_MAMBA))
+    return _want(moe_ffn=fwd(model.moe_layers), wkv6=fwd(rwkv),
+                 selective_scan=fwd(mamba), wkv6_bwd=len(rwkv),
+                 selective_scan_bwd=len(mamba))
 
 
-def _params_close_after_steps(init, got, want, lr):
+def _params_close_after_steps(init, got, want, lr, phase="10b"):
     """Parameters after AdamW steps on two devices from the same weights:
     where a gradient is near eps its rounding moves that element's update
     by a fraction of lr (Adam divides by √v̂ + eps), so each element within
@@ -2523,13 +2564,13 @@ def _params_close_after_steps(init, got, want, lr):
         g, w, i = p.detach().cpu(), want[n].detach(), init[n]
         if not bool(torch.all((g - w).abs() <= 0.25 * lr)):
             worst_abs = float((g - w).abs().max())
-            raise SystemExit(f"phase 10b: {n} differs from the CPU by more "
-                             f"than 0.25 lr ({worst_abs:.3e})")
+            raise SystemExit(f"phase {phase}: {n} differs from the CPU by "
+                             f"more than 0.25 lr ({worst_abs:.3e})")
         rel = float(torch.linalg.vector_norm(g - w)) / max(
             float(torch.linalg.vector_norm(w - i)), 1e-30)
         if rel > 2e-3:
-            raise SystemExit(f"phase 10b: {n}'s update differs from the CPU's"
-                             f" by {rel:.3e} of its norm")
+            raise SystemExit(f"phase {phase}: {n}'s update differs from the "
+                             f"CPU's by {rel:.3e} of its norm")
         worst = max(worst, rel)
     return worst
 
@@ -2612,9 +2653,8 @@ def train_path(card):
     if not all(np.isfinite(losses + gnorms)):
         raise SystemExit(f"phase 10: non-finite loss or gnorm: {losses} "
                          f"{gnorms}")
-    per_step = _moe_launches_per_step(model)
-    want = {"moe_ffn": per_step * TRAIN_STEPS, "moe_ffn_quant": 0,
-            "flash_decode": 0, "wkv6": 0, "selective_scan": 0}
+    per_step = _train_launches_per_step(model)["moe_ffn"]
+    want = _want(moe_ffn=per_step * TRAIN_STEPS)
     print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; gnorms "
           f"{', '.join(f'{v:.3f}' for v in gnorms)}")
     print(f"  launches over {TRAIN_STEPS} steps: {launches} (expected "
@@ -2702,11 +2742,14 @@ def remat_at_full_width(card, batch):
 TRAIN_CPU_ARCHS = (QWEN3, DEEPSEEK_V2)
 
 
-def train_vs_cpu():
+def train_vs_cpu(archs=TRAIN_CPU_ARCHS, phase="10b"):
     """Phase 10b: reduced qwen3-moe (every layer in a scan group, so every
     MoE layer is rematerialized) and reduced DeepSeek-V2 (a dense prefix
     layer, then an MoE one) in fp32, 5 AdamW steps on the card and on the
-    CPU from the same weights; then a checkpoint round trip on the card."""
+    CPU from the same weights; then a checkpoint round trip on the card.
+    Phase 14b: the same for reduced rwkv6-7b (B4 and its backward in every
+    layer) and jamba (B5 and its backward in its Mamba layers, B1 in its
+    MoE layers)."""
     import tempfile
 
     import numpy as np
@@ -2718,10 +2761,10 @@ def train_vs_cpu():
     from repro_torch.train.loop import make_train_step, to_batch
     from repro_torch.train.optim import OptConfig, adamw_init
 
-    for arch in TRAIN_CPU_ARCHS:
+    for arch in archs:
         cfg = get_config(arch).reduced()
-        print(f"phase 10b: {cfg.name} ({cfg.n_layers} layers, fp32) trained "
-              "5 steps on the card vs the same weights on the CPU")
+        print(f"phase {phase}: {cfg.name} ({cfg.n_layers} layers, fp32) "
+              "trained 5 steps on the card vs the same weights on the CPU")
         gpu = Model(cfg, device="cuda").init(1)
         cpu = Model(cfg, device="cpu")
         cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -2739,16 +2782,15 @@ def train_vs_cpu():
                 launches = _counts()
         got, want = np.asarray(out["cuda"]), np.asarray(out["cpu"])
         if not np.allclose(got, want, rtol=1e-4, atol=0):
-            raise SystemExit(f"phase 10b: losses/gnorms differ: card {got} "
-                             f"cpu {want}")
+            raise SystemExit(f"phase {phase}: losses/gnorms differ: card "
+                             f"{got} cpu {want}")
         rel = _params_close_after_steps(
             init, dict(gpu.named_parameters()),
-            dict(cpu.named_parameters()), opt_cfg.lr)
-        per_step = _moe_launches_per_step(gpu)
-        if launches["moe_ffn"] != 5 * per_step or \
-                sum(launches.values()) != launches["moe_ffn"]:
-            raise SystemExit(f"phase 10b: launches {launches}, expected "
-                             f"moe_ffn {5 * per_step} only")
+            dict(cpu.named_parameters()), opt_cfg.lr, phase)
+        expect = {k: 5 * v for k, v in _train_launches_per_step(gpu).items()}
+        if launches != expect:
+            raise SystemExit(f"phase {phase}: launches {launches}, expected "
+                             f"{expect}")
         with tempfile.TemporaryDirectory() as tmp:
             path = f"{tmp}/ckpt.npz"
             save(path, gpu)
@@ -2759,18 +2801,444 @@ def train_vs_cpu():
         same = all(torch.equal(a, b) for a, b in
                    zip(gpu.parameters(), back.parameters()))
         if not same or abs(l1 - l2) >= 1e-6:
-            raise SystemExit(f"phase 10b: checkpoint round trip: parameters "
-                             f"equal {same}, loss {l1} vs {l2}")
+            raise SystemExit(f"phase {phase}: checkpoint round trip: "
+                             f"parameters equal {same}, loss {l1} vs {l2}")
         print(f"  losses card {', '.join(f'{v:.6f}' for v in got[:, 0])}, "
               f"max |Δ|/|cpu| {np.max(np.abs(got - want) / want):.2e} over "
               f"losses and gnorms (rtol 1e-4); parameters within 0.25 lr, "
               f"worst update difference {rel:.2e} of its norm (limit 2e-3); "
-              f"moe_ffn launches {launches['moe_ffn']} = 5 steps x "
-              f"{per_step}; checkpoint save -> restore on the card: "
+              f"launches over 5 steps "
+              f"{ {k: v for k, v in launches.items() if v} }; checkpoint "
+              f"save -> restore on the card: "
               f"parameters bit-equal, loss {l1:.6f} == {l2:.6f}")
         del gpu, cpu, back
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# B4 and B5 under a gradient: their backward kernels (3f, 3g) and the
+# recurrent families trained at full width (14) and against the CPU (14b)
+# ---------------------------------------------------------------------------
+
+RWKV6 = "rwkv6-7b"
+BWD_SEQS = (TRAIN_SEQ, 512)         # the training length, and 4x it
+# (what, arch, depth): phase 14's legs; each layer of rwkv6-7b is the same
+# block (4 scan groups: B4 twice a step forward, once backward); jamba's
+# first layer is (mamba, dense) (a prefix: B5 once each way)
+RECURRENT_LEGS = (("rwkv", RWKV6, 4), ("jamba", JAMBA, 1))
+RECURRENT_STEPS = 4
+
+
+def _grads_vs_plain(tag, leaves, want, names):
+    """Each leaf's gradient against the plain backward's, normwise per
+    leading row (``compare_grad``). -> (worst normwise error, max abs
+    error)."""
+    rel = max(compare_grad(f"{tag} d{n}", t.grad, g)
+              for n, t, g in zip(names, leaves, want))
+    err = max(float((t.grad.float() - g.float()).abs().max())
+              for t, g in zip(leaves, want))
+    return rel, err
+
+
+def _check_bitequal(tag, g1, g2):
+    import torch
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise SystemExit(f"{tag}: two backward launches on the same inputs "
+                         "differ")
+    print(f"  {tag}: two backward launches bit-equal")
+
+
+def _bwd_nums(run, plain, fwd, fwd_ck, ins, outs, flops, own_bytes,
+              own_flops):
+    """A backward kernel's ms, its plain version's, the forward's with and
+    without checkpoints, and two bounds. ``bound_ms`` is the function's
+    least work: ``ins`` (the forward's inputs and the upstream gradients)
+    read once, ``outs`` (the gradients) written once, and ``flops``, the
+    reverse walk's fp32 operations. ``design_bytes_ms`` adds this design's
+    own: ``own_bytes`` (the checkpoints read, B5's partials written and read
+    back) and ``own_flops`` (the states recomputed from the checkpoints)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    nums = dict(ms=time_ms(run, 20),
+                plain_ms=time_ms(plain, 1, ahead=False),
+                fwd_ms=time_ms(fwd, 20), fwd_ckpt_ms=time_ms(fwd_ck, 20))
+    nums["bound_ms"], nums["bound_by"] = bound(nbytes, flops, "torch.float32")
+    nums["design_bytes_ms"], nums["design_by"] = bound(
+        nbytes + own_bytes, flops + own_flops, "torch.float32")
+    nums["library_ms"] = None
+    return nums
+
+
+def _bwd_line(what, nums, card):
+    print(f"  time {what}: backward kernel {nums['ms']:.4f} ms, plain "
+          f"backward {nums['plain_ms']:.4f} ms, library none (no single "
+          f"PyTorch call computes the backward), bound "
+          f"{nums['bound_ms']:.6f} ms ({nums['bound_by']}: the function's "
+          f"least work), roofline {nums['bound_ms'] / nums['ms']:.1%}; this "
+          f"design's own work {nums['design_bytes_ms']:.6f} ms "
+          f"({nums['design_by']}: checkpoints, partials, recompute); forward "
+          f"{nums['fwd_ms']:.4f} ms, with its checkpoints "
+          f"{nums['fwd_ckpt_ms']:.4f} ms (L2-warm, back-to-back launches) "
+          f"[{card}]")
+
+
+def check_wkv6_bwd(gen, card):
+    """Phase 3f: B4 under a gradient at the training shape (BH 256 = 4 rows
+    x 64 heads of hd 64, T 128) and at T 512, r/k/v bf16 with an fp32 w =
+    exp(-exp(N)) as the model makes it, and in fp32: ``WKV6``'s output
+    bit-equal to the serving launch, every gradient (r, k, v, w, u, s0)
+    against ``wkv6_bwd_ref`` on the card, normwise per row (GRAD_RTOL); two
+    backward launches bit-equal; bf16 timed. -> B4-bwd's row (T 128)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    print("phase 3f: wkv6 backward kernel vs plain (wkv6_bwd_ref)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    BH, hd = TRAIN_BATCH * 64, 64
+    row, by_T = None, {}
+    for T in BWD_SEQS:
+        for dtype in (bf16, f32):
+            def rnd(shape, std, dt=f32):
+                return (torch.randn(shape, generator=gen, device="cuda")
+                        * std).to(dt)
+            r, k, v = (rnd((BH, T, hd), 0.5, dtype) for _ in range(3))
+            w = torch.exp(-torch.exp(rnd((BH, T, hd), 1.0) - 0.5))
+            args = (r, k, v, w, rnd((BH, hd), 0.1), rnd((BH, hd, hd), 0.1))
+            do, dsN = rnd((BH, T, hd), 1.0, dtype), rnd((BH, hd, hd), 0.1)
+            tag = f"BH={BH} T={T} hd={hd} r/k/v {dtype} w fp32"
+            o0, sN0 = wkv_mod.wkv6(*args)
+            leaves = [t.clone().requires_grad_() for t in args]
+            o, sN = wkv_mod.WKV6.apply(*leaves)
+            torch.autograd.backward((o, sN), (do, dsN))
+            if not (torch.equal(o.detach(), o0)
+                    and torch.equal(sN.detach(), sN0)):
+                raise SystemExit(f"{tag}: WKV6's outputs are not the serving "
+                                 "launch's, bit for bit")
+            want = ref.wkv6_bwd_ref(*args, do, dsN)
+            rel, err = _grads_vs_plain(tag, leaves, want, "rkvwus")
+            _, _, ck = wkv_mod.wkv6(*args, checkpoints=True)
+            g1 = wkv_mod.wkv6_backward(*args[:5], ck, do, dsN)
+            _check_bitequal(tag, g1,
+                            wkv_mod.wkv6_backward(*args[:5], ck, do, dsN))
+            del o, sN, leaves, want
+            if dtype != bf16:
+                continue
+            # per state element and step: the reverse walk's 4 products (8)
+            # and G's update (3); this design's recompute of the states
+            # from its checkpoints, k*v and w*S + a (3)
+            nums = dict(max_abs_err=err, grad_rel_err=rel, **_bwd_nums(
+                lambda: wkv_mod.wkv6_backward(*args[:5], ck, do, dsN),
+                lambda: ref.wkv6_bwd_ref(*args, do, dsN),
+                lambda: wkv_mod.wkv6(*args),
+                lambda: wkv_mod.wkv6(*args, checkpoints=True),
+                (*args, do, dsN), g1, 11 * BH * T * hd * hd,
+                ck.numel() * 4, 3 * BH * T * hd * hd))
+            _bwd_line(f"BH={BH} T={T}", nums, card)
+            by_T[T] = {key: nums[key] for key in
+                       ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms")}
+            if T == TRAIN_SEQ:
+                row = dict(name="wkv6_bwd", route="cuda",
+                           source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                           replaces="src/repro/models/rwkv6.py:78", **nums,
+                           replaces_note="no Pallas kernel: XLA's "
+                                         "differentiation of the lax.scan of "
+                                         "_wkv_chunk (:78-89)",
+                           shape=f"BH={BH} T={T} hd={hd} r/k/v bf16 w fp32",
+                           library_note="no single PyTorch call computes "
+                                        "the backward")
+            del args, do, dsN, ck, g1
+            torch.cuda.empty_cache()
+    row["by_T"] = by_T
+    return row
+
+
+def check_scan_bwd(gen, card):
+    """Phase 3g: B5 under a gradient at Jamba's training shape (B 4, T 128,
+    d_in 16384, N 16) and at T 512, x/B/C bf16 and fp32: ``SelectiveScan``'s
+    output bit-equal to the serving launch, every gradient (x, dt, A, B, C,
+    h0) against ``selective_scan_bwd_ref`` on the card, normwise per
+    leading row (GRAD_RTOL); two backward launches bit-equal; bf16 timed.
+    -> B5-bwd's row (T 128)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as scan_mod
+
+    print("phase 3g: selective_scan backward kernel vs plain "
+          "(selective_scan_bwd_ref)")
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, D, N = TRAIN_BATCH, 2 * 8192, 16
+    row, by_T = None, {}
+    for T in BWD_SEQS:
+        for dtype in (bf16, f32):
+            args = scan_inputs(gen, B, T, D, N, dtype)
+            dy = torch.randn((B, T, D), generator=gen, device="cuda")
+            dhT = torch.randn((B, D, N), generator=gen, device="cuda") * 0.1
+            tag = f"B={B} T={T} d_in={D} N={N} x/B/C {dtype}"
+            y0, h0 = scan_mod.selective_scan(*args)
+            leaves = [t.clone().requires_grad_() for t in args]
+            y, hT = scan_mod.SelectiveScan.apply(*leaves)
+            torch.autograd.backward((y, hT), (dy, dhT))
+            if not (torch.equal(y.detach(), y0)
+                    and torch.equal(hT.detach(), h0)):
+                raise SystemExit(f"{tag}: SelectiveScan's outputs are not "
+                                 "the serving launch's, bit for bit")
+            want = ref.selective_scan_bwd_ref(*args, dy, dhT)
+            rel, err = _grads_vs_plain(
+                tag, leaves, want, ("x", "t", "A", "B", "C", "h0"))
+            _, _, ck = scan_mod.selective_scan(*args, checkpoints=True)
+            g1 = scan_mod.selective_scan_backward(*args[:5], ck, dy, dhT)
+            _check_bitequal(tag, g1, scan_mod.selective_scan_backward(
+                *args[:5], ck, dy, dhT))
+            del y, hT, leaves, want, y0, h0
+            if dtype != bf16:
+                continue
+            # per state element and step: the reverse walk's 19 fp32
+            # operations (exp included); this design's recompute of the
+            # states from its checkpoints (5), its checkpoints read and its
+            # partials (dB/dC a block, dA a batch row) written and read
+            part = -(-D // scan_mod.CHANNELS) * B * T * 2 * N + B * D * N
+            nums = dict(max_abs_err=err, grad_rel_err=rel, **_bwd_nums(
+                lambda: scan_mod.selective_scan_backward(*args[:5], ck, dy,
+                                                         dhT),
+                lambda: ref.selective_scan_bwd_ref(*args, dy, dhT),
+                lambda: scan_mod.selective_scan(*args),
+                lambda: scan_mod.selective_scan(*args, checkpoints=True),
+                (*args, dy, dhT), g1, 19 * B * T * D * N,
+                ck.numel() * 4 + 2 * 4 * part, 5 * B * T * D * N))
+            _bwd_line(f"B={B} T={T}", nums, card)
+            by_T[T] = {key: nums[key] for key in
+                       ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms")}
+            if T == TRAIN_SEQ:
+                row = dict(name="selective_scan_bwd", route="cuda",
+                           source="src/repro_torch/kernels/csrc/"
+                                  "selective_scan_bwd.cu",
+                           replaces="src/repro/models/mamba.py:65", **nums,
+                           replaces_note="no Pallas kernel: XLA's "
+                                         "differentiation of the lax.scan of "
+                                         "_scan_chunk (:65-75) over "
+                                         "_ssm_params (:52-62)",
+                           shape=f"B={B} T={T} d_in={D} N={N} x/B/C bf16, "
+                                 "dt/A/h fp32",
+                           library_note="no single PyTorch call computes "
+                                        "the backward")
+            del args, dy, dhT, ck, g1
+            torch.cuda.empty_cache()
+    row["by_T"] = by_T
+    return row
+
+
+def _kernel_ms(fn, names):
+    """Run ``fn`` once under torch.profiler. -> (device busy ms, {name:
+    summed ms of the kernels whose name contains it})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3,
+            {n: sum(e.time_range.elapsed_us() for e in dev
+                    if n in e.name) / 1e3 for n in names})
+
+
+# phase 14's directional-derivative check: each step along d = g / |g|
+# is FD_DELTA / |g| long, so the loss moves by ~FD_DELTA, far above fp32's
+# rounding of a loss of ~11 (a central difference of a step 1e-3 long read
+# within 2e-5 and 3e-5 of |g| for jamba and rwkv on an H100); a term
+# missing from a backward moves it by its share of |g|
+FD_DELTA, FD_RTOL = 1e-2, 1e-3
+# the parameters that reach the loss only through the recurrence kernel
+SCAN_PARAMS = {"rwkv": ("u", "decay_base", "decay_A", "decay_B"),
+               "mamba": ("A_log", "dt_bias", "w_dt")}
+
+
+def directional_check(cfg, card):
+    """Phase 14's gradient check at full width: ``cfg`` in fp32 (the bf16
+    leg's weights are too coarse for a difference), one loss + backward of
+    a seeded batch through ``WKV6`` / ``SelectiveScan``, then the loss at
+    w ± eps d (no gradient: the raw launches) for d = g / |g| over every
+    parameter, and over the recurrent blocks' parameters alone: the
+    central difference must equal |g| along d within FD_RTOL. d runs over
+    the recurrent blocks' parameters (every gradient of the backward kernel
+    flows into them), and over those that reach the loss only through the
+    recurrence (``SCAN_PARAMS``: the decay and bonus of B4, the A and dt of
+    B5), whose share of the blocks' |g| is too small to show a fault there.
+    The other parameters' gradients are plain autograd, which phase 14b
+    holds against the CPU."""
+    import math
+
+    import torch
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import to_batch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg, device="cuda").init(0).trainable()
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batch = to_batch(next(iter(data.batches(1, seed=3))), "cuda")
+    model.loss(batch, remat=True).backward()
+    params = dict(model.named_parameters())
+    kind = "rwkv" if cfg.rwkv is not None else "mamba"
+    out = []
+    own = SCAN_PARAMS[kind]
+    for what, names in ((f"the {kind} blocks' parameters",
+                         [n for n in params if f".{kind}." in n]),
+                        (f"the {kind} recurrence's {', '.join(own)}",
+                         [n for n in params
+                          if n.rsplit(".", 1)[-1] in own
+                          and f".{kind}." in n])):
+        d = {n: params[n].grad.detach() for n in names}
+        norm = math.sqrt(sum(float((t.double() ** 2).sum())
+                             for t in d.values()))
+        eps = FD_DELTA / norm
+
+        def shift(scale):
+            for n, t in d.items():
+                params[n].add_(t, alpha=scale * eps / norm)
+        with torch.no_grad():
+            shift(1)
+            l_plus = float(model.loss(batch, remat=False))
+            shift(-2)
+            l_minus = float(model.loss(batch, remat=False))
+            shift(1)
+        fd = (l_plus - l_minus) / (2 * eps)
+        print(f"  fp32 directional derivative along the gradient over {what}"
+              f" ({len(names)} tensors): (L(w + eps d) - L(w - eps d)) / "
+              f"2 eps = {fd:.6f} against |g| = {norm:.6f} (eps {eps:.3g}; "
+              f"relative difference {abs(fd - norm) / norm:.2e}, limit "
+              f"{FD_RTOL:g}) [{card}]")
+        if not abs(fd - norm) <= FD_RTOL * norm:
+            raise SystemExit(f"phase 14: {cfg.name}'s gradient over {what} "
+                             "disagrees with the loss's central difference")
+        out.append((what, fd, norm))
+    del model, params, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  directional check: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def recurrent_train_path(card, arch, depth):
+    """Phase 14: ``arch`` at every published width cut to ``depth`` layers,
+    bf16, trained through the launcher's ``train`` (``make_train_step``:
+    remat on, AdamW) for RECURRENT_STEPS steps of batch 4 x seq 128; every
+    parameter moved and has a finite, non-zero gradient; B4/B5 launches as
+    reckoned; then 3 steps timed part by part, and one forward + backward
+    profiled (the recurrent kernels' share); then ``directional_check``
+    of the same cut in fp32. -> (the launcher's launch counts,
+    readings)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import to_batch
+    from repro_torch.train.optim import OptConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--layers", str(depth), "--steps",
+            str(RECURRENT_STEPS)]
+    args = train_mod.parse_args(argv)
+    cfg = train_mod.config(args)
+    n_params = sum(p.numel() for p in Model(cfg, device="meta").parameters())
+    reckoned = n_params * (2 + 2 + 8)
+    free, _ = torch.cuda.mem_get_info()
+    kind = ("rwkv head_dim {}, decay_lora {}".format(
+        cfg.rwkv.head_dim, cfg.rwkv.decay_lora) if cfg.rwkv is not None
+        else "mamba d_in {}, d_state {}".format(
+            cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state))
+    print(f"phase 14: {cfg.name} at every published width (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {kind}, vocab {cfg.vocab}), depth "
+          f"cut to {depth}: {_layer_kinds(cfg)}; python -m "
+          f"repro_torch.launch.train {' '.join(argv)}: {n_params / 1e9:.3f}e9"
+          f" params, reckoned {reckoned / 1e9:.1f} GB (bf16 weights and "
+          f"gradients, fp32 moments) of {free / 1e9:.1f} GB free")
+    if reckoned > 0.9 * free:
+        raise SystemExit(f"phase 14: {cfg.name} at {depth} layers does not "
+                         "fit the card")
+    model = Model(cfg, device="cuda").init(0)
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = train_mod.train(args, cfg, model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {k: RECURRENT_STEPS * v
+            for k, v in _train_launches_per_step(model).items()}
+    losses = out["losses"] + out["gnorms"]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"phase 14: non-finite loss or gnorm: {losses}")
+    for n, p in params.items():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise SystemExit(f"phase 14: {n} has no finite gradient")
+        if not bool(p.grad.any()):
+            raise SystemExit(f"phase 14: {n}'s gradient is zero")
+    still = [n for n, p in params.items() if torch.equal(p, before[n])]
+    if still:
+        raise SystemExit(f"phase 14: the steps left {still} unchanged")
+    del before
+    print(f"  launches over {RECURRENT_STEPS} steps: "
+          f"{ {k: v for k, v in launches.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }: {model.n_groups} scan "
+          f"group(s) after {model.n_prefix} prefix layer(s), the groups' "
+          f"layers recomputed in the backward); every parameter has a "
+          f"finite, non-zero gradient and moved; launcher wall {wall:.1f} s;"
+          f" the launcher's losses {', '.join(f'{x:.4f}' for x in out['losses'])}"
+          f", gnorms {', '.join(f'{x:.4f}' for x in out['gnorms'])} (lr "
+          f"{args.lr:g})")
+    if launches != want:
+        raise SystemExit("phase 14: launch counts differ from the training "
+                         "step's")
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batches = [to_batch(b, "cuda") for b in data.batches(TIMED_STEPS + 1,
+                                                         seed=2)]
+    opt_cfg = OptConfig(lr=args.lr, warmup_steps=2,
+                        total_steps=RECURRENT_STEPS + TIMED_STEPS)
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    med = _timed_parts(model, state, opt_cfg, batches[:TIMED_STEPS])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    names = ("wkv6_bwd", "selective_scan_bwd", "wkv6_kernel",
+             "selective_scan_kernel")
+
+    def fwd_bwd():
+        for p in params.values():
+            p.grad = None
+        model.loss(batches[-1], remat=True).backward()
+    busy, by_kernel = _kernel_ms(fwd_bwd, names)
+    mine = {n: ms for n, ms in by_kernel.items() if ms}
+    adam_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                     for p in params.values())
+    print(f"  step {med[0] + med[1]:.3f} ms = forward + backward "
+          f"{med[0]:.3f} ms (host enqueue {med[2]:.3f}) + AdamW {med[1]:.3f}"
+          f" ms (host enqueue {med[3]:.3f}; bytes floor "
+          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms), medians over "
+          f"{TIMED_STEPS} steps; peak {peak:.2f} GB; one forward + backward "
+          f"profiled: device busy {busy:.3f} ms, of it "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in mine.items())
+          + f" [{card}]")
+    readings = dict(step_ms=float(med[0] + med[1]), fb_ms=float(med[0]),
+                    adam_ms=float(med[1]), peak_gb=peak, busy_ms=busy,
+                    kernel_ms=mine, n_params=n_params)
+    del model, params, state, out, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings["directional"] = directional_check(cfg, card)
+    return launches, readings
 
 
 # ---------------------------------------------------------------------------
@@ -2932,9 +3400,7 @@ def grouped_train_path(card, train10):
     losses = np.asarray([[float(a), float(b)] for a, b in losses])
     if not np.isfinite(losses).all():
         raise SystemExit(f"phase 11: non-finite loss or gnorm: {losses}")
-    want = {"moe_ffn": GROUPED_STEPS * len(model.moe_layers),
-            "moe_ffn_quant": 0, "flash_decode": 0, "wkv6": 0,
-            "selective_scan": 0}
+    want = _want(moe_ffn=GROUPED_STEPS * len(model.moe_layers))
     if launches != want:
         raise SystemExit(f"phase 11: launches {launches}, expected {want}")
     steps = [a.elapsed_time(b) for a, b in ev]
@@ -3266,6 +3732,9 @@ def check_sharded_exchange(gen, card):
             def plain(sl):
                 return ref.moe_ffn_ref(xg[sl], *(w[sl] for w in ws),
                                        act="swiglu")
+
+            def library(sl):
+                return library_ffn(xg[sl], *(w[sl] for w in ws))
         else:
             def unsharded():
                 return ops.moe_expert_ffn_slots(xg, bufs, slots, act="swiglu",
@@ -3291,6 +3760,18 @@ def check_sharded_exchange(gen, card):
                     *(bufs.get(n + "_scale") for n in ("w_gate", "w_up",
                                                        "w_down")),
                     slots[sl], act="swiglu", out_dtype=out_dtype)
+
+            def library(sl):
+                # the shard's slot rows gathered (B2: dequantized to bf16)
+                idx = slots[sl].long()
+
+                def take(n):
+                    w = bufs[n][idx].to(torch.bfloat16)
+                    sc = bufs.get(n + "_scale")
+                    return w if sc is None else \
+                        w * sc[idx][:, None, :].to(torch.bfloat16)
+                return library_ffn(xg[sl], *(take(n) for n in
+                                             ("w_gate", "w_up", "w_down")))
         want = unsharded()
         full_ms = time_ms(unsharded, 10)
         weights = [bufs[n] for n in sorted(bufs)]
@@ -3304,13 +3785,14 @@ def check_sharded_exchange(gen, card):
                 raise SystemExit(f"phase 12: {form} at D = {D} differs from "
                                  "the unsharded launch")
             Eb = E // D
-            ms, bnd = [], []
+            ms, bnd, lib = [], [], []
             for i in range(D):
                 sl = slice(i * Eb, (i + 1) * Eb)
                 compare(f"{form} D={D} shard {i} (experts {sl.start}-"
                         f"{sl.stop - 1}, {int(routed[sl].any(-1).sum())} "
                         f"routed) vs plain", shard(sl), plain(sl))
                 ms.append(time_ms(lambda: shard(sl), 10))
+                lib.append(time_ms(lambda: library(sl), 10))
                 bnd.append(bound(shard_bytes(xg, routed, weights, out_dtype,
                                              sl), 0, torch.float32)[0])
             # the exchange a layer as the runtime runs it on one card:
@@ -3328,11 +3810,18 @@ def check_sharded_exchange(gen, card):
             print(f"  {form} D={D}: bit-equal to the unsharded launch; "
                   f"per-shard kernel ms "
                   f"{', '.join(f'{t:.4f}' for t in ms)} against bytes "
-                  f"bounds {', '.join(f'{b:.4f}' for b in bnd)}; the "
+                  f"bounds {', '.join(f'{b:.4f}' for b in bnd)} and the "
+                  f"library call's {', '.join(f'{t:.4f}' for t in lib)} ("
+                  + ("3x torch.bmm + silu" if wire is None else
+                     "slot rows gathered" + (", dequantized to bf16"
+                                             if wire in ("int8", "fp16")
+                                             else "") + ", 3x torch.bmm + "
+                     "silu") + "); the "
                   f"D launches together {sharded_ms:.4f} ms; unsharded "
                   f"launch {full_ms:.4f} ms (bound {full_bound:.4f}); "
                   f"exchange copies a layer {ex_ms:.4f} ms [{card}]")
             out[(form, D)] = dict(shard_ms=ms, shard_bound_ms=bnd,
+                                  shard_library_ms=lib,
                                   sharded_ms=sharded_ms,
                                   unsharded_ms=full_ms,
                                   unsharded_bound_ms=full_bound,
@@ -3423,9 +3912,8 @@ def expert_parallel_path(card, path, D, wire, want_tokens):
                          f"{out['tokens']} against {want_tokens}")
     served = srv.n_prefills + srv.n_decode_steps
     slot_kernel = "moe_ffn_quant" if wire else "moe_ffn"
-    want = {"moe_ffn": n_moe * out["n_warmup"], "moe_ffn_quant": 0,
-            "flash_decode": _b3_per_step(cfg) * srv.n_decode_steps,
-            "wkv6": 0, "selective_scan": 0}
+    want = _want(moe_ffn=n_moe * out["n_warmup"],
+                 flash_decode=_b3_per_step(cfg) * srv.n_decode_steps)
     want[slot_kernel] += D * n_moe * served
     print(f"  tokens equal D = 1's; launches: {slot_kernel} "
           f"{launches[slot_kernel]} (expected {D} shards x {n_moe} MoE layers"
@@ -3546,47 +4034,70 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_moe_ffn(gen, card), check_moe_ffn_quant(gen, card),
-            check_flash_decode(gen, card), check_wkv6(gen, card),
-            check_selective_scan(gen, card)]
+    seconds = {"2": round(time.perf_counter() - t0, 1)}
+
+    def timed(phase, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[phase] = round(time.perf_counter() - t, 1)
+        return out
+    rows = [timed("3a", check_moe_ffn, gen, card),
+            timed("3c", check_moe_ffn_quant, gen, card),
+            timed("3b", check_flash_decode, gen, card),
+            timed("3d", check_wkv6, gen, card),
+            timed("3e", check_selective_scan, gen, card),
+            timed("3f", check_wkv6_bwd, gen, card),
+            timed("3g", check_scan_bwd, gen, card)]
     paths, tokens = {}, {}
-    paths["all_resident"], tokens["all_resident"] = main_path(
-        card, check_syncs=True)
-    paths["streaming"], tokens["streaming"], d1 = streaming_path(
-        card, check_syncs=True)
-    port_vs_cpu()
-    streaming_vs_cpu()
-    paths["rwkv"] = rwkv_path(card)
-    rwkv_vs_cpu()
-    paths["deepseek_all_resident"], _ = main_path(
-        card, DEEPSEEK_V2, "phase 7: DeepSeek-V2, every expert resident")
-    paths["deepseek_streaming"], _, _ = streaming_path(
-        card, DEEPSEEK_V2, "phase 7b: DeepSeek-V2, streaming experts at rf "
-                           "0.5 over the int8 wire")
-    deepseek_vs_cpu()
-    paths["jamba_all_resident"], _ = main_path(
-        card, JAMBA, "phase 8: Jamba, every expert resident")
-    paths["jamba_streaming"], _, _ = streaming_path(
-        card, JAMBA, "phase 8b: Jamba, streaming experts at rf 0.5 over the "
-                     "master-dtype (bf16) wire", wire="fp32")
-    jamba_vs_cpu()
-    paths["gemma2"] = family_path(card, GEMMA2, "9")
-    paths["qwen2_vl"] = family_path(card, QWEN2_VL, "9b")
-    paths["whisper"] = family_path(card, WHISPER, "9c")
-    families_vs_cpu()
-    paths["train"], train10 = train_path(card)
-    train_vs_cpu()
-    paths["train_grouped"], grouped_row = grouped_train_path(card, train10)
+    paths["all_resident"], tokens["all_resident"] = timed(
+        "4", main_path, card, check_syncs=True)
+    paths["streaming"], tokens["streaming"], d1 = timed(
+        "4b", streaming_path, card, check_syncs=True)
+    timed("5", port_vs_cpu)
+    timed("5b", streaming_vs_cpu)
+    paths["rwkv"] = timed("6", rwkv_path, card)
+    timed("6b", rwkv_vs_cpu)
+    paths["deepseek_all_resident"], _ = timed(
+        "7", main_path, card, DEEPSEEK_V2,
+        "phase 7: DeepSeek-V2, every expert resident")
+    paths["deepseek_streaming"], _, _ = timed(
+        "7b", streaming_path, card, DEEPSEEK_V2,
+        "phase 7b: DeepSeek-V2, streaming experts at rf 0.5 over the int8 "
+        "wire")
+    timed("7c", deepseek_vs_cpu)
+    paths["jamba_all_resident"], _ = timed(
+        "8", main_path, card, JAMBA, "phase 8: Jamba, every expert resident")
+    paths["jamba_streaming"], _, _ = timed(
+        "8b", streaming_path, card, JAMBA, "phase 8b: Jamba, streaming "
+        "experts at rf 0.5 over the master-dtype (bf16) wire", wire="fp32")
+    timed("8c", jamba_vs_cpu)
+    paths["gemma2"] = timed("9", family_path, card, GEMMA2, "9")
+    paths["qwen2_vl"] = timed("9b", family_path, card, QWEN2_VL, "9b")
+    paths["whisper"] = timed("9c", family_path, card, WHISPER, "9c")
+    timed("9d", families_vs_cpu)
+    paths["train"], train10 = timed("10", train_path, card)
+    timed("10b", train_vs_cpu)
+    paths["train_grouped"], grouped_row = timed(
+        "11", grouped_train_path, card, train10)
     rows[0].update(grouped_row)
-    paths["blocked_prefill"] = blocked_prefill_path(card)
-    blocked_vs_cpu()
-    dryrun_sweep()
-    ep_paths, sharded = expert_parallel(card, gen, tokens, d1)
+    paths["blocked_prefill"] = timed("11b", blocked_prefill_path, card)
+    timed("11b-cpu", blocked_vs_cpu)
+    timed("11c", dryrun_sweep)
+    ep_paths, sharded = timed("12", expert_parallel, card, gen, tokens, d1)
     paths.update(ep_paths)
     for row, prefix in ((rows[0], "b1"), (rows[1], "b2")):
         row["sharded"] = {k: v for k, v in sharded.items()
                           if k.startswith(prefix)}
-    lint_phase()
+    timed("13", lint_phase)
+    recurrent = {}
+    for leg, arch, depth in RECURRENT_LEGS:
+        paths[f"train_{leg}"], recurrent[leg] = timed(
+            f"14 {leg}", recurrent_train_path, card, arch, depth)
+    timed("14b", train_vs_cpu, (RWKV6, JAMBA), "14b")
+    print(f"phase seconds (wall, each phase's own): {seconds}; total "
+          f"{time.perf_counter() - t0:.1f} s since the build began")
+    rows[5]["train_rwkv"], rows[6]["train_jamba"] = (recurrent["rwkv"],
+                                                     recurrent["jamba"])
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -3600,6 +4111,9 @@ def main() -> int:
                         ("whisper", ("flash_decode",)),
                         ("train", ("moe_ffn",)),
                         ("train_grouped", ("moe_ffn",)),
+                        ("train_rwkv", ("wkv6", "wkv6_bwd")),
+                        ("train_jamba", ("selective_scan",
+                                         "selective_scan_bwd")),
                         ("ep_streaming_d2", ("flash_decode",
                                              "moe_ffn_quant")),
                         ("ep_streaming_d4", ("flash_decode",
@@ -3620,9 +4134,14 @@ def main() -> int:
                              "path (its wire is the master dtype)")
     for path in ("train", "train_grouped"):
         for name in ("flash_decode", "moe_ffn_quant", "wkv6",
-                     "selective_scan"):
+                     "selective_scan", "wkv6_bwd", "selective_scan_bwd"):
             if paths[path][name]:
                 raise SystemExit(f"{name} was launched on the {path} path")
+    for path, counts in paths.items():
+        if not path.startswith("train") and (counts["wkv6_bwd"]
+                                             or counts["selective_scan_bwd"]):
+            raise SystemExit(f"a backward kernel was launched on the {path} "
+                             "path (it serves under no_grad)")
     if any(paths["blocked_prefill"].values()):
         raise SystemExit("a kernel was launched on the blocked_prefill path "
                          "(prefill attention is plain tensor code)")

@@ -26,9 +26,11 @@ built from its own sources; all runs take the same seeded inputs:
     shapes (qwen3 decode, S 64; the 32768-position cache; Jamba's 64/8
     heads) and at its family shapes (``B3_FAMILY_SHAPES``: Whisper's
     cross-attention, Qwen2-VL, and Gemma-2's hd 256 with softcap 50 where
-    the tree's kernel takes them). The hd 64/128 outputs without a softcap
-    are hashed, and every run's hashes must be equal: the other tree's
-    kernel and this one's give the same bits there.
+    the tree's kernel takes them).
+
+B3's hd 64/128 outputs without a softcap and every B4 and B5 output are
+hashed, and every run's hashes must be equal: the other tree's kernel
+and this one's give the same bits there.
 
 Each result is held against the plain version first. With ``--paths`` each
 run also drives that tree's own ``chip_smoke.py`` phase 4b (streaming,
@@ -93,7 +95,7 @@ def measure(tree: Path, paths: bool) -> dict:
                  "flash_decode"])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {},
-           "b3": {}, "b3_bits": {}}
+           "b3": {}, "bits": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, C, d, f = (cs.MAIN[k] for k in "ECdf")
     f32 = torch.float32
@@ -140,6 +142,7 @@ def measure(tree: Path, paths: bool) -> dict:
         cs.compare(f"B4 BH={BH} T={T} sN", sN, sN_ref, cs.WKV_TOL)
         out["b4"][f"BH={BH} T={T}"] = cs.time_wkv6(args, o, sN,
                                                    plain=False)["ms"]
+        out["bits"][f"B4 BH={BH} T={T}"] = _sha(o, sN)
     for B, T in B5_SHAPES:
         args = cs.scan_inputs(gen, B, T, B5_D, B5_N, torch.bfloat16)
         y, hT = selective_scan(*args)
@@ -148,6 +151,7 @@ def measure(tree: Path, paths: bool) -> dict:
         cs.compare(f"B5 B={B} T={T} h_T", hT, hT_ref, cs.SCAN_TOL)
         out["b5"][f"B={B} T={T}"] = cs.time_ms(
             lambda: selective_scan(*args), 200 if T < 1024 else 20)
+        out["bits"][f"B5 B={B} T={T}"] = _sha(y, hT)
     measure_b3(cs, out)
     if paths:
         own = _module(tree / "chip_smoke.py", "chip_smoke_tree")
@@ -165,12 +169,21 @@ B3_SHAPES = [("qwen3 S=64", 4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
              ("jamba heads", 4, 64, 8, 128, 48, [1, 17, 40, 48], 0.0)]
 
 
+def _sha(*ts) -> str:
+    """The sha256 of the tensors' bytes, in order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def measure_b3(cs, out) -> None:
     """B3 of the tree on the path at ``B3_SHAPES`` and this tree's
     ``chip_smoke.B3_FAMILY_SHAPES`` (a softcap only where the tree's
     wrapper takes hd 256): held against the tree's plain version, timed,
     and the uncapped outputs' bits hashed, into ``out``."""
-    import hashlib
     import torch
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import ref
@@ -192,8 +205,7 @@ def measure_b3(cs, out) -> None:
         out["b3"][what] = cs.time_ms(lambda: fd_mod.flash_decode(*args),
                                      100)
         if not cap:
-            out["b3_bits"][what] = hashlib.sha256(
-                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            out["bits"][f"B3 {what}"] = _sha(y)
         del q, k, v, y
     torch.cuda.empty_cache()
 
@@ -264,7 +276,7 @@ def lanes(card: str) -> None:
                 stream = torch.cuda.current_stream().cuda_stream
                 build.check("selective_scan", fn(
                     *(t.data_ptr() for t in args), y.data_ptr(),
-                    hT.data_ptr(), B, T, B5_D, B5_N,
+                    hT.data_ptr(), None, B, T, B5_D, B5_N,
                     build.DTYPES[torch.bfloat16], stream))
                 return y, hT
             y, hT = run()
@@ -387,13 +399,13 @@ def main(argv=None) -> int:
         print(f"{part.upper()} {key} | " + " | ".join(
             f"{run[part][key]:.4f}" if key in run.get(part, {}) else "-"
             for _, run in runs))
-    bits = [run.get("b3_bits", {}) for _, run in runs]
+    bits = [run.get("bits", {}) for _, run in runs]
     shared = sorted(set.intersection(*(set(b) for b in bits)))
     same = [k for k in shared if len({b[k] for b in bits}) == 1]
-    print(f"B3 outputs without a softcap bit-equal in every run: "
-          f"{len(same)} of {len(shared)} shapes ({', '.join(shared)})")
+    print(f"B3 (without a softcap), B4 and B5 outputs bit-equal in every "
+          f"run: {len(same)} of {len(shared)} shapes ({', '.join(shared)})")
     if len(same) != len(shared):
-        raise SystemExit("B3's uncapped outputs differ between runs: "
+        raise SystemExit("kernel outputs differ between runs: "
                          + ", ".join(k for k in shared if k not in same))
     return 0
 

@@ -23,11 +23,20 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode", "wkv6",
-           "selective_scan")
+           "selective_scan", "wkv6_bwd", "selective_scan_bwd")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of csrc/common.cuh
 WIRE_DTYPES = {torch.float16: 2, torch.int8: 3}
+# B4/B5 under a gradient: the forwards store the fp32 state before every
+# CKPT_STEPS-th step and the backwards recompute from those checkpoints; B5's
+# backward takes SCAN_BWD_CHANNELS channels a block, one row of its partials
+# each. These are the only copies: nvcc gets them as -D flags (csrc/common.cuh)
+# and the wrappers size their buffers from them.
+CKPT_STEPS = 8
+SCAN_BWD_CHANNELS = 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DCKPT_STEPS={CKPT_STEPS}",
+              f"-DSCAN_BWD_CHANNELS={SCAN_BWD_CHANNELS}")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -41,11 +50,18 @@ _SIGNATURES = {
     # scale, softcap, dtype, stream
     "flash_decode": ("flash_decode_launch",
                      [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
-    # r, k, v, w, u, s0, o, sN, BH, T, hd, rows, cols, dtype, w_dtype,
-    # stream
-    "wkv6": ("wkv6_launch", [_P] * 8 + [_I] * 7 + [_P]),
-    # x, dt, A, Bm, Cm, h0, y, hT, B, T, D, N, dtype, stream
-    "selective_scan": ("selective_scan_launch", [_P] * 8 + [_I] * 5 + [_P]),
+    # r, k, v, w, u, s0, o, sN, ck (or None), BH, T, hd, rows, cols, dtype,
+    # w_dtype, stream
+    "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 7 + [_P]),
+    # x, dt, A, Bm, Cm, h0, y, hT, ck (or None), B, T, D, N, dtype, stream
+    "selective_scan": ("selective_scan_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    # r, k, v, w, u, ck, do, dsN, dr, dk, dv, dw, du, ds0, BH, T, hd, dtype,
+    # w_dtype, stream
+    "wkv6_bwd": ("wkv6_bwd_launch", [_P] * 14 + [_I] * 5 + [_P]),
+    # x, dt, A, Bm, Cm, ck, dy, dhT, dx, ddt, dB, dC, dA, dh0, part,
+    # dA_part, B, T, D, N, dtype, stream
+    "selective_scan_bwd": ("selective_scan_bwd_launch",
+                           [_P] * 16 + [_I] * 5 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -137,13 +153,19 @@ def check_tensor(name, t, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would need a gradient through these tensors (None
+    and non-tensors need none)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise if autograd would need a gradient through this launch. The
     kernel writes its outputs through raw pointers, so they have no
     ``grad_fn``: a backward would silently give no gradient to anything
     behind them."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
             f"{name} has no backward: run it under torch.no_grad() or "
             "torch.inference_mode()")

@@ -6,6 +6,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The layout shared by B4/B5's forwards and backwards under a gradient: the
+// state checkpoint before every kCkptSteps-th step, and the channels (rows of
+// partials) a B5 backward block takes. kernels/build.py holds the values and
+// passes them as -D flags, so the kernels and the wrappers cannot disagree.
+#if !defined(CKPT_STEPS) || !defined(SCAN_BWD_CHANNELS)
+#error "build with -DCKPT_STEPS= -DSCAN_BWD_CHANNELS= (kernels/build.py)"
+#endif
+constexpr int kCkptSteps = CKPT_STEPS;
+constexpr int kScanBwdChannels = SCAN_BWD_CHANNELS;
+
 // dtype codes passed from the Python wrappers
 enum DType : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2, kInt8 = 3 };
 

@@ -61,6 +61,17 @@
 //     the ring is filled by plain loads and the state moves by scalars.
 // y is stored by the group's first lane. One launch carries the state over
 // any T >= 1 (the reference's 256-step chunks become the loop).
+//
+// Under a gradient the wrapper passes `ck`, and the launch also writes the
+// fp32 state before every kCkpt-th step, (ceil(T / kCkpt), B, d_in, N), at
+// the start of a lane's block of steps: selective_scan_bwd.cu recomputes
+// each chunk of kCkpt steps from its checkpoint instead of running the
+// recurrence backwards (h_{t-1} = (h_t - dBx_t) / dA_t is inf/NaN once
+// exp(dt * A) underflows). With ck null the launch takes the build without
+// the stores (CKPT = false): the serving kernel's code and bits. A branch on
+// ck inside one build instead gave the same bits but cost the serving
+// launch time (0.2916 against 0.2619 ms at B 1, T 2048; H100,
+// scripts/kernel_ab.py --parent), so each instantiation is built twice.
 #include <atomic>
 
 #include "sm90.cuh"
@@ -80,6 +91,9 @@ constexpr int kChannels = 32;          // channels a block takes
 constexpr int kLanes = SCAN_LANES;     // lanes a channel's states are split over
 constexpr int kTile = SCAN_TILE;       // steps a ring stage holds
 constexpr int kUnroll = 8;             // steps a lane has in flight over a prefill
+constexpr int kCkpt = kCkptSteps;      // steps between state checkpoints (selective_scan_bwd.cu's kChunk)
+static_assert(kCkpt % kUnroll == 0 && kTile % kCkpt == 0,
+              "a checkpoint falls on the start of a lane's block of steps");
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float v) {
@@ -202,13 +216,13 @@ __device__ __forceinline__ void scan_steps(float (&h)[N / G], const float (&a)[N
   }
 }
 
-template <typename X, int N, int G, int U>
+template <typename X, int N, int G, int U, bool CKPT>
 __global__ void __launch_bounds__(kChannels * G, U == 1 ? 1024 / (kChannels * G) : 1)
 selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const X* __restrict__ Bm,
                       const X* __restrict__ Cm, const float* __restrict__ h0,
-                      float* __restrict__ y, float* __restrict__ hT, int T, int D,
-                      int tile, bool vec) {
+                      float* __restrict__ y, float* __restrict__ hT,
+                      float* __restrict__ ck, int T, int D, int tile, bool vec) {
   static_assert(U == 1 || U == 2 || U == 4 || U == 8, "the remainder cascade");
   constexpr int S = N / G;                  // states a lane keeps
   constexpr int kThreads = kChannels * G;
@@ -284,6 +298,14 @@ selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
     cp_async_commit();
   };
 
+  // the lane's states before step t, into checkpoint t / kCkpt
+  auto save = [&](int t) {
+    if constexpr (CKPT) {
+      if (live && t % kCkpt == 0)
+        store_f32<S, G>(ck + (size_t)(t / kCkpt) * gridDim.y * D * N + state, h, vec);
+    }
+  };
+
   const int tiles = (T + tile - 1) / tile;
   stage(0);
   for (int i = 0; i < tiles; ++i) {
@@ -315,8 +337,11 @@ selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
     float* yc = y + (seq + t0) * D + c;
     const bool store = live && g == 0;      // y_t from the group's first lane
     int t = 0;
-    for (; t + U <= steps; t += U)
+    for (; t + U <= steps; t += U) {
+      save(t0 + t);
       scan_steps<N, G, U>(h, a, wd, wdx, wb, wc, t, cl, g, yc, D, store);
+    }
+    if (t < steps) save(t0 + t);            // the remainder's first step
     // the last steps % U in blocks of 4, 2 and 1 (U = 8), not one by one
     if constexpr (U >= 8) {
       if (t + 4 <= steps) {
@@ -338,10 +363,10 @@ selective_scan_kernel(const X* __restrict__ x, const float* __restrict__ dt,
   if (live) store_f32<S, G>(hT + state, h, vec);
 }
 
-template <typename X, int N, int G, int U>
+template <typename X, int N, int G, int U, bool CKPT>
 cudaError_t launch_g(const X* x, const float* dt, const float* A, const X* Bm,
-                     const X* Cm, const float* h0, float* y, float* hT, int B, int T,
-                     int D, bool vec, cudaStream_t s) {
+                     const X* Cm, const float* h0, float* y, float* hT, float* ck,
+                     int B, int T, int D, bool vec, cudaStream_t s) {
   const int tile = T < kTile ? T : kTile;
   const int bytes = 2 * stage_bytes<X, N>(tile) + wide_bytes<N>(tile);
   // Above 48 KB a launch needs the instantiation's opt-in, which is set once
@@ -354,15 +379,15 @@ cudaError_t launch_g(const X* x, const float* dt, const float* A, const X* Bm,
     if (err != cudaSuccess) return err;
     const unsigned bit = dev < 32 ? 1u << dev : 0u;
     if (!(opted.load(std::memory_order_relaxed) & bit)) {
-      err = cudaFuncSetAttribute(selective_scan_kernel<X, N, G, U>,
+      err = cudaFuncSetAttribute(selective_scan_kernel<X, N, G, U, CKPT>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kMost);
       if (err != cudaSuccess) return err;
       opted.fetch_or(bit, std::memory_order_relaxed);
     }
   }
   const dim3 grid((D + kChannels - 1) / kChannels, B);
-  selective_scan_kernel<X, N, G, U><<<grid, kChannels * G, bytes, s>>>(
-      x, dt, A, Bm, Cm, h0, y, hT, T, D, tile, vec);
+  selective_scan_kernel<X, N, G, U, CKPT><<<grid, kChannels * G, bytes, s>>>(
+      x, dt, A, Bm, Cm, h0, y, hT, ck, T, D, tile, vec);
   return cudaGetLastError();
 }
 
@@ -370,40 +395,49 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 template <typename X, int N>
 cudaError_t launch_n(const void* x, const float* dt, const float* A, const void* Bm,
-                     const void* Cm, const float* h0, float* y, float* hT, int B, int T,
-                     int D, cudaStream_t s) {
+                     const void* Cm, const float* h0, float* y, float* hT, float* ck,
+                     int B, int T, int D, cudaStream_t s) {
   constexpr int G = kLanes < N ? kLanes : N;  // at least one state a lane
   const X* xp = static_cast<const X*>(x);
   const X* bp = static_cast<const X*>(Bm);
   const X* cp = static_cast<const X*>(Cm);
   // 16-byte staging and vector state accesses need aligned bases and rows
   const bool vec = aligned16(x) && aligned16(dt) && aligned16(A) && aligned16(Bm) &&
-                   aligned16(Cm) && aligned16(h0) && aligned16(hT) &&
+                   aligned16(Cm) && aligned16(h0) && aligned16(hT) && aligned16(ck) &&
                    D % (16 / int(sizeof(X))) == 0;
-  if (T == 1)     // decode: no steps to overlap, registers for occupancy
-    return launch_g<X, N, G, 1>(xp, dt, A, bp, cp, h0, y, hT, B, T, D, vec, s);
-  return launch_g<X, N, G, kUnroll>(xp, dt, A, bp, cp, h0, y, hT, B, T, D, vec, s);
+  // decode (T = 1): no steps to overlap, registers for occupancy; ck: the
+  // build that writes checkpoints
+  if (T == 1 && ck != nullptr)
+    return launch_g<X, N, G, 1, true>(xp, dt, A, bp, cp, h0, y, hT, ck, B, T, D, vec, s);
+  if (T == 1)
+    return launch_g<X, N, G, 1, false>(xp, dt, A, bp, cp, h0, y, hT, ck, B, T, D, vec, s);
+  if (ck != nullptr)
+    return launch_g<X, N, G, kUnroll, true>(xp, dt, A, bp, cp, h0, y, hT, ck, B, T, D, vec,
+                                            s);
+  return launch_g<X, N, G, kUnroll, false>(xp, dt, A, bp, cp, h0, y, hT, ck, B, T, D, vec,
+                                           s);
 }
 
 template <typename X>
 cudaError_t launch_x(const void* x, const float* dt, const float* A, const void* Bm,
-                     const void* Cm, const float* h0, float* y, float* hT, int B, int T,
-                     int D, int N, cudaStream_t s) {
-  if (N == 8) return launch_n<X, 8>(x, dt, A, Bm, Cm, h0, y, hT, B, T, D, s);
-  if (N == 16) return launch_n<X, 16>(x, dt, A, Bm, Cm, h0, y, hT, B, T, D, s);
+                     const void* Cm, const float* h0, float* y, float* hT, float* ck,
+                     int B, int T, int D, int N, cudaStream_t s) {
+  if (N == 8) return launch_n<X, 8>(x, dt, A, Bm, Cm, h0, y, hT, ck, B, T, D, s);
+  if (N == 16) return launch_n<X, 16>(x, dt, A, Bm, Cm, h0, y, hT, ck, B, T, D, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x (B, T, D) in `dtype`; dt (B, T, D) fp32; A (D, N) fp32; Bm, Cm (B, T, N)
-// in `dtype`; h0 (B, D, N) fp32; y (B, T, D) fp32; hT (B, D, N) fp32. All
-// contiguous; N in {8, 16}; T >= 1. Launches on `stream`; returns
+// in `dtype`; h0 (B, D, N) fp32; y (B, T, D) fp32; hT (B, D, N) fp32; ck
+// null, or (ceil(T / 8), B, D, N) fp32 for the state before every 8th step.
+// All contiguous; N in {8, 16}; T >= 1. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int selective_scan_launch(const void* x, const void* dt, const void* A,
                                      const void* Bm, const void* Cm, const void* h0,
-                                     void* y, void* hT, int B, int T, int D, int N,
-                                     int dtype, void* stream) {
+                                     void* y, void* hT, void* ck, int B, int T, int D,
+                                     int N, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || D <= 0) return cudaErrorInvalidValue;
   const float* dtp = static_cast<const float*>(dt);
@@ -411,9 +445,10 @@ extern "C" int selective_scan_launch(const void* x, const void* dt, const void* 
   const float* h0p = static_cast<const float*>(h0);
   float* yp = static_cast<float*>(y);
   float* hTp = static_cast<float*>(hT);
+  float* ckp = static_cast<float*>(ck);
   if (dtype == kFloat32)
-    return launch_x<float>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
+    return launch_x<float>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, ckp, B, T, D, N, s);
   if (dtype == kBFloat16)
-    return launch_x<__nv_bfloat16>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, B, T, D, N, s);
+    return launch_x<__nv_bfloat16>(x, dtp, ap, Bm, Cm, h0p, yp, hTp, ckp, B, T, D, N, s);
   return cudaErrorInvalidValue;
 }

@@ -42,11 +42,23 @@
 // (tensor-core) form is not used: it sums the state over T in another
 // order and needs decay ratios in log space, which underflow for RWKV6's
 // data-dependent w.
+//
+// Under a gradient the wrapper passes `ck`, and the launch also writes the
+// fp32 state before every kCkpt-th step, (BH, ceil(T / kCkpt), hd, hd):
+// wkv6_bwd.cu recomputes each chunk of kCkpt steps from its checkpoint
+// instead of running the recurrence backwards (S_{t-1} = (S_t - a_t) / w_t
+// is inf/NaN once a decay underflows). With ck null the launch takes the
+// build without the stores (CKPT = false): the serving kernel's code and
+// bits. A branch on ck inside one build instead gave the same bits but cost
+// the serving launch time (0.0046 against 0.0038 ms at BH 256, T 1; H100,
+// scripts/kernel_ab.py --parent), so each instantiation is built twice.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kTile = 16;       // steps staged at a time
+constexpr int kCkpt = kCkptSteps;   // steps between state checkpoints (wkv6_bwd.cu's kChunk)
+static_assert(kTile % kCkpt == 0, "a checkpoint falls on a tile's step");
 
 // one 16-byte shared-memory load into four registers
 __device__ __forceinline__ void split4(float* d, const float* s) {
@@ -57,13 +69,16 @@ __device__ __forceinline__ void split4(float* d, const float* s) {
   d[3] = v.w;
 }
 
-// KR state rows a thread keeps, COLS state columns a block takes
-template <typename R, typename W, int HD, int KR, int COLS>
+// KR state rows a thread keeps, COLS state columns a block takes; CKPT:
+// write the checkpoints (a null ck launches the CKPT = false build, the
+// serving kernel's own code)
+template <typename R, typename W, int HD, int KR, int COLS, bool CKPT>
 __global__ void __launch_bounds__(HD / KR * COLS)
 wkv6_kernel(const R* __restrict__ r, const R* __restrict__ k,
             const R* __restrict__ v, const W* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            R* __restrict__ o, float* __restrict__ sN, int T) {
+            R* __restrict__ o, float* __restrict__ sN, float* __restrict__ ck,
+            int T) {
   constexpr int G = HD / KR;                 // row groups
   constexpr int NT = G * COLS;               // threads
   constexpr int kPer = kTile * HD / NT;      // staged r/k/w elements a thread loads
@@ -148,6 +163,14 @@ wkv6_kernel(const R* __restrict__ r, const R* __restrict__ k,
     po[t][g][j] = acc[0] + acc[1];
   };
 
+  // this thread's state elements before step t, into checkpoint t / kCkpt
+  const int nck = (T + kCkpt - 1) / kCkpt;
+  auto save = [&](int t) {
+    float* c = ck + ((size_t)bh * nck + t / kCkpt) * HD * HD;
+#pragma unroll
+    for (int i = 0; i < KR; ++i) c[(size_t)(k0 + i) * HD + col] = S[i];
+  };
+
   fetch(0);
   for (int t0 = 0; t0 < T; t0 += kTile) {
     const int n = min(kTile, T - t0);
@@ -157,9 +180,19 @@ wkv6_kernel(const R* __restrict__ r, const R* __restrict__ k,
     if (t0 + kTile < T) fetch(t0 + kTile);   // in flight during the steps
     if (n == kTile) {                  // steps are independent but for S
 #pragma unroll
-      for (int t = 0; t < kTile; ++t) step(t);
+      for (int t = 0; t < kTile; ++t) {
+        if constexpr (CKPT) {
+          if (t % kCkpt == 0) save(t0 + t);
+        }
+        step(t);
+      }
     } else {
-      for (int t = 0; t < n; ++t) step(t);
+      for (int t = 0; t < n; ++t) {
+        if constexpr (CKPT) {
+          if (t % kCkpt == 0) save(t0 + t);
+        }
+        step(t);
+      }
     }
     __syncthreads();                   // every row group's partials are in
     for (int i = tid; i < n * COLS; i += NT) {
@@ -178,14 +211,18 @@ wkv6_kernel(const R* __restrict__ r, const R* __restrict__ k,
 
 template <typename R, typename W, int HD, int KR>
 cudaError_t launch_cols(const R* r, const R* k, const R* v, const W* w, const float* u,
-                        const float* s0, R* o, float* sN, int BH, int T, int cols,
-                        cudaStream_t s) {
+                        const float* s0, R* o, float* sN, float* ck, int BH, int T,
+                        int cols, cudaStream_t s) {
   const dim3 grid(HD / cols, BH);
   constexpr int G = HD / KR;
-  if (cols == 32)
-    wkv6_kernel<R, W, HD, KR, 32><<<grid, G * 32, 0, s>>>(r, k, v, w, u, s0, o, sN, T);
+  if (cols == 32 && ck != nullptr)
+    wkv6_kernel<R, W, HD, KR, 32, true><<<grid, G * 32, 0, s>>>(r, k, v, w, u, s0, o, sN, ck, T);
+  else if (cols == 32)
+    wkv6_kernel<R, W, HD, KR, 32, false><<<grid, G * 32, 0, s>>>(r, k, v, w, u, s0, o, sN, ck, T);
+  else if (cols == 16 && ck != nullptr)
+    wkv6_kernel<R, W, HD, KR, 16, true><<<grid, G * 16, 0, s>>>(r, k, v, w, u, s0, o, sN, ck, T);
   else if (cols == 16)
-    wkv6_kernel<R, W, HD, KR, 16><<<grid, G * 16, 0, s>>>(r, k, v, w, u, s0, o, sN, T);
+    wkv6_kernel<R, W, HD, KR, 16, false><<<grid, G * 16, 0, s>>>(r, k, v, w, u, s0, o, sN, ck, T);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -193,8 +230,8 @@ cudaError_t launch_cols(const R* r, const R* k, const R* v, const W* w, const fl
 
 template <typename R, typename W>
 cudaError_t launch_hd(const void* r, const void* k, const void* v, const void* w,
-                      const float* u, const float* s0, void* o, float* sN, int BH,
-                      int T, int hd, int rows, int cols, cudaStream_t s) {
+                      const float* u, const float* s0, void* o, float* sN, float* ck,
+                      int BH, int T, int hd, int rows, int cols, cudaStream_t s) {
   const R* rp = static_cast<const R*>(r);
   const R* kp = static_cast<const R*>(k);
   const R* vp = static_cast<const R*>(v);
@@ -203,7 +240,7 @@ cudaError_t launch_hd(const void* r, const void* k, const void* v, const void* w
   if (cols > hd) return cudaErrorInvalidValue;
 #define WKV6_CASE(HD, KR)                                                           \
   if (hd == HD && rows == KR)                                                       \
-    return launch_cols<R, W, HD, KR>(rp, kp, vp, wp, u, s0, op, sN, BH, T, cols, s);
+    return launch_cols<R, W, HD, KR>(rp, kp, vp, wp, u, s0, op, sN, ck, BH, T, cols, s);
   WKV6_CASE(32, 8)
   WKV6_CASE(32, 16)
   WKV6_CASE(64, 8)
@@ -216,26 +253,28 @@ cudaError_t launch_hd(const void* r, const void* k, const void* v, const void* w
 
 // r, k, v (BH, T, hd) in `dtype`; w (BH, T, hd) in `w_dtype` (fp32, or
 // `dtype`); u (BH, hd) and s0 (BH, hd, hd) fp32; o (BH, T, hd) in `dtype`;
-// sN (BH, hd, hd) fp32. All contiguous; hd in {32, 64}, T >= 1; each thread
-// keeps `rows` (8 or 16) state rows of one of the block's `cols` (16 or 32,
-// at most hd) state columns. Launches on `stream`; returns
+// sN (BH, hd, hd) fp32; ck null, or (BH, ceil(T / 8), hd, hd) fp32 for the
+// state before every 8th step. All contiguous; hd in {32, 64}, T >= 1; each
+// thread keeps `rows` (8 or 16) state rows of one of the block's `cols` (16
+// or 32, at most hd) state columns. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, const void* s0, void* o,
-                           void* sN, int BH, int T, int hd, int rows, int cols,
-                           int dtype, int w_dtype, void* stream) {
+                           void* sN, void* ck, int BH, int T, int hd, int rows,
+                           int cols, int dtype, int w_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || T <= 0) return cudaErrorInvalidValue;
   const float* up = static_cast<const float*>(u);
   const float* s0p = static_cast<const float*>(s0);
   float* sNp = static_cast<float*>(sN);
+  float* ckp = static_cast<float*>(ck);
   if (dtype == kFloat32 && w_dtype == kFloat32)
-    return launch_hd<float, float>(r, k, v, w, up, s0p, o, sNp, BH, T, hd, rows, cols, s);
+    return launch_hd<float, float>(r, k, v, w, up, s0p, o, sNp, ckp, BH, T, hd, rows, cols, s);
   if (dtype == kBFloat16 && w_dtype == kFloat32)
-    return launch_hd<__nv_bfloat16, float>(r, k, v, w, up, s0p, o, sNp, BH, T, hd, rows,
-                                           cols, s);
+    return launch_hd<__nv_bfloat16, float>(r, k, v, w, up, s0p, o, sNp, ckp, BH, T, hd,
+                                           rows, cols, s);
   if (dtype == kBFloat16 && w_dtype == kBFloat16)
-    return launch_hd<__nv_bfloat16, __nv_bfloat16>(r, k, v, w, up, s0p, o, sNp, BH, T, hd,
-                                                   rows, cols, s);
+    return launch_hd<__nv_bfloat16, __nv_bfloat16>(r, k, v, w, up, s0p, o, sNp, ckp, BH, T,
+                                                   hd, rows, cols, s);
   return cudaErrorInvalidValue;
 }

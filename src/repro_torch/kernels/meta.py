@@ -13,14 +13,23 @@ tensors carry no routing). CUDA tensors never come here: they launch the
 kernel or raise.
 
 Under autograd, B1 keeps ``MoEFFN``'s backward (its ``torch.bmm``
-products, traced like any other op); B4 and B5 have no backward kernel,
-so their stand-in's backward counts twice the forward's products (the
-two products that each product's gradient takes), reading the output
-gradients and writing the input gradients.
+products, traced like any other op). B4 and B5 stand in for their
+autograd Functions: under a gradient the forward also writes the state
+checkpoints, and the backward stand-in counts the backward kernel's own
+launch: its products (``wkv6_bwd.cu``, ``selective_scan_bwd.cu``), the
+inputs, checkpoints and output gradients it reads, the input gradients it
+writes, and B5's per-block partials (written, then read by its second
+pass). Any other stand-in raises under a gradient, as its kernel does.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.selective_scan import CHANNELS
+from repro_torch.kernels.selective_scan import \
+    checkpoints_shape as scan_checkpoints
+from repro_torch.kernels.wkv6 import checkpoints_shape as wkv_checkpoints
 
 # the active counters: objects with ``kernel(name, inputs, outputs, flops)``
 COUNTERS = []
@@ -41,27 +50,41 @@ class _StandIn(torch.autograd.Function):
     """A kernel stand-in on the autograd graph (``stand_in``)."""
 
     @staticmethod
-    def forward(ctx, name, specs, flops, *inputs):
-        ctx.name, ctx.flops = name, flops
+    def forward(ctx, name, specs, flops, bwd, *inputs):
+        ctx.name, ctx.bwd = name, bwd
         ctx.specs = [None if t is None else (t.shape, t.dtype)
                      for t in inputs]
         outs = tuple(_empty(s, d) for s, d in specs)
-        _report(name, inputs, outs, flops)
+        saved = () if bwd is None else tuple(
+            _empty(s, d) for s, d in bwd["saved"])
+        _report(name, inputs, outs + saved, flops)
         return outs
 
     @staticmethod
     def backward(ctx, *grads):
+        bwd = ctx.bwd
+        if bwd is None:
+            raise NotImplementedError(f"{ctx.name} has no backward")
         gin = tuple(
             _empty(*s) if s is not None and need else None
-            for s, need in zip(ctx.specs, ctx.needs_input_grad[3:]))
-        _report(f"{ctx.name} backward", grads, gin, 2 * ctx.flops)
-        return (None, None, None) + gin
+            for s, need in zip(ctx.specs, ctx.needs_input_grad[4:]))
+        scratch = [_empty(s, d) for s, d in bwd["scratch"]]
+        reads = ([_empty(*ctx.specs[i]) for i in bwd["reads"]]
+                 + [_empty(s, d) for s, d in bwd["saved"]] + list(grads)
+                 + scratch)
+        writes = [_empty(*s) for s in ctx.specs if s is not None] + scratch
+        _report(f"{ctx.name} backward", reads, writes, bwd["flops"])
+        return (None, None, None, None) + gin
 
 
-def stand_in(name, inputs, specs, flops):
+def stand_in(name, inputs, specs, flops, bwd=None):
     """Outputs of shapes and dtypes ``specs`` [(shape, dtype)] for kernel
-    ``name`` over ``inputs``, reported to the counters with ``flops``."""
-    return _StandIn.apply(name, specs, flops, *inputs)
+    ``name`` over ``inputs``, reported to the counters with ``flops``.
+    ``bwd`` (under a gradient): {"saved": [(shape, dtype)] the forward also
+    writes, "reads": indices of the inputs the backward reads again,
+    "scratch": [(shape, dtype)] it writes and reads back, "flops": its
+    products}; the backward writes a gradient for every input."""
+    return _StandIn.apply(name, specs, flops, bwd, *inputs)
 
 
 def moe_ffn(xg, w_gate, w_up, w_down, out_dtype=None):
@@ -88,18 +111,40 @@ def flash_decode(q, k, v):
 
 def wkv6(r, k, v, w, u, s0):
     """B4: (BH, T, hd) rows from s0 (BH, hd, hd) -> (o, sN fp32). Product:
-    r_t·S per step (the state update is elementwise)."""
+    r_t·S per step (the state update is elementwise). Backward
+    (``wkv6_bwd.cu``): 4 products a state element and step (S·do, A·v,
+    Aᵀ·k and G ⊙ S's row sums), reading r/k/v/w/u, the checkpoints and
+    the output gradients."""
     BH, T, hd = r.shape
-    return stand_in("wkv6", (r, k, v, w, u, s0),
+    inputs = (r, k, v, w, u, s0)
+    bwd = None
+    if build.needs_grad(*inputs):
+        bwd = {"saved": [(wkv_checkpoints(BH, T, hd), torch.float32)],
+               "reads": range(5), "scratch": [],
+               "flops": 8.0 * BH * T * hd * hd}
+    return stand_in("wkv6", inputs,
                     [(r.shape, r.dtype), (s0.shape, torch.float32)],
-                    2.0 * BH * T * hd * hd)
+                    2.0 * BH * T * hd * hd, bwd)
 
 
 def selective_scan(x, dt, A, Bm, Cm, h0):
     """B5: (B, T, D) rows from h0 (B, D, N) -> (y fp32, hT fp32). Product:
-    h_t·C_t per step (the state update is elementwise)."""
+    h_t·C_t per step (the state update is elementwise). Backward
+    (``selective_scan_bwd.cu``): 5 products a state element and step (the
+    sums of dC, dB, dx, ddt and dA), reading x/dt/A/B/C, the checkpoints
+    and the output gradients, through per-block partials of dB/dC and
+    per-row partials of dA."""
     B, T, D = x.shape
     N = h0.shape[-1]
-    return stand_in("selective_scan", (x, dt, A, Bm, Cm, h0),
-                    [(x.shape, torch.float32), (h0.shape, torch.float32)],
-                    2.0 * B * T * D * N)
+    inputs = (x, dt, A, Bm, Cm, h0)
+    f32 = torch.float32
+    bwd = None
+    if build.needs_grad(*inputs):
+        bwd = {"saved": [(scan_checkpoints(B, T, D, N), f32)],
+               "reads": range(5),
+               "scratch": [((-(-D // CHANNELS), B, T, 2 * N), f32),
+                           ((B, D, N), f32)],
+               "flops": 10.0 * B * T * D * N}
+    return stand_in("selective_scan", inputs,
+                    [(x.shape, f32), (h0.shape, f32)],
+                    2.0 * B * T * D * N, bwd)

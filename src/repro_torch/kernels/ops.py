@@ -2,15 +2,19 @@
 CUDA tensor launches the hand-written kernel (which raises if it cannot
 build or launch; there is no fallback), and a meta tensor (the dry run's
 shape propagation) takes the kernel's stand-in in ``kernels.meta``, which
-counts the launch and computes nothing."""
+counts the launch and computes nothing. Under a gradient B4 and B5 go
+through their autograd Functions (``WKV6``, ``SelectiveScan``), whose
+backward is a kernel on CUDA and a plain reverse-time loop on the CPU; B1
+always goes through ``MoEFFN``."""
 from __future__ import annotations
 
 from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
-from repro_torch.kernels import meta, ref
+from repro_torch.kernels import build, meta, ref
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import MoEFFN, moe_ffn, moe_ffn_quant
+from repro_torch.kernels.selective_scan import SelectiveScan
 from repro_torch.kernels.selective_scan import selective_scan as _scan
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import WKV6, wkv6
 
 
 def moe_expert_ffn(xg, w_gate, w_up, w_down, *, act: str = "swiglu"):
@@ -55,19 +59,26 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
 
 def wkv_scan(r, k, v, w, u, s0):
     """RWKV6 recurrence over (BH, T, hd) rows from state s0 (BH, hd, hd).
-    -> (o in r's dtype, sN fp32)."""
-    if r.device.type == "cpu":
-        return ref.wkv6_ref(r, k, v, w, u, s0)
+    -> (o in r's dtype, sN fp32). Under a gradient through ``WKV6``;
+    otherwise the plain version (CPU) or the raw launch (CUDA)."""
     if r.device.type == "meta":
         return meta.wkv6(r, k, v, w, u, s0)
+    if build.needs_grad(r, k, v, w, u, s0):
+        return WKV6.apply(r, k, v, w, u, s0)
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
     return wkv6(r, k, v, w, u, s0)
 
 
 def selective_scan(x, dt, A, Bm, Cm, h0):
     """Mamba selective scan over (B, T, D) rows from state h0 (B, D, N).
-    -> (y (B, T, D) fp32 before the D skip, hT fp32)."""
-    if x.device.type == "cpu":
-        return ref.selective_scan_ref(x, dt, A, Bm, Cm, h0)
+    -> (y (B, T, D) fp32 before the D skip, hT fp32). Under a gradient
+    through ``SelectiveScan``; otherwise the plain version (CPU) or the
+    raw launch (CUDA)."""
     if x.device.type == "meta":
         return meta.selective_scan(x, dt, A, Bm, Cm, h0)
+    if build.needs_grad(x, dt, A, Bm, Cm, h0):
+        return SelectiveScan.apply(x, dt, A, Bm, Cm, h0)
+    if x.device.type == "cpu":
+        return ref.selective_scan_ref(x, dt, A, Bm, Cm, h0)
     return _scan(x, dt, A, Bm, Cm, h0)

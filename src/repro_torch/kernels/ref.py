@@ -126,3 +126,76 @@ def selective_scan_ref(x, dt, A, Bm, Cm, h0):
         h = dA * h + dtx[:, t, :, None] * Bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     return torch.stack(ys, 1), h
+
+
+def wkv6_bwd_ref(r, k, v, w, u, s0, do, dsN):
+    """Gradients of ``wkv6_ref`` for the upstream ``do`` (BH, T, hd) and
+    ``dsN`` (BH, hd, hd), as explicit fp32 loops: the forward's states
+    S_t (before step t) kept from a forward pass, then in reverse time, with
+    G the gradient of the state after step t (``dsN`` after the last) and
+    ``A_t = G + diag(u) r_t do_tᵀ``: ``dr_t = (S_t + diag(u) k_t v_tᵀ) do_t``,
+    ``dk_t = A_t v_t``, ``dv_t = A_tᵀ k_t``, ``dw_t = rowsum(G ⊙ S_t)``,
+    ``du += r_t k_t (do_t · v_t)``, ``G = diag(w_t) G + r_t do_tᵀ``;
+    ``ds0`` is the last G. -> (dr, dk, dv in r's dtype, dw in w's dtype,
+    du and ds0 fp32)."""
+    rf, kf, vf, wf, dof = (t.float() for t in (r, k, v, w, do))
+    uf = u.float()
+    s = s0.float()
+    states = []
+    for t in range(r.shape[1]):
+        states.append(s)
+        s = wf[:, t, :, None] * s + kf[:, t, :, None] * vf[:, t, None, :]
+    G = dsN.float()
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[1])):
+        r_t, k_t, v_t, w_t, do_t = (x[:, t] for x in (rf, kf, vf, wf, dof))
+        a = k_t[:, :, None] * v_t[:, None, :]
+        dr[:, t] = torch.einsum("bkv,bv->bk", states[t] + uf[..., None] * a,
+                                do_t)
+        A = G + (uf * r_t)[..., None] * do_t[:, None, :]
+        dk[:, t] = torch.einsum("bkv,bv->bk", A, v_t)
+        dv[:, t] = torch.einsum("bkv,bk->bv", A, k_t)
+        dw[:, t] = (G * states[t]).sum(-1)
+        du += r_t * k_t * (do_t * v_t).sum(-1, keepdim=True)
+        G = w_t[..., None] * G + r_t[..., None] * do_t[:, None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, G)
+
+
+def selective_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dhT):
+    """Gradients of ``selective_scan_ref`` for the upstream ``dy`` (B, T, D)
+    and ``dhT`` (B, D, N), as explicit fp32 loops: the forward's states h_t
+    kept from a forward pass (h_{-1} = h0), then in reverse time, with
+    ``dA_t = exp(dt_t A)`` and g the gradient of h_t (``dhT`` added at the
+    last step): ``g = dA_{t+1} g_{t+1} + dy_t C_t``,
+    ``dx_t = dt_t Σ_n g B_t``, ``ddt_t = Σ_n g (A dA_t h_{t-1} + x_t B_t)``,
+    ``dB_t = Σ_d g dt_t x_t``, ``dC_t = Σ_d dy_t h_t``,
+    ``dA += Σ_b g dt_t dA_t h_{t-1}``; ``dh0 = dA_0 g_0``.
+    -> (dx in x's dtype, ddt fp32, dA fp32, dB, dC in their dtypes, dh0
+    fp32)."""
+    xf, Bf, Cf, dyf = x.float(), Bm.float(), Cm.float(), dy.float()
+    dtf, Af = dt.float(), A.float()
+    dtx = dtf * xf
+    h = h0.float()
+    hs = [h]
+    for t in range(x.shape[1]):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h \
+            + dtx[:, t, :, None] * Bf[:, t, None, :]
+        hs.append(h)
+    gn = dhT.float()
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(x.shape[1])):
+        d_t = dtf[:, t, :, None]
+        dA_t = torch.exp(d_t * Af)
+        g = gn + dyf[:, t, :, None] * Cf[:, t, None, :]
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dyf[:, t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+        dx[:, t] = dtf[:, t] * (g * Bf[:, t, None, :]).sum(-1)
+        ddt[:, t] = (g * (Af * dA_t * hs[t]
+                          + xf[:, t, :, None] * Bf[:, t, None, :])).sum(-1)
+        dA += (g * d_t * dA_t * hs[t]).sum(0)
+        gn = dA_t * g
+    return (dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype), gn)

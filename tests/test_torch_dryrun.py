@@ -219,7 +219,10 @@ def _train_extra(arch, shape):
     - rwkv6: the remat recomputes each layer's forward, B4's r·S products
       included (2·BH·T·hd² a layer); XLA drops that recomputed output as
       dead code (the backward needs only the states), the port's eager
-      recompute runs it;
+      recompute runs it; and B4's backward kernel takes 4 products a state
+      element and step (S·do, A·v, Aᵀ·k, G ⊙ S's row sums: 8·BH·T·hd² a
+      layer) where XLA's differentiation of the scan takes the 2
+      gradients of r·S (4·BH·T·hd²);
     - qwen2-1.5b: nothing."""
     cfg = torch_get_config(arch).reduced()
     T = shape.global_batch * shape.seq_len
@@ -230,7 +233,8 @@ def _train_extra(arch, shape):
         return len(Model(cfg, device="meta").moe_layers) * 2 * (
             2.0 * m.n_experts * C * cfg.d_model * m.d_expert)
     if cfg.rwkv is not None:
-        return cfg.n_layers * 2.0 * T * cfg.d_model * cfg.rwkv.head_dim
+        return cfg.n_layers * (2.0 + 4.0) * T * cfg.d_model \
+            * cfg.rwkv.head_dim
     return 0.0
 
 

@@ -987,9 +987,10 @@ def test_moe_ffn_function_gradients_match_plain(cuda, E, C, d, f, dtype,
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """B2, B3, B4, B5 and the raw B1 launch write their outputs through
-    pointers, off the autograd graph: asked for a gradient they raise, and
-    under no_grad they run."""
+    """B2, B3 and the raw B1, B4 and B5 launches write their outputs
+    through pointers, off the autograd graph: asked for a gradient they
+    raise, and under no_grad they run (B1, B4 and B5 take a gradient only
+    through their autograd Functions, which ``ops`` picks)."""
     from repro_torch.kernels import ops
     x = torch.zeros(2, 4, 8, device=cuda, requires_grad=True)
     w = torch.zeros(2, 8, 16, device=cuda)
@@ -1008,14 +1009,14 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(2, 64, 64,
                                                          device=cuda)
     with pytest.raises(NotImplementedError, match="wkv6"):
-        ops.wkv_scan(r, r, r, r, u, s0)
+        wkv_mod.wkv6(r, r, r, r, u, s0)
     xs = torch.zeros(1, 3, 32, device=cuda, requires_grad=True)
     dt = torch.zeros(1, 3, 32, device=cuda)
     A, h0 = torch.zeros(32, 16, device=cuda), torch.zeros(1, 32, 16,
                                                           device=cuda)
     bc = torch.zeros(1, 3, 16, device=cuda)
     with pytest.raises(NotImplementedError, match="selective_scan"):
-        ops.selective_scan(xs, dt, A, bc, bc, h0)
+        scan_mod.selective_scan(xs, dt, A, bc, bc, h0)
     with torch.no_grad():
         ops.wkv_scan(r, r, r, r, u, s0)
         ops.selective_scan(xs, dt, A, bc, bc, h0)
@@ -1219,3 +1220,239 @@ def test_sharded_server_on_card_matches_cpu(cuda, wire):
     assert g_stats["n_devices"] == 2
     n_moe = len(gpu.moe_layers)
     assert n == 2 * n_moe * (srv.n_prefills + srv.n_decode_steps)
+
+
+# ---------------------------------------------------------------------------
+# B4 and B5 under a gradient: their autograd Functions and backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _rows_close(got, want):
+    """A gradient held per leading row as a whole (``_grad_close``'s
+    normwise rule): the kernel and the plain backward both sum in fp32 from
+    the same inputs, in another order, over T steps of a state, so an fp32
+    gradient takes the fp32 rtol; a bf16 one is rounded once, 1.5e-2."""
+    _grad_close(got, want, "bfloat16" if got.dtype == torch.bfloat16
+                else "float32")
+
+
+def _uniform(rng, shape, dev):
+    return torch.from_numpy(rng.random(shape, np.float32)).to(dev)
+
+
+def _wkv_grad_inputs(rng, BH, T, hd, dtype, w_dtype, dev, w_lo=0.0):
+    """B4's inputs and its upstream gradients; ``w_lo`` > 0 puts w in
+    [w_lo, 1) (near 1), else sigmoid(N(0, 1)) with a tenth of it exactly
+    0 (an underflowed decay)."""
+    r, k, v, w, u, s0 = _wkv_inputs(rng, BH, T, hd, dtype, "float32", dev)
+    if w_lo:
+        w = w_lo + (1 - w_lo) * _uniform(rng, w.shape, dev) * 0.999
+    else:
+        w = torch.where(_uniform(rng, w.shape, dev) < 0.1, 0.0, w)
+    do = _rand(rng, (BH, T, hd), 1.0, dtype, dev)
+    dsN = _rand(rng, (BH, hd, hd), 0.1, "float32", dev)
+    return (r, k, v, w.to(DTYPES[w_dtype]), u, s0), do, dsN
+
+
+# the training shape (4 rows x 64 heads, T = 128), T = 1, T across
+# checkpoint chunks and tiles (37, 40), hd 32
+@pytest.mark.parametrize("BH,T,hd,w_lo", [(256, 128, 64, 0.0),
+                                          (2, 1, 64, 0.0),
+                                          (3, 37, 32, 0.0),
+                                          (5, 40, 64, 0.9),
+                                          (3, 17, 32, 0.99)])
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
+                                           ("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16")])
+def test_wkv6_backward_kernel_matches_plain(cuda, BH, T, hd, w_lo, dtype,
+                                            w_dtype):
+    """``WKV6`` on the card: o and sN bit-equal to the serving launch (the
+    checkpoints do not touch the arithmetic), the checkpoints the states
+    of the plain forward, and every gradient (dr, dk, dv, dw, du, ds0)
+    against ``wkv6_bwd_ref`` on the same inputs; one launch each way."""
+    rng = np.random.default_rng(21)
+    args, do, dsN = _wkv_grad_inputs(rng, BH, T, hd, dtype, w_dtype, cuda,
+                                     w_lo)
+    o0, sN0 = wkv_mod.wkv6(*args)
+    o1, sN1, ck = wkv_mod.wkv6(*args, checkpoints=True)
+    assert torch.equal(o0, o1) and torch.equal(sN0, sN1)
+    assert torch.equal(ck[:, 0], args[5])
+    if T > wkv_mod.CKPT_STEPS:
+        c = wkv_mod.CKPT_STEPS
+        _, s_c = ref.wkv6_ref(*(t[:, :c] for t in args[:4]), args[4],
+                              args[5])
+        np.testing.assert_allclose(_f32(ck[:, 1]), _f32(s_c), atol=1e-4,
+                                   rtol=1e-4)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (wkv_mod.launches, wkv_mod.bwd_launches)
+    o, sN = wkv_mod.WKV6.apply(*leaves)
+    torch.autograd.backward((o, sN), (do, dsN))
+    assert (wkv_mod.launches, wkv_mod.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(o.detach(), o0)
+    want = ref.wkv6_bwd_ref(*args, do, dsN)
+    for t, g in zip(leaves, want):
+        assert t.grad.dtype == t.dtype
+        _rows_close(t.grad, g)
+
+
+def test_wkv6_backward_kernel_is_deterministic(cuda):
+    """Two backward launches on the same inputs give bit-equal gradients:
+    every sum stays in one block, in a fixed order."""
+    rng = np.random.default_rng(22)
+    args, do, dsN = _wkv_grad_inputs(rng, 256, 128, 64, "bfloat16",
+                                     "float32", cuda)
+    _, _, ck = wkv_mod.wkv6(*args, checkpoints=True)
+    g1 = wkv_mod.wkv6_backward(*args[:5], ck, do, dsN)
+    g2 = wkv_mod.wkv6_backward(*args[:5], ck, do, dsN)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_wkv6_backward_wrapper_validates_inputs(cuda):
+    rng = np.random.default_rng(23)
+    args, do, dsN = _wkv_grad_inputs(rng, 2, 9, 64, "float32", "float32",
+                                     cuda)
+    r, k, v, w, u, _ = args
+    _, _, ck = wkv_mod.wkv6(*args, checkpoints=True)
+    with pytest.raises(ValueError, match="on cpu"):
+        wkv_mod.wkv6_backward(r, k, v, w, u, ck, do, dsN.cpu())
+    with pytest.raises(ValueError, match="ck has shape"):
+        wkv_mod.wkv6_backward(r, k, v, w, u, ck[:, :1].contiguous(), do,
+                              dsN)
+    with pytest.raises(TypeError, match="do has dtype"):
+        wkv_mod.wkv6_backward(r, k, v, w, u, ck, do.to(torch.bfloat16), dsN)
+    with pytest.raises(TypeError, match="w must be"):
+        wkv_mod.wkv6_backward(r, k, v, w.to(torch.bfloat16), u, ck, do, dsN)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wkv_mod.wkv6_backward(*(t.cpu() for t in (r, k, v, w, u, ck, do,
+                                                   dsN)))
+    with pytest.raises(NotImplementedError, match="wkv6_backward"):
+        wkv_mod.wkv6_backward(r.clone().requires_grad_(), k, v, w, u, ck,
+                              do, dsN)
+
+
+def _scan_grad_inputs(rng, B, T, D, N, dtype, dev, big_dt=False):
+    """B5's inputs, its upstream gradients; ``big_dt`` makes a third of
+    dt 40-100, where exp(dt * A) underflows to 0 for every state."""
+    args = list(_scan_inputs(rng, B, T, D, N, dtype, dev))
+    if big_dt:
+        big = 40 + 60 * _uniform(rng, args[1].shape, dev)
+        args[1] = torch.where(_uniform(rng, args[1].shape, dev) < 1 / 3,
+                              big, args[1])
+    dy = _rand(rng, (B, T, D), 1.0, "float32", dev)
+    dhT = _rand(rng, (B, D, N), 0.1, "float32", dev)
+    return tuple(args), dy, dhT
+
+
+# Jamba's training shape (B 4, T 128, d_in 16384, N 16), reduced Jamba's
+# N = 8, T = 1, T across checkpoint chunks and ring stages (65), d_in not a
+# multiple of a block's 32 channels, d_in 16383 (unaligned bf16 rows), and
+# a dt large enough that exp(dt * A) underflows
+@pytest.mark.parametrize("B,T,D,N,big_dt", [(4, 128, 16384, 16, False),
+                                            (2, 40, 512, 8, False),
+                                            (2, 1, 100, 8, False),
+                                            (1, 65, 1000, 16, False),
+                                            (2, 9, 16383, 16, False),
+                                            (3, 33, 70, 16, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_backward_kernel_matches_plain(cuda, B, T, D, N,
+                                                      big_dt, dtype):
+    """``SelectiveScan`` on the card: y and h_T bit-equal to the serving
+    launch, the checkpoints the plain forward's states, and every gradient
+    (dx, ddt, dA, dB, dC, dh0) against ``selective_scan_bwd_ref`` on the
+    same inputs; one launch each way."""
+    rng = np.random.default_rng(24)
+    args, dy, dhT = _scan_grad_inputs(rng, B, T, D, N, dtype, cuda, big_dt)
+    y0, h0 = scan_mod.selective_scan(*args)
+    y1, h1, ck = scan_mod.selective_scan(*args, checkpoints=True)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    assert torch.equal(ck[0], args[5])
+    if T > scan_mod.CKPT_STEPS:
+        c = scan_mod.CKPT_STEPS
+        x, dt, A, Bm, Cm, hh = args
+        _, h_c = ref.selective_scan_ref(x[:, :c], dt[:, :c], A, Bm[:, :c],
+                                        Cm[:, :c], hh)
+        np.testing.assert_allclose(_f32(ck[1]), _f32(h_c), atol=1e-4,
+                                   rtol=1e-4)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (scan_mod.launches, scan_mod.bwd_launches)
+    y, hT = scan_mod.SelectiveScan.apply(*leaves)
+    torch.autograd.backward((y, hT), (dy, dhT))
+    assert (scan_mod.launches, scan_mod.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y.detach(), y0)
+    want = ref.selective_scan_bwd_ref(*args, dy, dhT)
+    for t, g in zip(leaves, want):
+        assert t.grad.dtype == t.dtype and bool(torch.isfinite(t.grad).all())
+        _rows_close(t.grad, g)
+
+
+def test_selective_scan_backward_kernel_is_deterministic(cuda):
+    """Two backward launches give bit-equal gradients: dB/dC sum per-block
+    partials and dA per-row partials in a fixed order, with no atomics."""
+    rng = np.random.default_rng(25)
+    args, dy, dhT = _scan_grad_inputs(rng, 4, 128, 16384, 16, "bfloat16",
+                                      cuda)
+    _, _, ck = scan_mod.selective_scan(*args, checkpoints=True)
+    g1 = scan_mod.selective_scan_backward(*args[:5], ck, dy, dhT)
+    g2 = scan_mod.selective_scan_backward(*args[:5], ck, dy, dhT)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_selective_scan_backward_wrapper_validates_inputs(cuda):
+    rng = np.random.default_rng(26)
+    args, dy, dhT = _scan_grad_inputs(rng, 2, 9, 96, 16, "float32", cuda)
+    x, dt, A, Bm, Cm, _ = args
+    _, _, ck = scan_mod.selective_scan(*args, checkpoints=True)
+    with pytest.raises(ValueError, match="on cpu"):
+        scan_mod.selective_scan_backward(x, dt, A, Bm, Cm, ck, dy, dhT.cpu())
+    with pytest.raises(ValueError, match="ck has shape"):
+        scan_mod.selective_scan_backward(x, dt, A, Bm, Cm, ck[:1].contiguous(),
+                                         dy, dhT)
+    with pytest.raises(TypeError, match="dy has dtype"):
+        scan_mod.selective_scan_backward(x, dt, A, Bm, Cm, ck,
+                                         dy.to(torch.bfloat16), dhT)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scan_mod.selective_scan_backward(*(t.cpu() for t in (
+            x, dt, A, Bm, Cm, ck, dy, dhT)))
+    with pytest.raises(NotImplementedError, match="selective_scan_backward"):
+        scan_mod.selective_scan_backward(x.clone().requires_grad_(), dt, A,
+                                         Bm, Cm, ck, dy, dhT)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_recurrent_loss_on_card_reaches_every_parameter(cuda, arch, policy):
+    """``Model.loss`` of reduced RWKV6 / Jamba on the card (B4 / B5 through
+    their Functions, remat on under either policy) gives every parameter a
+    finite gradient equal to the CPU's within fp32 limits; the recurrent
+    kernel launches forward once a layer plus its recompute in a scan
+    group, and backward once a layer."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              remat_policy=policy)
+    gpu = Model(cfg, device=cuda).init(5).trainable()
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu.trainable()
+    toks = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 19)))
+    mod = wkv_mod if cfg.rwkv is not None else scan_mod
+    kind = "rwkv" if cfg.rwkv is not None else "mamba"
+    layers = [i for i in range(cfg.n_layers) if cfg.block_kind(i) == kind]
+    before = (mod.launches, mod.bwd_launches)
+    lg = gpu.loss({"tokens": toks.to(cuda)}, remat=True)
+    lg.backward()
+    torch.cuda.synchronize()
+    assert (mod.launches - before[0], mod.bwd_launches - before[1]) == (
+        sum(2 if i >= gpu.n_prefix else 1 for i in layers), len(layers))
+    lc = cpu.loss({"tokens": toks}, remat=True)
+    lc.backward()
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()),
+                               rtol=1e-5)
+    cpu_grads = dict(cpu.named_parameters())
+    for n, p in gpu.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+        want = cpu_grads[n].grad.numpy()
+        np.testing.assert_allclose(
+            _f32(p.grad), want, rtol=1e-4, err_msg=n,
+            atol=2e-5 * float(np.sqrt(np.mean(want * want))))
