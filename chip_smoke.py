@@ -36,8 +36,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      normwise per row, two backward launches bit-equal) at the training
      shape (BH 256, T 128, hd 64) and at T 512, bf16 and fp32, the
      backward and the forward with and without its checkpoints timed,
-     3g the same for B5 (``SelectiveScan``, ``selective_scan_backward``)
-     at Jamba's training shape (B 4, T 128, d_in 16384, N 16) and T 512;
+     the backward's layout (CTAs an SM, waves) printed, 3g the same for
+     B5 (``SelectiveScan``, ``selective_scan_backward``) at Jamba's
+     training shape (B 4, T 128, d_in 16384, N 16) and T 512, its two
+     launches' device times apart (``torch.profiler``) and its exps'
+     time on the special-function units beside its bound;
   4. serve full-width qwen3-moe-235b-a22b, cut to 4 layers, through the
      launcher's own code (4 requests, prompts <= 32, <= 16 new tokens, 4
      slots), every expert resident, and check every request's budget and
@@ -201,6 +204,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2869,6 +2873,23 @@ def _bwd_nums(run, plain, fwd, fwd_ck, ins, outs, flops, own_bytes,
     return nums
 
 
+def _bwd_layout(name, ctas, *query):
+    """A backward kernel's layout at this launch: ``build.occupancy`` of
+    the served library plus the launch's CTAs and the waves they take on
+    this card's SMs."""
+    import torch
+    from repro_torch.kernels import build
+    lay = build.occupancy(name, *query)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lay.update(ctas=ctas, waves=ctas / (lay["ctas_per_sm"] * n_sm))
+    print(f"  {name} layout: {ctas} CTAs of {lay['threads']} threads, "
+          f"{lay['registers']} registers a thread, "
+          f"{lay['smem_bytes']} B of shared memory a CTA: "
+          f"{lay['ctas_per_sm']} CTAs ({lay['ctas_per_sm'] * lay['threads'] // 32}"
+          f" warps) an SM, {lay['waves']:.2f} waves on {n_sm} SMs")
+    return lay
+
+
 def _bwd_line(what, nums, card):
     print(f"  time {what}: backward kernel {nums['ms']:.4f} ms, plain "
           f"backward {nums['plain_ms']:.4f} ms, library none (no single "
@@ -2935,9 +2956,11 @@ def check_wkv6_bwd(gen, card):
                 (*args, do, dsN), g1, 11 * BH * T * hd * hd,
                 ck.numel() * 4, 3 * BH * T * hd * hd))
             _bwd_line(f"BH={BH} T={T}", nums, card)
+            nums["layout"] = _bwd_layout("wkv6_bwd", BH, hd, 1, 0)
             by_T[T] = {key: nums[key] for key in
                        ("ms", "plain_ms", "bound_ms", "bound_by",
-                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms")}
+                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms",
+                        "layout")}
             if T == TRAIN_SEQ:
                 row = dict(name="wkv6_bwd", route="cuda",
                            source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
@@ -2996,9 +3019,11 @@ def check_scan_bwd(gen, card):
                 continue
             # per state element and step: the reverse walk's 19 fp32
             # operations (exp included); this design's recompute of the
-            # states from its checkpoints (5), its checkpoints read and its
-            # partials (dB/dC a block, dA a batch row) written and read
-            part = -(-D // scan_mod.CHANNELS) * B * T * 2 * N + B * D * N
+            # states from its checkpoints (dt * A, the exp, dt x * B and
+            # one fma: 4), its checkpoints read and its partials (dB/dC a
+            # block, dA a batch row) written and read
+            part = (math.prod(scan_mod.partials_shape(B, T, D, N))
+                    + B * D * N)
             nums = dict(max_abs_err=err, grad_rel_err=rel, **_bwd_nums(
                 lambda: scan_mod.selective_scan_backward(*args[:5], ck, dy,
                                                          dhT),
@@ -3006,11 +3031,33 @@ def check_scan_bwd(gen, card):
                 lambda: scan_mod.selective_scan(*args),
                 lambda: scan_mod.selective_scan(*args, checkpoints=True),
                 (*args, dy, dhT), g1, 19 * B * T * D * N,
-                ck.numel() * 4 + 2 * 4 * part, 5 * B * T * D * N))
+                ck.numel() * 4 + 2 * 4 * part, 4 * B * T * D * N))
             _bwd_line(f"B={B} T={T}", nums, card)
+            # the two launches' device times, and the exps this design
+            # issues (two a state element and step: the recompute's and the
+            # walk's) at the SFUs' rate, as phase 3e prints beside B5
+            reps = 10
+            _, split = _kernel_ms(lambda: [scan_mod.selective_scan_backward(
+                *args[:5], ck, dy, dhT) for _ in range(reps)],
+                ("selective_scan_bwd_kernel", "selective_scan_bwd_sum"))
+            nums["launch_ms"] = {k: v / reps for k, v in split.items()}
+            rate, how = sfu_exp_rate()
+            nums["sfu_ms"] = 2 * B * T * D * N / rate * 1e3
+            nums["partials_mb"] = part * 4 / 1e6
+            print(f"  B={B} T={T}: profiled device ms a launch: walk "
+                  f"{nums['launch_ms']['selective_scan_bwd_kernel']:.4f}, "
+                  f"second pass {nums['launch_ms']['selective_scan_bwd_sum']:.4f};"
+                  f" the exps alone {nums['sfu_ms']:.6f} ms on the SFUs "
+                  f"({how}); partials {nums['partials_mb']:.1f} MB (dB/dC a "
+                  f"block of {scan_mod.CHANNELS} channels, dA a batch row) "
+                  f"[{card}]")
+            nums["layout"] = _bwd_layout(
+                "selective_scan_bwd",
+                B * scan_mod.partials_shape(B, T, D, N)[0], N, 1)
             by_T[T] = {key: nums[key] for key in
                        ("ms", "plain_ms", "bound_ms", "bound_by",
-                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms")}
+                        "design_bytes_ms", "fwd_ms", "fwd_ckpt_ms",
+                        "launch_ms", "sfu_ms", "partials_mb", "layout")}
             if T == TRAIN_SEQ:
                 row = dict(name="selective_scan_bwd", route="cuda",
                            source="src/repro_torch/kernels/csrc/"

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's B2, B4, B1, B5 and B3 kernels of two trees of this repo
-on one GPU, in turns: the other tree, this one, this one, the other.
+"""Time the port's B2, B4, B1, B5 and B3 kernels and the B4/B5 backward
+kernels of two trees of this repo on one GPU, in turns: the other tree,
+this one, this one, the other.
 
-    python3 scripts/kernel_ab.py --parent DIR [--paths]
+    python3 scripts/kernel_ab.py --parent DIR [--paths] [--train]
     python3 scripts/kernel_ab.py --lanes
     python3 scripts/kernel_ab.py --b3-q
 
@@ -28,6 +29,12 @@ built from its own sources; all runs take the same seeded inputs:
     cross-attention, Qwen2-VL, and Gemma-2's hd 256 with softcap 50 where
     the tree's kernel takes them).
 
+  - B4-bwd ``wkv6_backward`` at the training shape (BH = 256, T = 128, hd
+    64, r/k/v bf16, w fp32) and at T = 512, and B5-bwd
+    ``selective_scan_backward`` at Jamba's (B = 4, T = 128, d_in 16384, N
+    16, x/B/C bf16) and at T = 512, each gradient held against the plain
+    backward (``chip_smoke.compare_grad``: normwise per row) first.
+
 B3's hd 64/128 outputs without a softcap and every B4 and B5 output are
 hashed, and every run's hashes must be equal: the other tree's kernel
 and this one's give the same bits there.
@@ -35,7 +42,11 @@ and this one's give the same bits there.
 Each result is held against the plain version first. With ``--paths`` each
 run also drives that tree's own ``chip_smoke.py`` phase 4b (streaming,
 int8) and phase 6 (RWKV6), which print their step medians and prefill
-times. Kernel times are ``chip_smoke.time_ms`` of this tree (device time,
+times. With ``--train`` each run also trains ``chip_smoke.RECURRENT_LEGS``
+(phase 14's full-width rwkv6-7b and jamba cuts) through that tree's
+launcher for ``RECURRENT_STEPS`` steps; their losses and gradient norms are
+printed side by side, step 0's loss must be bit-equal across the runs (the
+forward is the same) and its gradient norm within 1e-3 relative. Kernel times are ``chip_smoke.time_ms`` of this tree (device time,
 the host's enqueue ahead of the card). Prints each run's JSON line (``AB
 {...}``) and a table; needs one CUDA GPU.
 
@@ -67,6 +78,10 @@ B5_SHAPES = [(4, 1)] + [(1, T) for T in (1, 17, 36, 256, 2048)]   # (B, T)
 B5_D, B5_N = 16384, 16                                # Jamba's d_in, d_state
 B5_LANES = (1, 2, 4, 8, 16)
 B5_TILES = (32, 64)
+BWD_SEQS = (128, 512)              # the training length, and 4x it
+B4_BWD = (256, 64)                 # BH (4 rows x 64 heads), hd
+B5_BWD = (4, 16384, 16)            # B, d_in, N
+TRAIN_GNORM_RTOL = 1e-3
 
 
 def _module(path: Path, name: str):
@@ -76,8 +91,9 @@ def _module(path: Path, name: str):
     return mod
 
 
-def measure(tree: Path, paths: bool) -> dict:
-    """One run: B2, B1, B4 and B5 of ``tree`` on this process's card."""
+def measure(tree: Path, paths: bool, train: bool = False) -> dict:
+    """One run: B2, B1, B4, B5, B3 and the backward kernels of ``tree`` on
+    this process's card."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import repro_torch
@@ -92,10 +108,10 @@ def measure(tree: Path, paths: bool) -> dict:
         raise SystemExit("kernel_ab: CUDA is not available")
     cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
     build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan",
-                 "flash_decode"])
+                 "flash_decode", "wkv6_bwd", "selective_scan_bwd"])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {},
-           "b3": {}, "bits": {}}
+           "b3": {}, "b4_bwd": {}, "b5_bwd": {}, "bits": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, C, d, f = (cs.MAIN[k] for k in "ECdf")
     f32 = torch.float32
@@ -153,6 +169,9 @@ def measure(tree: Path, paths: bool) -> dict:
             lambda: selective_scan(*args), 200 if T < 1024 else 20)
         out["bits"][f"B5 B={B} T={T}"] = _sha(y, hT)
     measure_b3(cs, out)
+    measure_bwd(cs, out)
+    if train:
+        out["train"] = train_legs(cs)
     if paths:
         own = _module(tree / "chip_smoke.py", "chip_smoke_tree")
         card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -208,6 +227,115 @@ def measure_b3(cs, out) -> None:
             out["bits"][f"B3 {what}"] = _sha(y)
         del q, k, v, y
     torch.cuda.empty_cache()
+
+
+def _wkv_bwd_inputs(gen, BH, T, hd):
+    """B4's inputs as phase 3f draws them (r/k/v bf16, w = exp(-exp(N))
+    fp32), its checkpoints, and the upstream gradients."""
+    import torch
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    def rnd(shape, std, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dt)
+    r, k, v = (rnd((BH, T, hd), 0.5, torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd((BH, T, hd), 1.0) - 0.5))
+    args = (r, k, v, w, rnd((BH, hd), 0.1), rnd((BH, hd, hd), 0.1))
+    do, dsN = rnd((BH, T, hd), 1.0, torch.bfloat16), rnd((BH, hd, hd), 0.1)
+    _, _, ck = wkv_mod.wkv6(*args, checkpoints=True)
+    return args, ck, do, dsN
+
+
+def _scan_bwd_inputs(cs, gen, B, T, D, N):
+    """B5's inputs as phase 3g draws them (x/B/C bf16), its checkpoints,
+    and the upstream gradients."""
+    import torch
+    from repro_torch.kernels import selective_scan as scan_mod
+    args = cs.scan_inputs(gen, B, T, D, N, torch.bfloat16)
+    dy = torch.randn((B, T, D), generator=gen, device="cuda")
+    dhT = torch.randn((B, D, N), generator=gen, device="cuda") * 0.1
+    _, _, ck = scan_mod.selective_scan(*args, checkpoints=True)
+    return args, ck, dy, dhT
+
+
+def _grads_close(cs, tag, got, want, names):
+    for n, g, w in zip(names, got, want):
+        cs.compare_grad(f"{tag} d{n}", g, w)
+
+
+def measure_bwd(cs, out) -> None:
+    """B4-bwd and B5-bwd of the tree on the path at ``B4_BWD`` / ``B5_BWD``
+    and each of ``BWD_SEQS``: every gradient held against the tree's plain
+    backward, then timed, into ``out``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as scan_mod
+    from repro_torch.kernels import wkv6 as wkv_mod
+    BH, hd = B4_BWD
+    B, D, N = B5_BWD
+    for T in BWD_SEQS:
+        gen = torch.Generator(device="cuda").manual_seed(11 + T)
+        args, ck, do, dsN = _wkv_bwd_inputs(gen, BH, T, hd)
+        _grads_close(cs, f"B4-bwd T={T}",
+                     wkv_mod.wkv6_backward(*args[:5], ck, do, dsN),
+                     ref.wkv6_bwd_ref(*args, do, dsN), "rkvwus")
+        out["b4_bwd"][f"BH={BH} T={T}"] = cs.time_ms(
+            lambda: wkv_mod.wkv6_backward(*args[:5], ck, do, dsN), 20)
+        del args, ck, do, dsN
+        args, ck, dy, dhT = _scan_bwd_inputs(cs, gen, B, T, D, N)
+        _grads_close(cs, f"B5-bwd T={T}",
+                     scan_mod.selective_scan_backward(*args[:5], ck, dy, dhT),
+                     ref.selective_scan_bwd_ref(*args, dy, dhT),
+                     ("x", "t", "A", "B", "C", "h0"))
+        out["b5_bwd"][f"B={B} T={T}"] = cs.time_ms(
+            lambda: scan_mod.selective_scan_backward(*args[:5], ck, dy, dhT),
+            20)
+        del args, ck, dy, dhT
+        torch.cuda.empty_cache()
+
+
+def train_legs(cs) -> dict:
+    """``cs.RECURRENT_LEGS`` trained through the tree's own launcher
+    (phase 14's cuts, bf16, seed 0) for ``cs.RECURRENT_STEPS`` steps.
+    -> {leg: {"losses": [...], "gnorms": [...]}}."""
+    import gc
+
+    import torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model
+    res = {}
+    for leg, arch, depth in cs.RECURRENT_LEGS:
+        args = train_mod.parse_args(["--arch", arch, "--layers", str(depth),
+                                     "--steps", str(cs.RECURRENT_STEPS)])
+        cfg = train_mod.config(args)
+        model = Model(cfg, device="cuda").init(0)
+        got = train_mod.train(args, cfg, model)
+        res[leg] = {"losses": [float(x) for x in got["losses"]],
+                    "gnorms": [float(x) for x in got["gnorms"]]}
+        del model, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def compare_train(runs) -> None:
+    """The runs' phase-14 legs side by side; step 0's loss bit-equal in
+    every run and its gradient norm within TRAIN_GNORM_RTOL."""
+    legs = [run["train"] for _, run in runs]
+    for leg in legs[0]:
+        print(f"phase 14 {leg} leg, {len(legs[0][leg]['losses'])} steps "
+              "(losses | gnorms), runs in order:")
+        for (label, _), got in zip(runs, legs):
+            print(f"  {label}: " + ", ".join(f"{x:.6f}" for x in
+                                             got[leg]["losses"])
+                  + " | " + ", ".join(f"{x:.6f}" for x in got[leg]["gnorms"]))
+        l0 = {got[leg]["losses"][0] for got in legs}
+        g0 = [got[leg]["gnorms"][0] for got in legs]
+        spread = (max(g0) - min(g0)) / max(g0)
+        print(f"  step 0: loss {'bit-equal' if len(l0) == 1 else 'DIFFERS'}"
+              f" in every run; gnorm spread {spread:.2e} (limit "
+              f"{TRAIN_GNORM_RTOL:g})")
+        if len(l0) != 1 or spread > TRAIN_GNORM_RTOL:
+            raise SystemExit(f"phase 14 {leg}: step 0 differs between runs")
 
 
 def _variant_libs(build, name, variants) -> tuple:
@@ -289,8 +417,6 @@ def lanes(card: str) -> None:
               + " | ".join(f"{ms:.4f}" for ms in times), flush=True)
 
 
-B3_Q_SMEM_HD = (64, 256, 512)     # the served build keeps q in smem from 256
-
 
 def b3_q(card: str) -> None:
     """B3 of this tree, bf16, per ``-DFLASH_Q_SMEM_HD`` build."""
@@ -360,11 +486,14 @@ def main(argv=None) -> int:
     ap.add_argument("--b3-q", action="store_true",
                     help="time this tree's B3 per FLASH_Q_SMEM_HD build "
                          "instead")
+    ap.add_argument("--train", action="store_true",
+                    help="also train each tree's phase-14 legs and compare "
+                         "their losses and gradient norms")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure:
-        print("AB " + json.dumps(measure(args.measure, args.paths)),
-              flush=True)
+        print("AB " + json.dumps(measure(args.measure, args.paths,
+                                         args.train)), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
@@ -382,7 +511,8 @@ def main(argv=None) -> int:
     for label, tree in (("parent", args.parent), ("change", ROOT),
                         ("change", ROOT), ("parent", args.parent)):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
-               str(tree.resolve())] + (["--paths"] if args.paths else [])
+               str(tree.resolve())] + (["--paths"] if args.paths else []) \
+            + (["--train"] if args.train else [])
         print(f"== {label}: {tree}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         print(proc.stdout + proc.stderr[-4000:], flush=True)
@@ -391,7 +521,8 @@ def main(argv=None) -> int:
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         runs.append((label, json.loads(line[-1][3:])))
     print(f"ms per launch, runs in order [{card.splitlines()[0]}]")
-    keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3")
+    keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3", "b4_bwd",
+                                   "b5_bwd")
             for k in dict.fromkeys(key for _, run in runs
                                    for key in run.get(part, {}))]
     print("kernel, shape | " + " | ".join(label for label, _ in runs))
@@ -407,6 +538,8 @@ def main(argv=None) -> int:
     if len(same) != len(shared):
         raise SystemExit("kernel outputs differ between runs: "
                          + ", ".join(k for k in shared if k not in same))
+    if args.train:
+        compare_train(runs)
     return 0
 
 

@@ -64,6 +64,15 @@ _SIGNATURES = {
                            [_P] * 16 + [_I] * 5 + [_P]),
 }
 
+# the backward kernels' layout queries, (hd, dtype, w_dtype, int[4]) and
+# (N, dtype, int[4]) -> CTAs an SM, threads and shared bytes a CTA,
+# registers a thread
+_QUERIES = {
+    "wkv6_bwd": ("wkv6_bwd_occupancy", [_I] * 3 + [_P]),
+    "selective_scan_bwd": ("selective_scan_bwd_occupancy", [_I] * 2 + [_P]),
+}
+OCCUPANCY_KEYS = ("ctas_per_sm", "threads", "smem_bytes", "registers")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 build_logs: Dict[str, str] = {}   # name -> nvcc output of the last build
@@ -135,6 +144,25 @@ def load(name: str):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return getattr(lib, _SIGNATURES[name][0])
+
+
+def occupancy(name: str, *args: int) -> Dict[str, int]:
+    """The layout query of backward kernel ``name`` (``_QUERIES``) on the
+    current device. -> ``OCCUPANCY_KEYS`` -> value."""
+    load(name)
+    fn_name, argtypes = _QUERIES[name]
+    fn = getattr(_libs[name], fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    check(fn_name, fn(*args, ctypes.cast(out, ctypes.c_void_p)))
+    return dict(zip(OCCUPANCY_KEYS, out))
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data is not 16-byte aligned (a
+    kernel that copies its rows 16 bytes at a time takes only aligned
+    ones)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_tensor(name, t, shape, dtype, device) -> None:

@@ -21,12 +21,14 @@
 // forward's own arithmetic (ex2 of dt * A log2 e, dt * x first, one fma),
 // so the same fp32 bits, into shared memory, then walks them in reverse.
 //
-// What bounds it on this card: bytes at Jamba's training shape. Per state
-// element and step the reverse walk takes ~14 fp32 operations and an exp,
-// the recompute 4 and an exp (16 B * D * N * T of fp32 work = 0.04 ms at
-// B 4, T 128, d_in 16384, N 16); the rows of x, dt and dy and of dx, ddt
-// (B * T * d_in * 14 B with bf16 x), the checkpoints (B * d_in * N * 4 B
-// every kChunk steps) and the block partials below move ~0.1 GB there.
+// What bounds it on this card: the function's least work is bytes at
+// Jamba's training shape (the rows of x, dt, dy, dx, ddt and the states:
+// ~0.04 ms at B 4, T 128, d_in 16384, N 16), but the kernel issues ~35
+// instructions a state element and step (the walk's ~14 fp32 operations
+// and an exp, the recompute's 4 and an exp, and moving the dB/dC partial
+// sums between lanes), so instruction issue and the latency of each
+// chunk's steps bound it; the checkpoints (B * d_in * N * 4 B every kChunk
+// steps) and the block partials below add ~0.1 GB of bytes.
 //
 // Design: the forward's decomposition: a block takes 32 channels of one
 // batch row, two lanes a channel, each lane 8 of its 16 states (4 of 8).
@@ -35,10 +37,22 @@
 // reduce-scatter over the warp's 16 channels (15 shuffles for a lane's 16
 // partials) and a fixed-order sum of the block's two warps give one
 // partial a block, (blocks, B, T, 2N) fp32; dA sums over b in the same way,
-// (B, d_in, N) partials. A second kernel sums the partials in a fixed
-// order (blocks, then b), so nothing uses atomics and two launches give
-// the same bits. A chunk's dx and ddt are staged in shared memory and
-// written as coalesced rows once per chunk.
+// (B, d_in, N) partials. A chunk's dx and ddt are staged in shared memory
+// and written as coalesced rows once per chunk.
+//  - The next chunk's rows of dt, x, dy, B, C and its checkpoint slice are
+//    loaded into registers while this chunk walks, and stored to shared
+//    memory at its start, so a chunk does not wait for device memory.
+//  - The second kernel sums the partials in a fixed order with 8 threads an
+//    output of dB/dC (each over every 8th block, then added in thread
+//    order) and one thread an output of dA (the batch rows in order): ~1500
+//    blocks at the training shape; one thread an output would fill 64.
+// Both measured faster on an H100 than without them (PERF.md).
+// Nothing uses atomics: two launches give the same bits. Measured slower
+// and not kept: one exp a state element and step (the exps kept beside the
+// states, in shared memory or registers, cost more occupancy than the exp
+// they save) and summing dB/dC over a cluster of CTAs in distributed
+// shared memory before writing partials (each cluster barrier waits for
+// its slowest CTA); PERF.md has their times.
 #include "common.cuh"
 #include "reduce.cuh"
 
@@ -95,27 +109,58 @@ selective_scan_bwd_kernel(const X* __restrict__ x, const float* __restrict__ dt,
     dA_acc[q] = 0.f;
   }
 
-  for (int ci = nck - 1; ci >= 0; --ci) {
+  // the next chunk's rows and checkpoint, loaded into registers while this
+  // chunk walks and stored to shared memory at its start
+  constexpr int kRowPer = kChunk * kChannels / kThreads;
+  constexpr int kBCPer = (kChunk * N + kThreads - 1) / kThreads;
+  float pdt[kRowPer], pdy[kRowPer], px[kRowPer], pb[kBCPer], pc[kBCPer], ph[S];
+  auto fetch = [&](int ci) {
     const int t0 = ci * kChunk, n = min(kChunk, T - t0);
-    __syncthreads();          // the previous chunk's shared rows are written out
-    for (int e = tid; e < n * kChannels; e += kThreads) {
-      const int s = e / kChannels, j = e - s * kChannels, cc = c0 + j;
-      const bool ok = cc < D;
+#pragma unroll
+    for (int i = 0; i < kRowPer; ++i) {
+      const int e = tid + i * kThreads, s = e / kChannels, cc = c0 + e - s * kChannels;
+      const bool ok = s < n && cc < D;
       const size_t off = ((size_t)b * T + t0 + s) * D + cc;
-      sdt[s][j] = ok ? dt[off] : 0.f;
-      sx[s][j] = ok ? to_f32<X>(x[off]) : 0.f;
-      sdy[s][j] = ok ? dy[off] : 0.f;
+      pdt[i] = ok ? dt[off] : 0.f;
+      px[i] = ok ? to_f32<X>(x[off]) : 0.f;
+      pdy[i] = ok ? dy[off] : 0.f;
     }
-    for (int e = tid; e < n * N; e += kThreads) {
-      const int s = e / N, m = e - s * N;
-      const size_t off = ((size_t)b * T + t0 + s) * N + m;
-      sB[s][m] = to_f32<X>(Bm[off]);
-      sC[s][m] = to_f32<X>(Cm[off]);
+#pragma unroll
+    for (int i = 0; i < kBCPer; ++i) {
+      const int e = tid + i * kThreads, s = e / N;
+      const bool ok = e < kChunk * N && s < n;
+      const size_t off = ((size_t)b * T + t0) * N + e;
+      pb[i] = ok ? to_f32<X>(Bm[off]) : 0.f;
+      pc[i] = ok ? to_f32<X>(Cm[off]) : 0.f;
     }
-    float h[S];
     const float* cp = ck + (size_t)ci * B * D * N;
 #pragma unroll
-    for (int q = 0; q < S; ++q) h[q] = live ? cp[state + q] : 0.f;
+    for (int q = 0; q < S; ++q) ph[q] = live ? cp[state + q] : 0.f;
+  };
+  fetch(nck - 1);
+  for (int ci = nck - 1; ci >= 0; --ci) {
+    const int n = min(kChunk, T - ci * kChunk);
+    __syncthreads();          // the previous chunk's shared rows are written out
+#pragma unroll
+    for (int i = 0; i < kRowPer; ++i) {
+      const int e = tid + i * kThreads, s = e / kChannels, j = e - s * kChannels;
+      sdt[s][j] = pdt[i];
+      sx[s][j] = px[i];
+      sdy[s][j] = pdy[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kBCPer; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < kChunk * N) {
+        sB[e / N][e % N] = pb[i];
+        sC[e / N][e % N] = pc[i];
+      }
+    }
+    float h[S];
+#pragma unroll
+    for (int q = 0; q < S; ++q) h[q] = ph[q];
+    if (ci > 0) fetch(ci - 1);
+    const int t0 = ci * kChunk;
     __syncthreads();
 
     // recompute the chunk's states, the forward's way
@@ -197,30 +242,45 @@ selective_scan_bwd_kernel(const X* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-// dB, dC (B, T, N): the blocks' partials summed in block order; dA (D, N):
+constexpr int kSumSplit = 8;    // threads an output of dB/dC sums over
+
+// dB, dC (B, T, N): the blocks' partials, kSumSplit threads an output each
+// summing every kSumSplit-th block, then added in thread order; dA (D, N):
 // the batch rows' partials summed in row order
 template <typename X>
 __global__ void __launch_bounds__(256)
 selective_scan_bwd_sum(const float* __restrict__ part, const float* __restrict__ dA_part,
                        X* __restrict__ dB, X* __restrict__ dC, float* __restrict__ dA,
-                       int blocks, int B, int T, int D, int N) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t rows = (size_t)B * T * 2 * N, cols = (size_t)D * N;
-  if (i < rows) {
+                       int blocks, int B, int T, int D, int N, int row_blocks) {
+  constexpr int kOuts = 256 / kSumSplit;
+  __shared__ float sp[kSumSplit][kOuts];
+  if (int(blockIdx.x) < row_blocks) {
+    const size_t rows = (size_t)B * T * 2 * N;
+    const int k = threadIdx.x / kOuts, j = threadIdx.x % kOuts;
+    const size_t o = (size_t)blockIdx.x * kOuts + j;
     float v = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < blocks; ++k) v += part[(size_t)k * rows + i];
-    const size_t bt = i / (2 * N);
-    const int m = int(i - bt * 2 * N);
-    if (m < N)
-      dB[bt * N + m] = from_f32<X>(v);
-    else
-      dC[bt * N + m - N] = from_f32<X>(v);
-  } else if (i < rows + cols) {
-    const size_t j = i - rows;
-    float v = 0.f;
-    for (int k = 0; k < B; ++k) v += dA_part[(size_t)k * cols + j];
-    dA[j] = v;
+    if (o < rows)
+      for (int ci = k; ci < blocks; ci += kSumSplit) v += part[(size_t)ci * rows + o];
+    sp[k][j] = v;
+    __syncthreads();
+    if (k == 0 && o < rows) {
+#pragma unroll
+      for (int kk = 1; kk < kSumSplit; ++kk) v += sp[kk][j];
+      const size_t bt = o / (2 * N);
+      const int m = int(o - bt * 2 * N);
+      if (m < N)
+        dB[bt * N + m] = from_f32<X>(v);
+      else
+        dC[bt * N + m - N] = from_f32<X>(v);
+    }
+  } else {
+    const size_t cols = (size_t)D * N;
+    const size_t j = (size_t)(blockIdx.x - row_blocks) * blockDim.x + threadIdx.x;
+    if (j < cols) {
+      float v = 0.f;
+      for (int k = 0; k < B; ++k) v += dA_part[(size_t)k * cols + j];
+      dA[j] = v;
+    }
   }
 }
 
@@ -235,9 +295,12 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
       ck, dy, dhT, static_cast<X*>(dx), ddt, dh0, part, dA_part, T, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)B * T * 2 * N + (size_t)D * N;
-  selective_scan_bwd_sum<X><<<unsigned((total + 255) / 256), 256, 0, s>>>(
-      part, dA_part, static_cast<X*>(dB), static_cast<X*>(dC), dA, blocks, B, T, D, N);
+  const size_t rows = (size_t)B * T * 2 * N, cols = (size_t)D * N;
+  constexpr int kOuts = 256 / kSumSplit;
+  const int row_blocks = int((rows + kOuts - 1) / kOuts);
+  selective_scan_bwd_sum<X><<<row_blocks + int((cols + 255) / 256), 256, 0, s>>>(
+      part, dA_part, static_cast<X*>(dB), static_cast<X*>(dC), dA, blocks, B, T, D, N,
+      row_blocks);
   return cudaGetLastError();
 }
 
@@ -254,6 +317,20 @@ cudaError_t launch_n(const void* x, const float* dt, const float* A, const void*
     return launch<X, 16>(x, dt, A, Bm, Cm, ck, dy, dhT, dx, ddt, dB, dC, dA, dh0, part,
                          dA_part, B, T, D, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename X, int N>
+cudaError_t occupancy(int* out) {
+  auto kernel = selective_scan_bwd_kernel<X, N>;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  out[1] = kThreads;
+  out[2] = int(fa.sharedSizeBytes);
+  out[3] = fa.numRegs;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -289,5 +366,16 @@ extern "C" int selective_scan_bwd_launch(const void* x, const void* dt, const vo
   if (dtype == kBFloat16)
     return launch_n<__nv_bfloat16>(x, dtp, ap, Bm, Cm, ckp, dyp, dhp, dx, ddtp, dB, dC, dAp,
                                    dh0p, pp, dApp, B, T, D, N, s);
+  return cudaErrorInvalidValue;
+}
+
+// The main kernel's layout for (N, dtype) into out[4]: CTAs an SM, threads
+// a CTA, shared bytes a CTA, registers a thread; returns a CUDA error code.
+extern "C" int selective_scan_bwd_occupancy(int N, int dtype, void* out) {
+  int* o = static_cast<int*>(out);
+  if (dtype == kFloat32 && N == 8) return occupancy<float, 8>(o);
+  if (dtype == kFloat32 && N == 16) return occupancy<float, 16>(o);
+  if (dtype == kBFloat16 && N == 8) return occupancy<__nv_bfloat16, 8>(o);
+  if (dtype == kBFloat16 && N == 16) return occupancy<__nv_bfloat16, 16>(o);
   return cudaErrorInvalidValue;
 }

@@ -26,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.selective_scan import CHANNELS
 from repro_torch.kernels.selective_scan import \
     checkpoints_shape as scan_checkpoints
+from repro_torch.kernels.selective_scan import partials_shape
 from repro_torch.kernels.wkv6 import checkpoints_shape as wkv_checkpoints
 
 # the active counters: objects with ``kernel(name, inputs, outputs, flops)``
@@ -142,7 +142,7 @@ def selective_scan(x, dt, A, Bm, Cm, h0):
     if build.needs_grad(*inputs):
         bwd = {"saved": [(scan_checkpoints(B, T, D, N), f32)],
                "reads": range(5),
-               "scratch": [((-(-D // CHANNELS), B, T, 2 * N), f32),
+               "scratch": [(partials_shape(B, T, D, N), f32),
                            ((B, D, N), f32)],
                "flops": 10.0 * B * T * D * N}
     return stand_in("selective_scan", inputs,

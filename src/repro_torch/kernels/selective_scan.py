@@ -32,6 +32,12 @@ def checkpoints_shape(B: int, T: int, D: int, N: int):
     return (-(-T // CKPT_STEPS), B, D, N)
 
 
+def partials_shape(B: int, T: int, D: int, N: int):
+    """The backward's dB/dC partials: one row a block of ``CHANNELS``
+    channels."""
+    return (-(-D // CHANNELS), B, T, 2 * N)
+
+
 def selective_scan(x, dt, A, Bm, Cm, h0, *, checkpoints: bool = False):
     """x: (B, T, D) fp32 or bf16; dt: (B, T, D) fp32; A: (D, N) fp32;
     Bm, Cm: (B, T, N) in x's dtype; h0: (B, D, N) fp32; all on one CUDA
@@ -80,8 +86,9 @@ def selective_scan_backward(x, dt, A, Bm, Cm, ck, dy, dhT):
     and ``dhT`` (B, D, N) fp32, from the forward's inputs and its
     checkpoints ``ck``. -> (dx in x's dtype, ddt fp32, dA (D, N) fp32, dB,
     dC in x's dtype, dh0 (B, D, N) fp32). The sums over channels (dB, dC)
-    and batch rows (dA) go through per-block partials and a fixed-order
-    second pass, so two launches give the same bits."""
+    and batch rows (dA) go through per-block partials (``partials_shape``)
+    and per-row partials and a fixed-order second pass, so two launches give
+    the same bits."""
     global bwd_launches
     if x.device.type != "cuda":
         raise ValueError("selective_scan_backward needs CUDA tensors; the "
@@ -112,8 +119,7 @@ def selective_scan_backward(x, dt, A, Bm, Cm, ck, dy, dhT):
     dA = torch.empty_like(A)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = torch.empty_like(dhT)
-    part = torch.empty((-(-D // CHANNELS), B, T, 2 * N), dtype=f32,
-                       device=dev)
+    part = torch.empty(partials_shape(B, T, D, N), dtype=f32, device=dev)
     dA_part = torch.empty((B, D, N), dtype=f32, device=dev)
     fn = build.load("selective_scan_bwd")
     with torch.cuda.device(dev):

@@ -100,7 +100,8 @@ def wkv6_backward(r, k, v, w, u, ck, do, dsN):
     dtype and ``dsN`` (BH, hd, hd) fp32, from the forward's inputs and its
     checkpoints ``ck``. -> (dr, dk, dv in r's dtype, dw in w's dtype,
     du (BH, hd) fp32, ds0 (BH, hd, hd) fp32). One block a row: every sum
-    stays in its block, so two launches give the same bits."""
+    stays in its block and has a fixed order, so two launches give the same
+    bits."""
     global bwd_launches
     if r.device.type != "cuda":
         raise ValueError("wkv6_backward needs CUDA tensors; the CPU path is "
@@ -124,6 +125,8 @@ def wkv6_backward(r, k, v, w, u, ck, do, dsN):
     build.check_tensor("u", u, (BH, hd), f32, dev)
     build.check_tensor("ck", ck, checkpoints_shape(BH, T, hd), f32, dev)
     build.check_tensor("dsN", dsN, (BH, hd, hd), f32, dev)
+    r, k, v, w, u, ck, do, dsN = (build.aligned16(t) for t in (
+        r, k, v, w, u, ck, do, dsN))
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     du = torch.empty_like(u)

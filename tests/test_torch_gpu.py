@@ -1255,12 +1255,17 @@ def _wkv_grad_inputs(rng, BH, T, hd, dtype, w_dtype, dev, w_lo=0.0):
 
 
 # the training shape (4 rows x 64 heads, T = 128), T = 1, T across
-# checkpoint chunks and tiles (37, 40), hd 32
+# checkpoint chunks and tiles (37, 40), hd 32; one row and an odd BH, with a
+# last chunk whose steps fill only part of its second 4-step half (14) or
+# none of it (4, 12)
 @pytest.mark.parametrize("BH,T,hd,w_lo", [(256, 128, 64, 0.0),
                                           (2, 1, 64, 0.0),
                                           (3, 37, 32, 0.0),
                                           (5, 40, 64, 0.9),
-                                          (3, 17, 32, 0.99)])
+                                          (3, 17, 32, 0.99),
+                                          (1, 14, 64, 0.0),
+                                          (7, 4, 32, 0.0),
+                                          (7, 12, 64, 0.9)])
 @pytest.mark.parametrize("dtype,w_dtype", [("float32", "float32"),
                                            ("bfloat16", "float32"),
                                            ("bfloat16", "bfloat16")])
@@ -1347,13 +1352,16 @@ def _scan_grad_inputs(rng, B, T, D, N, dtype, dev, big_dt=False):
 # Jamba's training shape (B 4, T 128, d_in 16384, N 16), reduced Jamba's
 # N = 8, T = 1, T across checkpoint chunks and ring stages (65), d_in not a
 # multiple of a block's 32 channels, d_in 16383 (unaligned bf16 rows), and
-# a dt large enough that exp(dt * A) underflows
+# a dt large enough that exp(dt * A) underflows; ragged last blocks of 12
+# channels (d_in 300: 10 blocks) and 8 (2056: 65 blocks)
 @pytest.mark.parametrize("B,T,D,N,big_dt", [(4, 128, 16384, 16, False),
                                             (2, 40, 512, 8, False),
                                             (2, 1, 100, 8, False),
                                             (1, 65, 1000, 16, False),
                                             (2, 9, 16383, 16, False),
-                                            (3, 33, 70, 16, True)])
+                                            (3, 33, 70, 16, True),
+                                            (3, 13, 300, 16, False),
+                                            (1, 20, 2056, 8, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_selective_scan_backward_kernel_matches_plain(cuda, B, T, D, N,
                                                       big_dt, dtype):
