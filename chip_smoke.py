@@ -193,7 +193,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      1e-3;
  14b reduced rwkv6-7b and jamba-1.5-large-398b in fp32, 5 AdamW steps on
      the card against the same weights on the CPU, as 10b;
- 15. one JSON line of per-kernel numbers, then the result line.
+ 15. the paper's serving features on the card through the launcher's
+     ``serve``: qwen3-moe at every published width cut to 2 layers
+     (built once, a copy served a run), phase 4b's requests and rf 0.5
+     over the int8 wire, first with no feature flag (the baseline), then
+     (a) ``--ssd-gbps 3.5 --dram-cache 128`` (SSD -> DRAM -> GPU tiers),
+     (b) ``--eamc-online --eamc-path`` cold, then warm, (c) ``--predictor
+     learned`` cold, then warm through ``--predictor-path``, and
+     ``--predictor hybrid --record-drift``, (d) ``--tenants`` with
+     scripts/ci.sh's two tenants: budgets, B2/B3 launches (B1 only in an
+     offline EAMC's warm-up forwards), the tiers:/slots:/eamc:/predictor:/
+     tenant lines, the step median beside the baseline's and phase 4b's,
+     uploads and the demand stall; (a)-(c) give the baseline's tokens bit
+     for bit, warm runs load their state and give their cold runs'
+     tokens; then every leg on reduced qwen3-moe, the launcher on the card
+     against the CPU, every report line equal;
+ 16. one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -203,6 +218,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -213,8 +229,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+
+def _load_bounds():
+    """``repro_torch/kernels/bounds.py`` of this tree (the kernels' bounds
+    and the card's peaks: pure arithmetic, it imports nothing), loaded by
+    its path so that ``scripts/kernel_ab.py`` can load this file beside
+    another tree's ``repro_torch``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_bounds", ROOT / "src/repro_torch/kernels/bounds.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+bounds = _load_bounds()
 MAIN = dict(E=128, C=8, d=4096, f=1536)       # expert FFN at decode
 DEEPSEEK = dict(E=160, C=6, d=5120, f=1536)   # DeepSeek-V2's, top-6
 DEEPSEEK_SLOTS = 240                          # rf 0.5 of 3 x 160 experts
@@ -304,13 +332,6 @@ def compare(name, got, want, tol=TOL):
     return worst
 
 
-def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dtype)]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def library_ffn(xg, wg, wu, wd):
     """The swiglu expert FFN as one library call per product: 3
     ``torch.bmm`` and a silu (a yardstick for B1, used nowhere in the
@@ -354,10 +375,8 @@ def check_moe_ffn(gen, card):
                 ahead=False)
 
             lib_ms = time_ms(lambda: library_ffn(xg, wg, wu, wd), 10)
-            esz = xg.element_size()
-            nbytes = esz * (2 * xg.numel() + wg.numel() + wu.numel()
-                            + wd.numel())
-            bound_ms, by = bound(nbytes, 2 * E * C * d * f * 3, dtype)
+            bound_ms, by = bounds.moe_ffn(E, C, d, f, xg.element_size(),
+                                          dtype)
             print(f"  time {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, library (3x torch.bmm + silu) {lib_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({by}) [{card}]")
@@ -462,12 +481,11 @@ def check_moe_ffn_occupancy(gen, card, make, shape=MAIN, top_k=TOP_K,
                 * torch.bmm(xg, wu)
             return torch.bmm(h, wd)
         lib_ms = time_ms(library, 10)
-        esz = xg.element_size()
         # what these inputs need: xg and y once, and the weights of the
         # experts with a routed row; flops of the routed rows
-        nbytes = esz * (2 * xg.numel() + n_experts * 3 * d * f)
-        bound_ms, by = bound(nbytes, 2 * int(routed.sum()) * d * f * 3,
-                             dtype)
+        bound_ms, by = bounds.moe_ffn(E, C, d, f, xg.element_size(), dtype,
+                                      rows=int(routed.sum()),
+                                      experts=n_experts)
         print(f"  time decode occupancy{at} {dtype}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, library (3x torch.bmm + silu over "
               f"all {E} experts) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -520,16 +538,13 @@ def quant_bound(args, routed, out_dtype):
     import torch
     xg, wg, wu, wd, sg, su, sd, slots = args
     E, C, d = xg.shape
-    f = wu.shape[-1]
     busy = routed.any(-1)
-    n_read = len(set(slots[busy].tolist()))
-    n_proj = 3 if wg is not None else 2
-    wbytes = n_proj * d * f * wu.element_size()
-    sbytes = 4 * ((n_proj - 1) * f + d) if su is not None else 0
-    nbytes = (xg.numel() * xg.element_size() + n_read * (wbytes + sbytes)
-              + 4 * E + E * C * d * torch.finfo(out_dtype).bits // 8)
-    return bound(nbytes, 2 * int(routed.sum()) * d * f * n_proj,
-                 torch.float32)
+    return bounds.moe_ffn_quant(
+        E, C, d, wu.shape[-1], x_esz=xg.element_size(),
+        w_esz=wu.element_size(),
+        out_esz=torch.finfo(out_dtype).bits // 8, rows=int(routed.sum()),
+        slots_read=len(set(slots[busy].tolist())),
+        n_proj=3 if wg is not None else 2, scales=su is not None)
 
 
 def time_quant(args, act, out, plain=True):
@@ -695,10 +710,9 @@ def check_flash_decode(gen, card):
             qq = q[:, :, None, :]
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask), 50)
-            n_valid = sum(min(n, S) for n in lens)
-            esz = q.element_size()
-            nbytes = esz * (2 * q.numel() + 2 * n_valid * Hkv * hd)
-            bound_ms, by = bound(nbytes, 4 * H * hd * n_valid, dtype)
+            bound_ms, by = bounds.flash_decode(
+                B, H, Hkv, hd, sum(min(n, S) for n in lens),
+                q.element_size(), dtype)
             print(f"  time {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, library (F.scaled_dot_product_attention) "
                   f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}) "
@@ -789,8 +803,7 @@ def _time_b3(q, k, v, cl, cap=0.0):
     n_valid = sum(min(int(n), S) for n in cl.tolist())
     esz = q.element_size()
     kv_bytes = 2 * n_valid * Hkv * hd * esz
-    bound_ms, by = bound(esz * 2 * q.numel() + kv_bytes,
-                         4 * H * hd * n_valid, q.dtype)
+    bound_ms, by = bounds.flash_decode(B, H, Hkv, hd, n_valid, esz, q.dtype)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, splits=n_split,
                 split_len=split_len, kv_bytes=kv_bytes)
@@ -886,12 +899,8 @@ def time_wkv6(args, o, sN, plain=True):
     if plain:
         nums["plain_ms"] = time_ms(lambda: ref.wkv6_ref(*args),
                                    50 if T == 1 else 3, ahead=False)
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + o.numel() * o.element_size() + sN.numel() * 4)
-    # per step and row: hd*hd state elements, each k*v (1), w*S + a (2) and
-    # its share of r^T S (2); the bonus (r*u*k)^T v is O(hd)
-    nums["bound_ms"], nums["bound_by"] = bound(
-        nbytes, 5 * BH * T * hd * (hd + 1), "torch.float32")
+    nums["bound_ms"], nums["bound_by"] = bounds.wkv6(
+        BH, T, hd, args[0].element_size(), args[3].element_size())
     nums["library_ms"] = None
     return nums
 
@@ -1036,15 +1045,10 @@ def time_scan(args):
 
 
 def scan_bound(args):
-    """B5's bound on these inputs: inputs read once (x, B, C in their
-    dtype; dt, A, h0 fp32), y and h_T written once (fp32); per state
-    element and step 7 fp32 operations (dt*A, exp, dA*h, + dBx, dx*B, h*C,
-    + y) and dt*x per channel. -> (ms, by)."""
-    x, h0, N = args[0], args[5], args[2].shape[-1]
-    B, T, D = x.shape
-    nbytes = (sum(t.numel() * t.element_size() for t in args)
-              + 4 * B * T * D + 4 * h0.numel())
-    return bound(nbytes, B * T * D * (7 * N + 1), "torch.float32")
+    """B5's bound on these inputs (``bounds.selective_scan``). -> (ms,
+    by)."""
+    x, N = args[0], args[2].shape[-1]
+    return bounds.selective_scan(*x.shape, N, x.element_size())
 
 
 def time_scan_cold(gen, B, T, D, N, dtype):
@@ -1448,7 +1452,7 @@ def main_path(card, arch=QWEN3,
     print("  host time by top-level op (profiled, nested ops included): "
           + ", ".join(f"{name} {ms:.3f} ms in {n}" for name, n, ms in top))
     nbytes, dense, distinct, one = weight_floor(model, aux["counts"])
-    floor_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = nbytes / bounds.HBM_BYTES_PER_S * 1e3
     print(f"  that step's weight-read floor: {floor_ms:.3f} ms ({dense} B "
           f"of weights but the embedding table and the routed experts + "
           f"{distinct} distinct routed experts x {one} B, over 3.35 TB/s) "
@@ -1794,26 +1798,37 @@ def streaming_vs_cpu():
 REPORT_LINES = ("req ", "total:", "tiers:", "slots:", "eamc:", "predictor:")
 
 
-def launcher_report(model, cfg, device, flags):
-    """The launcher's report lines for ``model`` (a copy is served: the
-    streaming server moves the experts of the model it is given), without
-    the ``compiles=`` tail and the wall-clock ``demand-stall=``."""
+def served_report(model, cfg, argv, keep=REPORT_LINES, home=None):
+    """Serve a copy of ``model`` (the streaming server moves the experts of
+    the model it is given) through the launcher's ``serve`` with ``argv``.
+    -> (serve's result, the report lines starting with ``keep``, without
+    the ``compiles=`` tail and the wall-clock ``demand-stall=``, the temp
+    directory ``home`` read as ``<tmp>``)."""
     import contextlib
     import copy
     import io
     import re
     from repro_torch.launch import serve as serve_mod
-    args = serve_mod.parse_args(["--requests", "4", "--seed", "3",
-                                 "--device", device, *flags])
+    args = serve_mod.parse_args(argv)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve_mod.serve(args, cfg, copy.deepcopy(model))
+        out = serve_mod.serve(args, cfg, copy.deepcopy(model))
     lines = []
     for line in buf.getvalue().splitlines():
-        if line.startswith(REPORT_LINES):
+        if line.startswith(keep):
             line = re.sub(r", compiles=.*$", "", line)
-            lines.append(re.sub(r"demand-stall=\S+ \(\S+\) ", "", line))
-    return lines
+            line = re.sub(r"demand-stall=\S+ \(\S+\) ", "", line)
+            lines.append(line.replace(str(home), "<tmp>") if home else line)
+    return out, lines
+
+
+def launcher_report(model, cfg, device, flags, keep=REPORT_LINES,
+                    home=None):
+    """The launcher's report lines for ``model`` at 4 requests, seed 3
+    (``served_report``)."""
+    return served_report(model, cfg, ["--requests", "4", "--seed", "3",
+                                      "--device", device, *flags],
+                         keep, home)[1]
 
 
 def launcher_vs_cpu(cfg, seed):
@@ -2000,7 +2015,7 @@ def rwkv_path(card):
     weight_bytes = sum(p.numel() * p.element_size()
                        for name, p in model.named_parameters()
                        if name != "embed")
-    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    floor_ms = weight_bytes / bounds.HBM_BYTES_PER_S * 1e3
     print("  prefill (B=1, CUDA events): " + ", ".join(
         f"{S} tokens {ms:.3f} ms" for S, ms in zip(RWKV_PROMPTS, prefill_ms))
         + f" [{card}]")
@@ -2263,7 +2278,7 @@ def family_path(card, arch, phase):
                 min(int(p), t.shape[1]) / t.shape[1])
              for layer in pool["layers"] for key, t in layer.items()
              for p in pool["pos"])
-    floor_ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    floor_ms = (weights + kv) / bounds.HBM_BYTES_PER_S * 1e3
     print("  prefill (B=1, CUDA events): " + ", ".join(
         f"{S} positions {ms:.3f} ms" for S, ms in zip(prompts, prefill_ms))
         + f" [{card}]")
@@ -2503,22 +2518,14 @@ def check_moe_ffn_train(gen, card, make):
         lib_ms = time_ms(lambda: library_ffn(xg, wg, wu, wd), 10)
         routed = (xg != 0).any(-1)
         n_exp = int(routed.any(-1).sum())
-        esz, w1 = xg.element_size(), d * f
         # forward: xg and y once, the weights of experts with a routed row;
-        # backward, the function's least traffic: xg, dy and dxg once, the
-        # three weights of each routed expert read once, three dW written
-        # (every expert); flops of 8 products over the routed rows (h for
-        # dW_down needs the gate and up products). This design also reads
-        # W_gate and W_up a second time for its recompute of h.
-        fwd_bound, fwd_by = bound(esz * (2 * xg.numel() + n_exp * 3 * w1),
-                                  2 * int(routed.sum()) * w1 * 3, dtype)
-        bwd_flops = 2 * int(routed.sum()) * w1 * 8
-        bwd_bound, bwd_by = bound(
-            esz * (3 * xg.numel() + n_exp * 3 * w1 + E * 3 * w1),
-            bwd_flops, dtype)
-        bwd_design_ms, _ = bound(
-            esz * (3 * xg.numel() + n_exp * 5 * w1 + E * 3 * w1),
-            bwd_flops, dtype)
+        # backward: the function's least traffic, and this design's, which
+        # reads W_gate and W_up again to recompute h (bounds.moe_ffn_backward)
+        shape = (E, C, d, f, xg.element_size(), dtype)
+        fwd_bound, fwd_by = bounds.moe_ffn(*shape, rows=int(routed.sum()),
+                                           experts=n_exp)
+        bwd_bound, bwd_by, bwd_design_ms = bounds.moe_ffn_backward(
+            *shape, rows=int(routed.sum()), experts=n_exp)
         print(f"  time {tag}: forward kernel {ms:.4f} ms (bound "
               f"{fwd_bound:.4f}, {fwd_by}; plain {plain_ms:.4f}; "
               f"library (3x torch.bmm + silu) {lib_ms:.4f}); backward "
@@ -2687,12 +2694,12 @@ def train_path(card):
           f"[{card}]")
     print(f"  bytes floors at 3.35 TB/s: AdamW {adam_bytes / 1e9:.2f} GB "
           f"(reads p, g, m, v; writes p, m, v) = "
-          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; fwd+bwd "
+          f"{adam_bytes / bounds.HBM_BYTES_PER_S * 1e3:.3f} ms; fwd+bwd "
           f"{fb_bytes / 1e9:.2f} GB (each weight but the embedding table "
           f"read forward and backward, each gradient written) = "
-          f"{fb_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; B1's forward reads "
-          f"{b1_bytes / 1e9:.2f} GB of experts = "
-          f"{b1_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+          f"{fb_bytes / bounds.HBM_BYTES_PER_S * 1e3:.3f} ms; B1's forward "
+          f"reads {b1_bytes / 1e9:.2f} GB of experts = "
+          f"{b1_bytes / bounds.HBM_BYTES_PER_S * 1e3:.3f} ms")
     summary.update(fb_ms=float(med[0]), adam_ms=float(med[1]))
     del model, params, state, step_fn
     gc.collect()
@@ -2853,22 +2860,16 @@ def _check_bitequal(tag, g1, g2):
     print(f"  {tag}: two backward launches bit-equal")
 
 
-def _bwd_nums(run, plain, fwd, fwd_ck, ins, outs, flops, own_bytes,
-              own_flops):
+def _bwd_nums(run, plain, fwd, fwd_ck, bnd):
     """A backward kernel's ms, its plain version's, the forward's with and
-    without checkpoints, and two bounds. ``bound_ms`` is the function's
-    least work: ``ins`` (the forward's inputs and the upstream gradients)
-    read once, ``outs`` (the gradients) written once, and ``flops``, the
-    reverse walk's fp32 operations. ``design_bytes_ms`` adds this design's
-    own: ``own_bytes`` (the checkpoints read, B5's partials written and read
-    back) and ``own_flops`` (the states recomputed from the checkpoints)."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    without checkpoints, and its two bounds ``bnd`` (``bounds.*_backward``):
+    ``bound_ms``, the function's least work, and ``design_bytes_ms``, with
+    this design's own (checkpoints, partials, recompute)."""
     nums = dict(ms=time_ms(run, 20),
                 plain_ms=time_ms(plain, 1, ahead=False),
                 fwd_ms=time_ms(fwd, 20), fwd_ckpt_ms=time_ms(fwd_ck, 20))
-    nums["bound_ms"], nums["bound_by"] = bound(nbytes, flops, "torch.float32")
-    nums["design_bytes_ms"], nums["design_by"] = bound(
-        nbytes + own_bytes, flops + own_flops, "torch.float32")
+    (nums["bound_ms"], nums["bound_by"], nums["design_bytes_ms"],
+     nums["design_by"]) = bnd
     nums["library_ms"] = None
     return nums
 
@@ -2945,16 +2946,13 @@ def check_wkv6_bwd(gen, card):
             del o, sN, leaves, want
             if dtype != bf16:
                 continue
-            # per state element and step: the reverse walk's 4 products (8)
-            # and G's update (3); this design's recompute of the states
-            # from its checkpoints, k*v and w*S + a (3)
             nums = dict(max_abs_err=err, grad_rel_err=rel, **_bwd_nums(
                 lambda: wkv_mod.wkv6_backward(*args[:5], ck, do, dsN),
                 lambda: ref.wkv6_bwd_ref(*args, do, dsN),
                 lambda: wkv_mod.wkv6(*args),
                 lambda: wkv_mod.wkv6(*args, checkpoints=True),
-                (*args, do, dsN), g1, 11 * BH * T * hd * hd,
-                ck.numel() * 4, 3 * BH * T * hd * hd))
+                bounds.wkv6_backward(BH, T, hd, r.element_size(),
+                                     w.element_size(), ck.numel())))
             _bwd_line(f"BH={BH} T={T}", nums, card)
             nums["layout"] = _bwd_layout("wkv6_bwd", BH, hd, 1, 0)
             by_T[T] = {key: nums[key] for key in
@@ -3017,11 +3015,7 @@ def check_scan_bwd(gen, card):
             del y, hT, leaves, want, y0, h0
             if dtype != bf16:
                 continue
-            # per state element and step: the reverse walk's 19 fp32
-            # operations (exp included); this design's recompute of the
-            # states from its checkpoints (dt * A, the exp, dt x * B and
-            # one fma: 4), its checkpoints read and its partials (dB/dC a
-            # block, dA a batch row) written and read
+            # the partials: dB/dC a block, dA a batch row
             part = (math.prod(scan_mod.partials_shape(B, T, D, N))
                     + B * D * N)
             nums = dict(max_abs_err=err, grad_rel_err=rel, **_bwd_nums(
@@ -3030,8 +3024,8 @@ def check_scan_bwd(gen, card):
                 lambda: ref.selective_scan_bwd_ref(*args, dy, dhT),
                 lambda: scan_mod.selective_scan(*args),
                 lambda: scan_mod.selective_scan(*args, checkpoints=True),
-                (*args, dy, dhT), g1, 19 * B * T * D * N,
-                ck.numel() * 4 + 2 * 4 * part, 4 * B * T * D * N))
+                bounds.selective_scan_backward(
+                    B, T, D, N, args[0].element_size(), ck.numel(), part)))
             _bwd_line(f"B={B} T={T}", nums, card)
             # the two launches' device times, and the exps this design
             # issues (two a state element and step: the recompute's and the
@@ -3273,7 +3267,7 @@ def recurrent_train_path(card, arch, depth):
     print(f"  step {med[0] + med[1]:.3f} ms = forward + backward "
           f"{med[0]:.3f} ms (host enqueue {med[2]:.3f}) + AdamW {med[1]:.3f}"
           f" ms (host enqueue {med[3]:.3f}; bytes floor "
-          f"{adam_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms), medians over "
+          f"{adam_bytes / bounds.HBM_BYTES_PER_S * 1e3:.3f} ms), medians over "
           f"{TIMED_STEPS} steps; peak {peak:.2f} GB; one forward + backward "
           f"profiled: device busy {busy:.3f} ms, of it "
           + ", ".join(f"{n} {ms:.3f} ms" for n, ms in mine.items())
@@ -3364,9 +3358,8 @@ def grouped_b1(gen, card, moe):
         lib_ms = time_ms(lambda: library_ffn(xe, wg, wu, wd), 10)
     routed = (xe != 0).any(-1)
     n_exp = int(routed.any(-1).sum())
-    esz = xe.element_size()
-    bound_ms, by = bound(esz * (2 * xe.numel() + n_exp * 3 * d * f),
-                         2 * int(routed.sum()) * d * f * 3, xe.dtype)
+    bound_ms, by = bounds.moe_ffn(*xe.shape, f, xe.element_size(), xe.dtype,
+                                  rows=int(routed.sum()), experts=n_exp)
     print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library (3x torch.bmm + silu) {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}); {int(routed.sum())} of "
@@ -3707,17 +3700,18 @@ def one_card_mesh(D):
     return ExpertMesh(["cuda:0"] * D)
 
 
-def shard_bytes(xg, routed, weights, out_dtype, sl):
-    """The least bytes one shard's launch moves: its xg block and output
-    block once, the slot rows, and the weights (and int8 scales) of its
-    experts with a routed row."""
+def shard_bound(xg, routed, bufs, out_dtype, sl):
+    """The bytes bound of one shard's launch (``bounds.moe_ffn_quant`` at
+    ``rows=0``): its xg block and output block once, the slot rows, and the
+    weights (and int8 scales) of its experts with a routed row. -> ms."""
     import torch
     E, C, d = xg[sl].shape
-    busy = routed[sl].any(-1)
-    per_expert = sum(w[0].numel() * w.element_size() for w in weights)
-    return (xg[sl].numel() * xg.element_size() + 4 * E
-            + int(busy.sum()) * per_expert
-            + E * C * d * torch.finfo(out_dtype).bits // 8)
+    return bounds.moe_ffn_quant(
+        E, C, d, bufs["w_up"].shape[-1], x_esz=xg.element_size(),
+        w_esz=bufs["w_up"].element_size(),
+        out_esz=torch.finfo(out_dtype).bits // 8, rows=0,
+        slots_read=int(routed[sl].any(-1).sum()),
+        scales="w_up_scale" in bufs)[0]
 
 
 def check_sharded_exchange(gen, card):
@@ -3821,9 +3815,7 @@ def check_sharded_exchange(gen, card):
                                              ("w_gate", "w_up", "w_down")))
         want = unsharded()
         full_ms = time_ms(unsharded, 10)
-        weights = [bufs[n] for n in sorted(bufs)]
-        full_bound, _ = bound(shard_bytes(xg, routed, weights, out_dtype,
-                                          slice(0, E)), 0, torch.float32)
+        full_bound = shard_bound(xg, routed, bufs, out_dtype, slice(0, E))
         for D in (2, 4):
             mesh = one_card_mesh(D)
             got = sharded(mesh)
@@ -3840,8 +3832,7 @@ def check_sharded_exchange(gen, card):
                         f"routed) vs plain", shard(sl), plain(sl))
                 ms.append(time_ms(lambda: shard(sl), 10))
                 lib.append(time_ms(lambda: library(sl), 10))
-                bnd.append(bound(shard_bytes(xg, routed, weights, out_dtype,
-                                             sl), 0, torch.float32)[0])
+                bnd.append(shard_bound(xg, routed, bufs, out_dtype, sl))
             # the exchange a layer as the runtime runs it on one card:
             # placement order in, the D result blocks concatenated, expert
             # order out (the shard copies are no-ops on one card)
@@ -4054,6 +4045,207 @@ def expert_parallel(card, gen, tokens, d1):
     return paths, {f"{form} D={D}": x for (form, D), x in exch.items()}
 
 
+# phase 15: the paper's serving features through the launcher, at full
+# width cut to FEATURE_DEPTH layers: each int8 run pays first-use host
+# quantization of the experts it touches (~62-73 ms each; ~27.5 s of a
+# 4-layer serve), so the 8 runs take half the layers of phase 4b and hold
+# their tokens against a baseline run at the same cut. (leg, what, flags,
+# runs): {home} is the leg's temp directory, {dram} the DRAM cache (half
+# the cut's experts; 6 of the reduced model's 8), and a leg of two runs is
+# a cold start and a warm restart from its files.
+FEATURE_DEPTH = 2
+FEATURE_LEGS = (
+    ("baseline", "baseline, no feature flag (phase 4b's flags)", [], 1),
+    ("three_tier", "(a) three tiers, SSD at 3.5 GB/s",
+     ["--ssd-gbps", "3.5", "--dram-cache", "{dram}"], 1),
+    ("eamc", "(b) online EAMC persisted to --eamc-path",
+     ["--eamc-online", "--eamc-path", "{home}/eamc"], 2),
+    ("learned", "(c) learned predictor persisted to --predictor-path",
+     ["--predictor", "learned", "--predictor-path", "{home}/pred"], 2),
+    ("hybrid", "(c) hybrid predictor recording drift",
+     ["--predictor", "hybrid", "--record-drift"], 1),
+    ("tenants", "(d) two tenants with private predictors",
+     ["--tenants", "{home}/tenants.json"], 1),
+)
+# what phase 15 prints of each leg's report, and holds card against CPU
+FEATURE_LINES = REPORT_LINES + ("tenant ",)
+
+
+def tenants_file(home):
+    """scripts/ci.sh's two tenants, their private online EAMC brains
+    persisted under ``home``. -> the file's path."""
+    path = Path(home) / "tenants.json"
+    path.write_text(json.dumps([
+        {"tenant_id": "acme", "sla_class": "interactive",
+         "predictor": {"kind": "eamc", "online": True,
+                       "path": f"{home}/acme"},
+         "gpu_slot_quota": 3, "rps": 2.0},
+        {"tenant_id": "globex", "sla_class": "batch", "stall_budget": 2,
+         "predictor": {"kind": "eamc", "online": True,
+                       "path": f"{home}/globex"},
+         "rps": 1.0}]))
+    return path
+
+
+def _leg_flags(flags, home, dram):
+    return [f.format(home=home, dram=dram) for f in flags]
+
+
+def _leg_runs():
+    """-> [(path name, leg, what, flags, run)] in serving order."""
+    runs = []
+    for leg, what, flags, n in FEATURE_LEGS:
+        for i in range(n):
+            tag = ("", "_cold", "_warm")[i + (n == 2)]
+            runs.append((f"features_{leg}{tag}", leg, what, flags,
+                         ("cold", "warm")[i] if n == 2 else ""))
+    return runs
+
+
+def feature_path(card, base_median):
+    """Phase 15: the paper's serving features on the card: qwen3-moe at
+    every published width cut to FEATURE_DEPTH layers (seed 0), phase 4b's
+    requests (SERVE_FLAGS) and rf 0.5 over the int8 wire, served through
+    the launcher's ``serve`` once with no feature flag (the baseline) and
+    then with each leg's flags (``FEATURE_LEGS``): (a) the SSD -> DRAM ->
+    GPU tiers, (b) the online EAMC cold and then warm from
+    ``--eamc-path``, (c) the learned predictor cold and then warm from
+    ``--predictor-path``, and the hybrid predictor recording drift, (d)
+    two tenants. The model is built once and each run serves a copy. Each
+    run: budgets met; B2 a MoE layer a prefill and step, B3 an attention
+    layer a decode step, B1 only in the all-resident EAMC warm-up forwards
+    (none on an online leg); its report lines; the step median beside the
+    baseline's and phase 4b's (``base_median``, 4 layers); uploads and the
+    demand stall. Legs (a)-(c) change which experts are resident, never
+    which are routed: their tokens must be the baseline's, bit for bit.
+    Warm runs load (``source=load``) and serve the cold run's tokens.
+    -> {path name: launch counts}."""
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.models import Model
+
+    cfg = _full_cfg("phase 15: the paper's serving features, streaming at "
+                    "rf 0.5 over the int8 wire", QWEN3, FEATURE_DEPTH)
+    model = Model(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n_moe, b3 = len(model.moe_layers), _b3_per_step(cfg)
+    paths, tokens, medians = {}, {}, {}
+    stream = ["--resident-fraction", "0.5", "--transfer-dtype", "int8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tenants_file(tmp)
+        for path, leg, what, flags, run in _leg_runs():
+            argv = SERVE_FLAGS + stream + _leg_flags(
+                flags, tmp, n_moe * cfg.moe.n_experts // 2)
+            _reset_counts()
+            t0 = time.perf_counter()
+            out, lines = served_report(model, cfg, argv, FEATURE_LINES, tmp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            srv, st = out["server"], out["server"].stats()
+            _check_budgets(out, cfg)
+            served = srv.n_prefills + srv.n_decode_steps
+            want = _want(moe_ffn=n_moe * out["n_warmup"],
+                         moe_ffn_quant=n_moe * served,
+                         flash_decode=b3 * srv.n_decode_steps)
+            steps = np.asarray(srv.decode_ms)
+            print(f"  {what}{' ' + run if run else ''}: "
+                  f"{len(out['requests'])} requests served, every budget "
+                  f"met; serve wall {wall:.1f} s; launches {launches}")
+            for line in lines:
+                if not line.startswith("req "):
+                    print(f"    {line}")
+            medians[leg + run] = float(np.median(steps))
+            print(f"    decode step median {medians[leg + run]:.3f} ms over "
+                  f"{len(steps)} steps (the baseline's "
+                  f"{medians['baseline']:.3f} ms; phase 4b's at 4 layers "
+                  f"{base_median:.3f} ms, this run); uploads "
+                  f"{st['demand_uploads']} demand + "
+                  f"{st['prefetch_uploads']} prefetch, demand stall "
+                  f"{st['demand_stall_s'] * 1e3:.3f} ms "
+                  f"({st['demand_stall_per_token_s'] * 1e3:.4f} ms/token) "
+                  f"[{card}]")
+            if launches != want:
+                raise SystemExit(f"phase 15 {path}: launches {launches}, "
+                                 f"expected {want} (B2 {n_moe} a MoE layer "
+                                 f"x {served} prefills and steps, B3 {b3} x "
+                                 f"{srv.n_decode_steps} steps, B1 only in "
+                                 f"{out['n_warmup']} EAMC warm-up forwards)")
+            if st["demand_uploads"] <= 0:
+                raise SystemExit(f"phase 15 {path}: nothing streamed")
+            got = out["tokens"]
+            if leg in ("three_tier", "eamc", "learned", "hybrid") \
+                    and got != tokens["baseline"]:
+                raise SystemExit(f"phase 15 {path}: tokens differ from the "
+                                 f"baseline's: {got} against "
+                                 f"{tokens['baseline']}")
+            text = "\n".join(lines)
+            if run == "warm":
+                key = ("eamc: source=load " if leg == "eamc" else
+                       "predictor: kind=learned source=load ")
+                if key not in text or got != tokens[leg]:
+                    raise SystemExit(f"phase 15 {path}: the warm run did not"
+                                     " load its state or changed the tokens")
+            if leg == "three_tier" and not re.search(
+                    r"tiers: demand dram=\d+ ssd=[1-9]", text):
+                raise SystemExit("phase 15: no demand fetch from the SSD")
+            if leg == "tenants" and set(re.findall(
+                    r"^tenant (\w+): sla=", text, re.M)) != {"acme",
+                                                             "globex"}:
+                raise SystemExit("phase 15: a tenant line is missing")
+            tokens[leg] = got
+            paths[path] = launches
+            del out, srv
+            gc.collect()          # unlocks this run's host store
+            torch.cuda.empty_cache()
+    print("  legs (a)-(c) gave the baseline's tokens bit for bit; the warm "
+          "runs loaded their state and gave their cold runs' tokens")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def features_vs_cpu():
+    """Phase 15's legs on reduced qwen3-moe (2 MoE layers x 4 experts,
+    fp32, rf 0.5 int8), the launcher at 4 requests and seed 3 on the card
+    against the same weights on the CPU, cold and warm runs each in its own
+    temp directory: every report line equal but ``compiles=`` and
+    ``demand-stall=``, tenant lines included."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(QWEN3).reduced()
+    gpu = Model(cfg, device="cuda").init(10)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    print(f"phase 15: the legs on {cfg.name} ({cfg.n_layers} layers,"
+          " fp32, rf 0.5 int8), the launcher (4 requests, seed 3) on the "
+          "card vs the CPU, report lines without compiles= and "
+          "demand-stall=")
+    stream = ["--resident-fraction", "0.5", "--transfer-dtype", "int8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        homes = {dev: Path(tmp) / dev for dev in ("cuda", "cpu")}
+        for home in homes.values():
+            home.mkdir()
+            tenants_file(home)
+        for path, _, what, flags, run in _leg_runs():
+            got, want = (launcher_report(
+                m, cfg, dev, stream + _leg_flags(flags, homes[dev], 6),
+                FEATURE_LINES, homes[dev])
+                for m, dev in ((gpu, "cuda"), (cpu, "cpu")))
+            print(f"  {what}{' ' + run if run else ''}: {len(got)} report "
+                  f"lines, equal to the CPU's: {got == want}")
+            if got != want or len(got) < 4 + 5:
+                for g, c in zip(got, want):
+                    if g != c:
+                        print(f"    card: {g}\n    cpu:  {c}")
+                raise SystemExit(f"phase 15 {path} reduced: the card's "
+                                 "report differs from the CPU's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4141,6 +4333,8 @@ def main() -> int:
         paths[f"train_{leg}"], recurrent[leg] = timed(
             f"14 {leg}", recurrent_train_path, card, arch, depth)
     timed("14b", train_vs_cpu, (RWKV6, JAMBA), "14b")
+    paths.update(timed("15", feature_path, card, d1["median_ms"]))
+    timed("15-cpu", features_vs_cpu)
     print(f"phase seconds (wall, each phase's own): {seconds}; total "
           f"{time.perf_counter() - t0:.1f} s since the build began")
     rows[5]["train_rwkv"], rows[6]["train_jamba"] = (recurrent["rwkv"],
@@ -4166,7 +4360,9 @@ def main() -> int:
                         ("ep_streaming_d4", ("flash_decode",
                                              "moe_ffn_quant")),
                         ("ep_all_resident_d2", ("flash_decode",
-                                                "moe_ffn"))):
+                                                "moe_ffn")),
+                        *((path, ("flash_decode", "moe_ffn_quant"))
+                          for path, *_ in _leg_runs())):
         for name in names:
             if paths[path][name] <= 0:
                 raise SystemExit(f"{name} was not launched on the "
@@ -4179,6 +4375,10 @@ def main() -> int:
         if paths[path]["moe_ffn_quant"]:
             raise SystemExit(f"moe_ffn_quant was launched on the {path} "
                              "path (its wire is the master dtype)")
+    for path in ("features_eamc_cold", "features_eamc_warm"):
+        if paths[path]["moe_ffn"]:
+            raise SystemExit(f"moe_ffn was launched on the {path} path (an "
+                             "online EAMC has no warm-up forward)")
     for path in ("train", "train_grouped"):
         for name in ("flash_decode", "moe_ffn_quant", "wkv6",
                      "selective_scan", "wkv6_bwd", "selective_scan_bwd"):

@@ -1,0 +1,274 @@
+#!/usr/bin/env bash
+# CI of the PyTorch/CUDA port (src/repro_torch), on the CPU: no card, no
+# nvcc, no triton. The port's kernels run only on an H100 (chip_smoke.py);
+# here every kernel wrapper takes its plain PyTorch version.
+#
+#   scripts/ci_torch.sh            # quick: guard + port lint + port tests
+#   SMOKE=1 scripts/ci_torch.sh    # additionally: scripts/ci.sh's SMOKE
+#                                  # scenarios through the port's launcher
+#                                  # (--device cpu --reduced), each with
+#                                  # ci.sh's own assertions, and the port's
+#                                  # serve_trace.py against the reference's
+#   CI_LOG_DIR=<dir>               # tee the serve reports there
+#   SMOKE_TIMEOUT=<s>              # per-launch time limit (default 300)
+#
+# Extra arguments go to pytest.
+set -euo pipefail
+cd "$(dirname "$0")/.."
+
+LOG_DIR="${CI_LOG_DIR:-}"
+[ -n "$LOG_DIR" ] && mkdir -p "$LOG_DIR"
+export PYTHONPATH=src${PYTHONPATH:+:$PYTHONPATH}
+
+log_tee() {  # tee stdin to $LOG_DIR/$1 when CI_LOG_DIR is set
+    if [ -n "$LOG_DIR" ]; then tee "$LOG_DIR/$1"; else cat; fi
+}
+
+# Tracked-artifact guard: bytecode, saved EAMC/predictor state, and the
+# kernels' build outputs (shared libraries, the git-ignored build
+# directory under src/repro_torch/kernels/) are made at run time and must
+# never be committed.
+if git ls-files | grep -E '\.(pyc|npz|so)$|^src/repro_torch/kernels/build/'
+then
+    echo "ci_torch.sh: FAIL: tracked build artifacts (listed above); git rm" \
+         "them (the root .gitignore keeps them out)" >&2
+    exit 1
+fi
+
+# The port's static checker (standard library only, so it needs no
+# dependency): host syncs, capture hazards, staging reuse, kernel-launch
+# discipline and config drift. Exits non-zero on any finding that neither
+# the (empty) baseline nor an inline torch-lint directive covers.
+echo "ci_torch.sh: lint: python -m repro_torch.analysis.lint src/repro_torch"
+if [ -n "$LOG_DIR" ]; then
+    python -m repro_torch.analysis.lint src/repro_torch \
+        --json "$LOG_DIR/lint_torch.json" \
+        --capture-map "$LOG_DIR/capture_map.json"
+else
+    python -m repro_torch.analysis.lint src/repro_torch
+fi
+
+TMPDIRS=()
+cleanup() {
+    local d
+    for d in "${TMPDIRS[@]:-}"; do
+        [ -n "$d" ] && rm -rf "$d"
+    done
+}
+trap cleanup EXIT
+scratch() {  # scratch VAR: mktemp -d into $VAR, registered for cleanup
+    local d
+    d=$(mktemp -d)
+    TMPDIRS+=("$d")
+    printf -v "$1" '%s' "$d"
+}
+
+serve() {  # serve LOG ARGS...: the port's launcher on the CPU, reduced
+    local log=$1
+    shift
+    timeout "${SMOKE_TIMEOUT:-300}" python -m repro_torch.launch.serve \
+        --device cpu --reduced "$@" | log_tee "$log"
+}
+
+# Every scenario asserts the guard: line is printed. Its key count is not
+# checked: the port issues its steps eagerly, so compile_counts stays empty
+# (keys=0) until the pooled step is captured as CUDA graphs.
+if [ -n "${SMOKE:-}" ]; then
+    scratch SMOKE_TMP
+    echo "ci_torch.sh: SMOKE: model-mode serve end to end"
+    serve serve_base.log --requests 4 > "$SMOKE_TMP/base.log"
+    # the reduced model has 2 x 4 experts: at the default 8 DRAM slots all
+    # fit in host memory and nothing misses to the SSD, so the three-tier
+    # run holds 6 in DRAM
+    echo "ci_torch.sh: SMOKE: three-tier SSD->DRAM->GPU pipeline (3.5 GB/s)"
+    serve serve_ssd.log --requests 4 --ssd-gbps 3.5 --dram-cache 6 \
+        > "$SMOKE_TMP/ssd.log"
+    python - "$SMOKE_TMP/base.log" "$SMOKE_TMP/ssd.log" <<'PY'
+import re, sys
+
+base, ssd = (open(p).read() for p in sys.argv[1:])
+for name, s in (("base", base), ("ssd", ssd)):
+    assert "guard: zero-recompile ok" in s, f"{name}: no guard: line"
+    assert len(re.findall(r"^req \d+: .* toks=[\d,]+$", s, re.M)) == 4, \
+        f"{name}: not every request was served"
+m = re.search(r"tiers: demand dram=(\d+) ssd=(\d+)", ssd)
+assert m and int(m.group(2)) > 0, "no SSD demand fetch at 3.5 GB/s"
+print(f"ci_torch.sh: serve OK (ssd demand fetches {m.group(2)})")
+PY
+
+    echo "ci_torch.sh: SMOKE: expert slot cache (resident-fraction 0.5 vs 1.0)"
+    serve serve_rf05.log --requests 4 --resident-fraction 0.5 \
+        > "$SMOKE_TMP/half.log"
+    serve serve_rf10.log --requests 4 --resident-fraction 1.0 \
+        > "$SMOKE_TMP/full.log"
+    serve serve_rf05_fenced.log --requests 4 --resident-fraction 0.5 \
+        --fenced-uploads > "$SMOKE_TMP/fenced.log"
+    python - "$SMOKE_TMP/half.log" "$SMOKE_TMP/full.log" \
+        "$SMOKE_TMP/fenced.log" <<'PY'
+import re, sys
+
+half, full, fenced = (open(p).read() for p in sys.argv[1:])
+toks_h = re.findall(r"toks=([\d,]+)", half)
+toks_f = re.findall(r"toks=([\d,]+)", full)
+toks_x = re.findall(r"toks=([\d,]+)", fenced)
+assert toks_h and toks_h == toks_f, \
+    f"slot-cache token output diverged from all-resident: {toks_h} vs {toks_f}"
+assert toks_x == toks_h, \
+    f"double-buffered schedule diverged from fenced: {toks_h} vs {toks_x}"
+m = re.search(r"slots: resident=(\d+)/(\d+) hit-ratio=[0-9.]+ hits=(\d+) "
+              r"misses=\d+ demand-uploads=(\d+)", half)
+assert m, "no slot-cache report line in the rf=0.5 run"
+res, total, hits, demand = map(int, m.groups())
+assert res < total, f"rf=0.5 kept all {total} experts resident"
+assert hits > 0, "slot cache reported zero hits"
+assert demand > 0, "slot cache reported zero demand uploads"
+assert "schedule=overlap" in half and "schedule=fenced" in fenced, \
+    "serve report missing the upload-schedule tag"
+for name, s in (("rf05", half), ("rf10", full), ("fenced", fenced)):
+    assert "guard: zero-recompile ok" in s, f"{name}: no guard: line"
+print(f"ci_torch.sh: slot cache OK (resident {res}/{total}, hits={hits}, "
+      f"demand-uploads={demand}, overlap==fenced, tokens bit-identical)")
+PY
+
+    # expert parallelism: D logical shards of the CPU (no forced host
+    # devices); every shard's tokens equal D = 1's
+    echo "ci_torch.sh: SMOKE: expert-parallel D=4 vs D=1 token identity"
+    serve serve_rf05_d4.log --requests 4 --resident-fraction 0.5 \
+        --devices 4 > "$SMOKE_TMP/d4.log"
+    python - "$SMOKE_TMP/half.log" "$SMOKE_TMP/d4.log" <<'PY'
+import re, sys
+
+half, d4 = (open(p).read() for p in sys.argv[1:])
+toks_1 = re.findall(r"toks=([\d,]+)", half)
+toks_4 = re.findall(r"toks=([\d,]+)", d4)
+assert toks_1 and toks_4 == toks_1, \
+    f"D=4 sharded serve diverged from D=1: {toks_1} vs {toks_4}"
+m = re.search(r"devices: D=4 links=(\d+) link-util=\[([^\]]*)\]", d4)
+assert m, "D=4 run missing the devices/per-link report line"
+assert int(m.group(1)) >= 4, f"D=4 run used only {m.group(1)} upload links"
+r = re.search(r"rebalances=(\d+)", d4)
+assert r and int(r.group(1)) > 0, "placement never rebalanced over 4 requests"
+assert "guard: zero-recompile ok" in d4, "D=4: no guard: line"
+print(f"ci_torch.sh: expert-parallel OK (D=4 tokens == D=1, "
+      f"links={m.group(1)}, rebalances={r.group(1)})")
+PY
+
+    # ci.sh also asserts the warm hit ratio is at least the cold one's. That
+    # ratio depends on the weights, and the port's launcher draws its own
+    # (reduced qwen3-moe from its own seed: hit 0.527 cold, 0.505 warm, on
+    # one entry learned): tests/test_torch_launcher_features.py holds it on
+    # ci.sh's own weights, where the port prints the reference's lines.
+    # Here the warm run must serve the cold run's tokens instead.
+    echo "ci_torch.sh: SMOKE: online EAMC cold start + save/load warm restart"
+    scratch EAMC_TMP
+    serve serve_eamc_cold.log --requests 4 --eamc-online \
+        --eamc-path "$EAMC_TMP/eamc" > "$EAMC_TMP/run1.log"
+    serve serve_eamc_warm.log --requests 4 --eamc-online \
+        --eamc-path "$EAMC_TMP/eamc" > "$EAMC_TMP/run2.log"
+    python - "$EAMC_TMP/run1.log" "$EAMC_TMP/run2.log" <<'PY'
+import re, sys
+
+def parse(p):
+    s = open(p).read()
+    assert "guard: zero-recompile ok" in s, f"{p}: no guard: line"
+    ent = int(re.search(r"eamc: source=\w+ entries=(\d+)", s).group(1))
+    hit = float(re.search(r"hit=([0-9.]+)", s).group(1))
+    src = re.search(r"eamc: source=(\w+)", s).group(1)
+    return src, ent, hit, re.findall(r"toks=([\d,]+)", s)
+
+s1, e1, h1, t1 = parse(sys.argv[1])
+s2, e2, h2, t2 = parse(sys.argv[2])
+assert s1 == "cold" and s2 == "load", f"lifecycle sources wrong: {s1}/{s2}"
+assert e1 > 0, "cold-start run learned no EAMC entries"
+assert e2 > 0, "warm restart lost the persisted entries"
+assert t1 and t1 == t2, f"warm restart changed token output: {t1} vs {t2}"
+print(f"ci_torch.sh: eamc lifecycle OK (entries {e1}->{e2}, "
+      f"hit {h1:.3f}->{h2:.3f}, tokens bit-identical)")
+PY
+
+    echo "ci_torch.sh: SMOKE: learned predictor cold start + warm restart"
+    scratch PRED_TMP
+    serve serve_pred_cold.log --requests 4 --predictor learned \
+        --predictor-path "$PRED_TMP/pred" > "$PRED_TMP/run1.log"
+    serve serve_pred_warm.log --requests 4 --predictor learned \
+        --predictor-path "$PRED_TMP/pred" > "$PRED_TMP/run2.log"
+    python - "$PRED_TMP/run1.log" "$PRED_TMP/run2.log" <<'PY'
+import re, sys
+
+def parse(p):
+    s = open(p).read()
+    m = re.search(r"predictor: kind=(\w+) source=(\w+) seqs=(\d+)", s)
+    assert m, f"{p}: no predictor report line"
+    saved = re.search(r"predictor: saved seqs=(\d+)", s)
+    assert saved, f"{p}: predictor state was not persisted"
+    assert "guard: zero-recompile ok" in s, f"{p}: no guard: line"
+    return m.group(1), m.group(2), int(m.group(3)), int(saved.group(1))
+
+k1, s1, n1, v1 = parse(sys.argv[1])
+k2, s2, n2, v2 = parse(sys.argv[2])
+assert k1 == k2 == "learned", f"predictor kinds wrong: {k1}/{k2}"
+assert s1 == "cold" and s2 == "load", f"lifecycle sources wrong: {s1}/{s2}"
+assert v1 > 0, "cold-start run trained no sequences"
+assert n2 >= v1 and v2 > v1, \
+    f"warm restart lost learned state: loaded {n2}, saved {v1}->{v2}"
+print(f"ci_torch.sh: learned predictor OK (seqs {v1}->{v2}, warm "
+      f"source={s2})")
+PY
+
+    echo "ci_torch.sh: SMOKE: two-tenant serve: private predictor lifecycle"
+    scratch MT_TMP
+    cat > "$MT_TMP/tenants.json" <<JSON
+[
+  {"tenant_id": "acme", "sla_class": "interactive",
+   "predictor": {"kind": "eamc", "online": true, "path": "$MT_TMP/acme"},
+   "gpu_slot_quota": 3, "rps": 2.0},
+  {"tenant_id": "globex", "sla_class": "batch", "stall_budget": 2,
+   "predictor": {"kind": "eamc", "online": true, "path": "$MT_TMP/globex"},
+   "rps": 1.0}
+]
+JSON
+    serve serve_multitenant_cold.log --requests 6 \
+        --tenants "$MT_TMP/tenants.json" > "$MT_TMP/run1.log"
+    serve serve_multitenant_warm.log --requests 6 \
+        --tenants "$MT_TMP/tenants.json" > "$MT_TMP/run2.log"
+    python - "$MT_TMP/run1.log" "$MT_TMP/run2.log" <<'PY'
+import os, re, sys
+
+def parse(p):
+    s = open(p).read()
+    assert "guard: zero-recompile ok" in s, f"{p}: no guard: line"
+    src = dict(re.findall(r"tenant (\w+): sla=.* src=(\w+)", s))
+    saved = dict(re.findall(r"tenant (\w+): saved predictor -> (\S+)", s))
+    assert set(src) == set(saved) == {"acme", "globex"}, \
+        f"{p}: tenant report lines missing: src={src} saved={saved}"
+    return re.findall(r"toks=([\d,]+)", s), src, saved
+
+t1, src1, saved1 = parse(sys.argv[1])
+t2, src2, saved2 = parse(sys.argv[2])
+assert t1 and t1 == t2, \
+    f"tenant warm restart changed token output: {t1} vs {t2}"
+assert all(v == "cold" for v in src1.values()), f"run1 sources: {src1}"
+assert all(v == "load" for v in src2.values()), \
+    f"warm restart did not reload the private predictors: {src2}"
+paths = set(saved2.values())
+assert len(paths) == 2, f"tenants shared one predictor file: {paths}"
+for p in paths:
+    assert os.path.exists(p), f"persisted tenant predictor missing: {p}"
+print(f"ci_torch.sh: multi-tenant lifecycle OK (cold->load for "
+      f"{sorted(src2)}, distinct .npz per tenant, tokens bit-identical)")
+PY
+
+    # trace mode: the port's harness prints the reference's table
+    echo "ci_torch.sh: SMOKE: serve_trace.py, port vs reference (12 requests)"
+    timeout "${SMOKE_TIMEOUT:-300}" \
+        python -m repro_torch.examples.serve_trace --requests 12 \
+        | log_tee serve_trace_torch.log > "$SMOKE_TMP/trace.log"
+    PYTHONPATH=src:. timeout "${SMOKE_TIMEOUT:-300}" \
+        python examples/serve_trace.py --requests 12 > "$SMOKE_TMP/ref.log"
+    diff "$SMOKE_TMP/ref.log" "$SMOKE_TMP/trace.log"
+    echo "ci_torch.sh: serve_trace OK ($(wc -l < "$SMOKE_TMP/trace.log")" \
+         "lines equal to the reference's)"
+fi
+
+# the port's CPU tests; the gpu-marked ones skip without a card
+python -m pytest -q tests/test_torch_*.py "$@"

@@ -186,6 +186,7 @@ B3_SHAPES = [("qwen3 S=64", 4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
              ("long cache", 4, 64, 4, 128, 32768, [32768, 16384, 8192, 1],
               0.0),
              ("jamba heads", 4, 64, 8, 128, 48, [1, 17, 40, 48], 0.0)]
+B3_Q_SMEM_HD = (64, 256, 512)     # the served build keeps q in smem from 256
 
 
 def _sha(*ts) -> str:
@@ -466,9 +467,9 @@ def b3_q(card: str) -> None:
                 return out
             cs.compare(f"B3 FLASH_Q_SMEM_HD={var} {what}", run(), want)
             times.append(cs.time_ms(run, 100))
-        n_valid = sum(min(n, S) for n in lens)
-        bound_ms = (2 * (q.numel() + n_valid * Hkv * hd) * 2
-                    / cs.HBM_BYTES_PER_S * 1e3)
+        bound_ms = cs.bounds.flash_decode(
+            B, H, Hkv, hd, sum(min(n, S) for n in lens), 2,
+            torch.bfloat16)[0]
         print(f"{what} (hd {hd}) | {bound_ms:.6f} | "
               + " | ".join(f"{ms:.4f}" for ms in times), flush=True)
         del q, k, v, want, part

@@ -21,8 +21,11 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
-PEAK_FLOPS = 989e12      # H100 SXM, bf16 dense tensor cores
-HBM_BW = 3.35e12         # H100 SXM, HBM3
+from repro_torch.kernels import bounds as _bounds
+
+# H100 SXM: bf16 dense tensor cores, HBM3 (the kernels' bounds' peaks)
+PEAK_FLOPS = _bounds.PEAK_FLOPS["torch.bfloat16"]
+HBM_BW = _bounds.HBM_BYTES_PER_S
 
 
 @dataclass

@@ -203,6 +203,14 @@ def serve(args, cfg, model: Optional[Model] = None, mesh=None) -> dict:
         raise SystemExit(f"{cfg.name} has no routed MoE; expert offloading "
                          "degenerates to layer streaming (see DESIGN.md §5). "
                          "Pick an MoE arch for this launcher.")
+    if not any(cfg.is_moe_layer(i) for i in range(cfg.n_layers)):
+        m = cfg.moe
+        raise SystemExit(
+            f"{cfg.name} at {cfg.n_layers} layers has no MoE layer (MoE "
+            f"every {m.moe_layer_period} layers from layer "
+            f"{m.moe_layer_offset}), so there is no expert to offload. "
+            "Serve more layers, or pick an arch whose cut keeps a MoE "
+            "layer.")
     if model is None:
         model = Model(cfg, device=args.device).init(0)
     dev = model.device

@@ -73,21 +73,16 @@ class EngineConfig:
     gpu_cache_experts: int
     dram_cache_experts: int
     hw: HWConfig = field(default_factory=lambda: PAPER_8GPU)
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     cache_policy: str = "moe-infinity"
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     prefetch: str = "moe-infinity"
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     scheduling: str = "continuous"   # | "static" (seed batch-to-completion)
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     bytes_per_param: int = 2
     record_drift: bool = False
     # retain each finished request's EAM in ``engine.request_eams`` (needed
     # by drift analysis and the batch-invariance tests; turn off for very
     # long replays where thousands of (L, E) arrays would accumulate)
     keep_request_eams: bool = True
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     demand_overhead_s: float = 0.0   # UM-style per-fault handling overhead
     n_gpu_links: int = 1             # parallel DRAM→device links
     # expert-parallel degree (DESIGN.md §8): shard experts over D devices —
@@ -106,7 +101,6 @@ class EngineConfig:
     # stages uploads while the previous layer's post computes and lets the
     # consuming kernel's data dependence do the blocking)
     fenced_uploads: bool = False
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     tier_aware: bool = True          # SSD-tier-aware prefetch priorities
     # online EAMC lifecycle: learn completed sequences' EAMs into the
     # collection and reconstruct on drift (DESIGN.md §4)

@@ -46,13 +46,9 @@ class PredictorSpec:
     warm-restarts from it (online learning stays on for eamc brains loaded
     from a path, matching the legacy ``eamc_mode="path"`` semantics)."""
 
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     kind: str = "eamc"              # eamc | learned | hybrid
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     path: Optional[str] = None      # .npz persistence (None = not persisted)
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     capacity: int = 32              # EAMC entry budget
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     online: bool = False            # learn from served traffic
 
     def to_dict(self) -> dict:
@@ -119,32 +115,22 @@ class ServeSpec:
     — the spec is declarative and JSON-round-trippable."""
 
     arch: str = "switch-base-128"
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     system: str = "moe-infinity"     # benchmarks.common.SYSTEMS label
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     gpu_slots: Optional[int] = None
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     dram_slots: Optional[int] = None
     resident_fraction: Optional[float] = None
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     max_batch: int = 16
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     scheduling: str = "continuous"   # | static
     policy: str = "prefill"          # | decode | stall
     predictor: PredictorSpec = field(default_factory=PredictorSpec)
     tenants: Tuple[TenantSpec, ...] = ()
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     eamc_tasks: Optional[Tuple[int, ...]] = None  # offline peek task subset
     ssd_gbps: Optional[float] = None
     ssd_iops: Optional[float] = None
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     tier_aware: bool = True
     transfer_dtype: str = "fp32"
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     n_devices: int = 1
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     topk_all: bool = True
-    # torch-lint: disable=config-drift -- set in the reference from benchmarks/ (build_engine in benchmarks/common.py and the spec benchmarks), which the port has not copied yet (ROADMAP §1 item 2)
     keep_request_eams: bool = False
     seed: int = 0
 

@@ -921,14 +921,17 @@ def _drift_keys(findings):
 
 
 def test_config_drift_matches_the_reference(monkeypatch):
-    """The reference's config-drift over ``src/repro`` with no baseline and
-    the port's over ``src/repro_torch`` with its directives ignored give
-    the same (dataclass, field, kind) set: the port copies every config
-    dataclass and has no extra finding in its own. The six entries of the
-    reference's ``analysis-baseline.json`` are among them."""
+    """The reference's config-drift over ``src/repro`` and
+    ``benchmarks/common.py`` (the trace-mode harness the port copies into
+    ``serving/harness.py``, whose ``build_engine`` sets the ServeSpec,
+    PredictorSpec and EngineConfig fields) with no baseline, and the
+    port's over ``src/repro_torch`` with its directives ignored, give the
+    same (dataclass, field, kind) set: the port copies every config
+    dataclass and has no extra finding in its own. The set is the six
+    entries of the reference's ``analysis-baseline.json``."""
     monkeypatch.chdir(REPO)
-    ref = ref_run_lint([Path("src/repro")], root=REPO,
-                       select=["config-drift"])
+    ref = ref_run_lint([Path("src/repro"), Path("benchmarks/common.py")],
+                       root=REPO, select=["config-drift"])
     port = run_lint([Path("src/repro_torch")], root=REPO,
                     select=["config-drift"])
     assert ref.n_files > 0 and port.n_files > 0
@@ -939,7 +942,7 @@ def test_config_drift_matches_the_reference(monkeypatch):
     extra_in_port = set()        # none: name each one here if that changes
     assert port_keys == ref_keys | extra_in_port
     baseline = json.loads((REPO / "analysis-baseline.json").read_text())
-    assert _drift_keys(baseline["entries"]) <= ref_keys
+    assert _drift_keys(baseline["entries"]) == ref_keys
     assert len(baseline["entries"]) == 6
 
 

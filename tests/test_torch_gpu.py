@@ -519,6 +519,43 @@ def test_streaming_server_on_card_matches_cpu(cuda, wire):
     assert g_stats["upload_bytes"] == c_stats["upload_bytes"]
 
 
+def test_launcher_online_eamc_warm_restart_on_card(cuda, tmp_path):
+    """The launcher on the card at rf 0.5 over int8 with ``--eamc-online
+    --eamc-path``: the cold run learns and persists the collection, the
+    warm run loads it (``source=load``) and serves the same tokens through
+    B2 and B3; the cold run's EAMC line is the CPU's on the same weights."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve as serve_mod
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    gpu = Model(cfg, device=cuda).init(4)
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+
+    def run(model, device, home):
+        args = serve_mod.parse_args([
+            "--requests", "4", "--seed", "3", "--device", device,
+            "--resident-fraction", "0.5", "--transfer-dtype", "int8",
+            "--eamc-online", "--eamc-path", str(home / "eamc")])
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = serve_mod.serve(args, cfg, copy.deepcopy(model))
+        eamc = re.search(r"^eamc: source=.*$", buf.getvalue(), re.M)
+        return out["tokens"], eamc.group(0)
+    b2, b3 = moe_mod.quant_launches, fd_mod.launches
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    cold, cold_line = run(gpu, "cuda", tmp_path / "card")
+    assert moe_mod.quant_launches > b2 and fd_mod.launches > b3
+    warm, warm_line = run(gpu, "cuda", tmp_path / "card")
+    assert cold_line.startswith("eamc: source=cold ")
+    assert warm_line.startswith("eamc: source=load ")
+    assert cold == warm and all(len(t) for t in cold.values())
+    assert (tmp_path / "card/eamc.npz").exists()
+    assert run(cpu, "cpu", tmp_path / "cpu") == (cold, cold_line)
+
+
 # DeepSeek-V2's expert FFN at decode: 160 experts, capacity 6, d_model 5120,
 # d_expert 1536, a pool of 4 tokens each routed to 6 distinct experts
 DEEPSEEK_DECODE = dict(E=160, C=6, d=5120, f=1536, tokens=4, top_k=6)

@@ -114,6 +114,33 @@ def test_engine_step_loop_is_the_reference_copy():
         assert port[name] == ref[name], name
 
 
+def test_trace_harness_is_the_reference_copy():
+    """The trace-mode harness (``SYSTEMS``, ``build_oracle``,
+    ``build_eamc``, ``build_engine`` and the scenario runners) is
+    ``benchmarks/common.py``'s code, as the host-layer copies are."""
+    ref = (REPO / "benchmarks/common.py").read_text(encoding="utf-8")
+    port = (PORT / "serving/harness.py").read_text(encoding="utf-8")
+    assert ast.dump(_code(port)) == ast.dump(_code(ref))
+
+
+def test_trace_harness_modules_are_scanned_and_need_no_device(monkeypatch):
+    """The harness and the trace-mode example are among the modules the
+    import checks above cover; trace mode runs no model, so neither takes
+    a device and both run where CUDA is missing."""
+    from repro_torch.examples import serve_trace
+    from repro_torch.serving import harness
+    mods = _port_modules()
+    for m in ("repro_torch.serving.harness",
+              "repro_torch.examples.serve_trace"):
+        assert m in mods
+    assert '"--device"' not in (PORT / "examples/serve_trace.py").read_text()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eng = harness.build_engine(harness.ServeSpec(arch="switch-base-128",
+                                                 system="lfu"))
+    assert eng.cfg.cache_policy == "lfu"
+    assert callable(serve_trace.main)
+
+
 def test_cache_group_view_is_the_reference_copy():
     """The aggregate view over the expert-parallel runtime's per-device
     slot caches (summed counters, ``n_devices``, ``per_device``) is the
