@@ -153,8 +153,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      with blocked attention over 1100 tokens (several query and KV blocks,
      past its 128 window) on the card against the CPU;
  11c ``python -m repro_torch.launch.dryrun --all`` in a subprocess (meta
-     tensors, no card): seconds, records by status (an error fails), and
-     qwen3-moe's decode_32k and train_4k rooflines;
+     tensors, no card): seconds, records by status (an error fails),
+     qwen3-moe's decode_32k and train_4k rooflines with the collective
+     term, and every train record's collectives per device (the step
+     placed over a fake group of the mesh's size);
  12. expert parallelism over D shards of this one card (``ExpertMesh``
      of cuda:0 repeated; the shards share its SMs and its host link, so
      this measures what sharding costs, not a speed-up): at one MoE
@@ -208,7 +210,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      for bit, warm runs load their state and give their cold runs'
      tokens; then every leg on reduced qwen3-moe, the launcher on the card
      against the CPU, every report line equal;
- 16. one JSON line of per-kernel numbers, then the result line.
+ 16. the sharded training step: ``--mesh debug`` at phase 10's qwen3-moe
+     cut (1 layer, B1) and phase 14's rwkv6-7b (4 layers, B4 and B4-bwd)
+     and jamba (1 layer, B5 and B5-bwd) cuts, 3 steps of seed 0 at every
+     published width, each beside the unsharded run of the same cut: a
+     (1, 1) (data, model) mesh of one NCCL rank, every parameter a
+     DTensor, the kernels through their ``local_map`` sites; the step
+     lines equal to every printed digit, the same launch counts, the
+     largest |delta| over the parameters, both runs' step ms, one more
+     placed step's collectives and an NCCL all-reduce;
+then one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -3283,6 +3294,126 @@ def recurrent_train_path(card, arch, depth):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the sharded training step (--mesh debug) on a (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+# (leg, arch, depth, the kernels its step launches): phase 10's qwen3-moe
+# cut and phase 14's rwkv6-7b and jamba cuts
+MESH_LEGS = (("qwen3", QWEN3, 1, ("moe_ffn",)),
+             ("rwkv", RWKV6, 4, ("wkv6", "wkv6_bwd")),
+             ("jamba", JAMBA, 1, ("selective_scan", "selective_scan_bwd")))
+MESH_STEPS = 3
+
+
+def _step_lines(text):
+    """The launcher's step lines without their wall-clock suffix."""
+    return [line.split(" (")[0] for line in text.splitlines()
+            if line.startswith("step")]
+
+
+def mesh_train_path(card, leg, arch, depth, kernels):
+    """Phase 16: ``python -m repro_torch.launch.train --arch A --layers L
+    --steps 3`` at every published width, unsharded and then with
+    ``--mesh debug`` on the same seed-0 weights: the placed run is a (1,
+    1) ("data", "model") mesh of one NCCL rank, every parameter a DTensor,
+    B1/B4/B5 through their ``local_map`` sites. Its step lines must be
+    the unsharded run's to every printed digit, its kernels' launch counts
+    the same; the largest |delta| over the parameters after the steps, the
+    step times of both runs and the collectives of one more placed step
+    are printed. -> the placed run's launch counts."""
+    import io
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.launch import spmd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import make_train_step, to_batch
+    from repro_torch.train.optim import OptConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for mesh in ("none", "debug"):
+        argv = ["--arch", arch, "--layers", str(depth), "--steps",
+                str(MESH_STEPS), "--mesh", mesh]
+        args = train_mod.parse_args(argv)
+        cfg = train_mod.config(args)
+        model = Model(cfg, device="cuda").init(0)
+        if mesh == "debug":
+            spmd.start("cuda")      # kept up past train() for the checks
+        _reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = train_mod.train(args, cfg, model)
+        torch.cuda.synchronize()
+        runs[mesh] = dict(lines=_step_lines(buf.getvalue()),
+                          counts=_counts(), step_s=out["step_s"],
+                          model=model)
+        for p in model.parameters():
+            p.grad = None
+    placed, plain = runs["debug"]["model"], runs["none"]["model"]
+    worst = 0.0
+    for (n, p), q in zip(plain.named_parameters(), placed.parameters()):
+        worst = max(worst, float((q.to_local().detach().float()
+                                  - p.detach().float()).abs().max()))
+    del runs["none"]["model"], plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one more placed step under the collective counter, and NCCL itself
+    # through the functional all-reduce the step's collectives use
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batch = to_batch(next(iter(data.batches(1, seed=3))), "cuda")
+    step = make_train_step(placed, OptConfig(lr=args.lr))
+    counter = spmd.CollectiveCounter()
+    with counter:
+        step(adamw_init(dict(placed.named_parameters())), batch)
+    ones = torch.ones(8, device="cuda")
+    summed = funcol.all_reduce(ones, "sum", dist.group.WORLD)
+    nccl_ok = bool(torch.equal(summed, ones * dist.get_world_size()))
+    backend = dist.get_backend()
+    spmd.stop()
+    del placed, step, runs["debug"]["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = runs["none"], runs["debug"]
+    print(f"phase 16 {leg}: {cfg.name} at every published width cut to "
+          f"{depth} layer(s), {MESH_STEPS} steps of batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, seed 0: unsharded | --mesh debug (a (1, 1) (data, "
+          f"model) mesh over one {backend} rank)")
+    for x, y in zip(a["lines"], b["lines"]):
+        print(f"  {x} | {y}")
+    ms = {k: sorted(v["step_s"][1:])[len(v["step_s"][1:]) // 2] * 1e3
+          for k, v in runs.items()}
+    print(f"  largest |delta| over the parameters after the steps: {worst:g};"
+          f" launches {({k: v for k, v in a['counts'].items() if v})} | "
+          f"{({k: v for k, v in b['counts'].items() if v})}; step ms (median"
+          f" of steps 1-{MESH_STEPS - 1}) {ms['none']:.3f} | "
+          f"{ms['debug']:.3f}, first step {a['step_s'][0] * 1e3:.1f} | "
+          f"{b['step_s'][0] * 1e3:.1f} [{card}]; one more placed step's "
+          f"collectives {counter.record()}; an NCCL all-reduce over the "
+          f"group {'gives' if nccl_ok else 'does NOT give'} the sum")
+    if a["lines"] != b["lines"] or len(a["lines"]) != MESH_STEPS:
+        raise SystemExit(f"phase 16 {leg}: the placed run's step lines "
+                         "differ from the unsharded run's")
+    if a["counts"] != b["counts"] or not all(b["counts"][k] > 0
+                                             for k in kernels):
+        raise SystemExit(f"phase 16 {leg}: the placed run's launches differ"
+                         f" or miss one of {kernels}")
+    # AdamW moves an element by about lr a step at most: a placement
+    # error moves weights by their own size
+    if worst > MESH_STEPS * args.lr or not nccl_ok:
+        raise SystemExit(f"phase 16 {leg}: parameters differ by {worst:g} "
+                         "or NCCL's all-reduce is wrong")
+    return b["counts"], dict(step_ms=ms, max_abs_delta=worst,
+                             first_step_ms=[a["step_s"][0] * 1e3,
+                                            b["step_s"][0] * 1e3])
+
+
+# ---------------------------------------------------------------------------
 # the launch-time variants: grouped MoE dispatch in training (11), blocked
 # attention at prefill (11b), and the dry run (11c)
 # ---------------------------------------------------------------------------
@@ -3643,43 +3774,63 @@ def blocked_vs_cpu():
 def dryrun_sweep():
     """Phase 11c: ``python -m repro_torch.launch.dryrun --all`` in a
     subprocess on this machine (meta tensors: no card): the seconds it
-    takes, the records by status (an error record fails the phase), and
-    the roofline of qwen3-moe's decode_32k and train_4k records."""
+    takes, the records by status (an error record fails the phase), the
+    roofline of qwen3-moe's decode_32k and train_4k records, and every
+    train record's collectives (one without fails the phase)."""
     import collections
     import tempfile
     from repro_torch.config import INPUT_SHAPES
     from repro_torch.configs import get_config
     from repro_torch.launch import roofline
 
-    print("phase 11c: the dry run, --all over meta tensors, in a subprocess")
+    print("phase 11c: the dry run, --all over meta tensors, in a subprocess;"
+          " then the debug meshes' train records")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--out", tmp], env=env, capture_output=True, text=True,
-            timeout=900)
-        secs = time.perf_counter() - t0
-        recs = roofline.load_records(tmp)
-    status = collections.Counter(r["status"] for r in recs)
-    print(f"  {len(recs)} records in {secs:.1f} s: {dict(status)}; exit "
-          f"code {res.returncode}")
-    if res.returncode or status["error"] or not status["ok"]:
-        print(res.stdout[-3000:], res.stderr[-3000:], sep="\n")
-        raise SystemExit("phase 11c: the dry run wrote error records")
+    recs = []
+    for flags in (["--all"], ["--debug-mesh", "--both-meshes", "--shape",
+                              "train_4k"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+                 "--out", tmp], env=env, capture_output=True,
+                text=True, timeout=900)
+            secs = time.perf_counter() - t0
+            got = roofline.load_records(tmp)
+        status = collections.Counter(r["status"] for r in got)
+        print(f"  {' '.join(flags)}: {len(got)} "
+              f"records in {secs:.1f} s: {dict(status)}; exit code "
+              f"{res.returncode}")
+        if res.returncode or status["error"] or not status["ok"]:
+            print(res.stdout[-3000:], res.stderr[-3000:], sep="\n")
+            raise SystemExit("phase 11c: the dry run wrote error records")
+        recs += got
     for shape in ("decode_32k", "train_4k"):
         rec = next(r for r in recs if r["arch"] == QWEN3
                    and r["shape"] == shape and r["mesh"] == "16x16")
         sh_ = INPUT_SHAPES[shape]
         r = roofline.analyze(rec, roofline.model_flops_for(
             get_config(QWEN3), sh_, sh_.kind))
+        coll = ("none: " + rec["collectives_reason"][:60] + "..."
+                if rec["collectives"] is None else
+                f"{r.collective_s:.4e} s over NVLink's datasheet rate")
         print(f"  {QWEN3} {shape} on {rec['n_devices']} H100s (an even "
               f"split): dominant {r.dominant}; compute {r.compute_s:.4e} s, "
-              f"memory {r.memory_s:.4e} s; dot FLOPs {r.flops:.4e}, bytes "
-              f"{r.bytes_accessed:.4e}, model FLOPs / traced "
-              f"{r.useful_ratio:.3f}; argument bytes per device "
+              f"memory {r.memory_s:.4e} s, collective {coll}; dot FLOPs "
+              f"{r.flops:.4e}, bytes {r.bytes_accessed:.4e}, model FLOPs / "
+              f"traced {r.useful_ratio:.3f}; argument bytes per device "
               f"{rec['argument_bytes_per_device']:.4e}; traced in "
               f"{rec['t_trace_s']} s")
+    for rec in recs:
+        if rec["status"] == "ok" and rec["kind"] == "train":
+            if rec["collectives"] is None:
+                raise SystemExit(f"phase 11c: {rec['arch']} {rec['mesh']} "
+                                 "train record has no collectives")
+            print(f"  collectives {rec['arch']} {rec['shape']} "
+                  f"{rec['mesh']} (per device; placed trace "
+                  f"{rec['t_place_s']} s): " + ", ".join(
+                      f"{k} {v['count']} x {v['bytes']:.4e} B"
+                      for k, v in rec["collectives"].items() if v["count"]))
 
 
 # ---------------------------------------------------------------------------
@@ -4335,10 +4486,16 @@ def main() -> int:
     timed("14b", train_vs_cpu, (RWKV6, JAMBA), "14b")
     paths.update(timed("15", feature_path, card, d1["median_ms"]))
     timed("15-cpu", features_vs_cpu)
+    mesh_rows = {}
+    for leg, arch, depth, kernels in MESH_LEGS:
+        paths[f"train_mesh_{leg}"], mesh_rows[leg] = timed(
+            f"16 {leg}", mesh_train_path, card, leg, arch, depth, kernels)
     print(f"phase seconds (wall, each phase's own): {seconds}; total "
           f"{time.perf_counter() - t0:.1f} s since the build began")
     rows[5]["train_rwkv"], rows[6]["train_jamba"] = (recurrent["rwkv"],
                                                      recurrent["jamba"])
+    rows[0]["mesh_qwen3"], rows[3]["mesh_rwkv"], rows[4]["mesh_jamba"] = (
+        mesh_rows["qwen3"], mesh_rows["rwkv"], mesh_rows["jamba"])
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -4355,6 +4512,8 @@ def main() -> int:
                         ("train_rwkv", ("wkv6", "wkv6_bwd")),
                         ("train_jamba", ("selective_scan",
                                          "selective_scan_bwd")),
+                        *((f"train_mesh_{leg}", names)
+                          for leg, _, _, names in MESH_LEGS),
                         ("ep_streaming_d2", ("flash_decode",
                                              "moe_ffn_quant")),
                         ("ep_streaming_d4", ("flash_decode",

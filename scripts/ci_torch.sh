@@ -7,8 +7,11 @@
 #   SMOKE=1 scripts/ci_torch.sh    # additionally: scripts/ci.sh's SMOKE
 #                                  # scenarios through the port's launcher
 #                                  # (--device cpu --reduced), each with
-#                                  # ci.sh's own assertions, and the port's
-#                                  # serve_trace.py against the reference's
+#                                  # ci.sh's own assertions, train --mesh
+#                                  # debug over 2 gloo ranks against the
+#                                  # reference over 2 forced devices, and
+#                                  # the port's serve_trace.py against the
+#                                  # reference's
 #   CI_LOG_DIR=<dir>               # tee the serve reports there
 #   SMOKE_TIMEOUT=<s>              # per-launch time limit (default 300)
 #
@@ -256,6 +259,67 @@ for p in paths:
     assert os.path.exists(p), f"persisted tenant predictor missing: {p}"
 print(f"ci_torch.sh: multi-tenant lifecycle OK (cold->load for "
       f"{sorted(src2)}, distinct .npz per tenant, tokens bit-identical)")
+PY
+
+    # the sharded training step: --mesh debug over 2 gloo ranks from the
+    # reference's seed-0 weights, against the reference's --mesh debug over
+    # 2 forced host devices (jax 0.9's make_mesh gives Explicit axes, under
+    # which that launcher raises: it runs with Auto axes, as it was written
+    # for), within tests/test_torch_train.py's launcher tolerances
+    echo "ci_torch.sh: SMOKE: train --mesh debug, 2 gloo ranks vs reference"
+    scratch MESH_TMP
+    JAX_PLATFORMS=cpu python - "$MESH_TMP/ref.npz" <<'PY'
+import sys
+import jax, numpy as np
+from repro.configs import get_config
+from repro.models import Model as JaxModel
+from repro_torch.configs import get_config as torch_get_config
+from repro_torch.models import Model
+from repro_torch.params import from_reference
+from repro_torch.train.checkpoint import save
+
+arch = "qwen3-moe-235b-a22b"
+params = JaxModel(get_config(arch).reduced()).init(jax.random.PRNGKey(0))
+save(sys.argv[1], from_reference(
+    Model(torch_get_config(arch).reduced(), device="cpu"),
+    jax.tree.map(np.asarray, params)))
+PY
+    # each rank: the launcher's train() on those weights
+    cat > "$MESH_TMP/rank.py" <<'PY'
+import sys
+from repro_torch.launch import train
+from repro_torch.models import Model
+from repro_torch.train.checkpoint import restore
+
+args = train.parse_args(["--reduced", "--steps", "3", "--device", "cpu",
+                         "--mesh", "debug"])
+cfg = train.config(args)
+train.train(args, cfg, restore(sys.argv[1], Model(cfg, device="cpu")))
+PY
+    timeout "${SMOKE_TIMEOUT:-300}" python -m torch.distributed.run \
+        --nproc-per-node 2 --master-port "${MESH_PORT:-29517}" \
+        "$MESH_TMP/rank.py" "$MESH_TMP/ref.npz" \
+        | log_tee train_mesh_torch.log > "$MESH_TMP/port.log"
+    XLA_FLAGS=--xla_force_host_platform_device_count=2 JAX_PLATFORMS=cpu \
+        timeout "${SMOKE_TIMEOUT:-300}" python - > "$MESH_TMP/ref.log" <<'PY'
+import functools, jax
+from jax.sharding import AxisType
+jax.make_mesh = functools.partial(jax.make_mesh,
+                                  axis_types=(AxisType.Auto,) * 2)
+from repro.launch import train
+train.main(["--reduced", "--steps", "3", "--mesh", "debug"])
+PY
+    python - "$MESH_TMP/port.log" "$MESH_TMP/ref.log" <<'PY'
+import re, sys
+import numpy as np
+
+port, ref = ([tuple(map(float, m)) for m in re.findall(
+    r"^step +\d+ loss (\S+) gnorm (\S+)", open(p).read(), re.M)]
+    for p in sys.argv[1:])
+assert len(port) == len(ref) == 3, (port, ref)
+np.testing.assert_allclose(port[0], ref[0], atol=1.5e-3, rtol=0)
+np.testing.assert_allclose(port[1:], ref[1:], rtol=2e-3)
+print(f"ci_torch.sh: --mesh debug OK (2 ranks: {port} vs reference {ref})")
 PY
 
     # trace mode: the port's harness prints the reference's table

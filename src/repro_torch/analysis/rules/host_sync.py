@@ -115,6 +115,9 @@ _TORCH_NON_TENSOR = frozenset({
     "memory_allocated", "max_memory_allocated", "reset_peak_memory_stats",
     "synchronize", "equal", "allclose", "CheckpointPolicy", "ModuleList",
     "create_selective_checkpoint_contexts", "cudart",
+    # torch.distributed's host-side queries and DTensor's placement types
+    "is_initialized", "get_rank", "get_world_size", "get_backend",
+    "Replicate", "Shard", "Partial", "init_device_mesh", "DeviceMesh",
 })
 # factories: on the card only when given a device
 _FACTORIES = frozenset({
@@ -126,12 +129,13 @@ _LIKE = frozenset({"zeros_like", "ones_like", "empty_like", "full_like",
                    "rand_like", "randn_like"})
 _META_ATTRS = frozenset({"shape", "dtype", "device", "ndim", "is_cuda",
                          "is_meta", "requires_grad", "layout", "is_leaf",
-                         "grad_fn", "type"})
+                         "grad_fn", "type", "placements", "device_mesh"})
 _META_METHODS = frozenset({"dim", "size", "numel", "element_size",
                            "data_ptr", "stride", "is_contiguous",
                            "is_floating_point", "nelement", "storage_offset",
                            "get_device", "is_pinned", "untyped_storage",
-                           "record_stream", "register_hook"})
+                           "record_stream", "register_hook", "is_shard",
+                           "is_replicate", "is_partial"})
 _HOST_VALUE_METHODS = frozenset({"item", "tolist", "numpy"})
 _D2H = frozenset({"item", "tolist", "cpu", "numpy"})
 _COERCIONS = frozenset({"float", "int", "bool"})

@@ -18,6 +18,11 @@ implements the kernel. Imports nothing: element sizes are bytes.
 from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM5, HBM3
+# H100 SXM5's NVLink 4 from NVIDIA's datasheet (900 GB/s over 18 links,
+# both directions counted): one direction, 450 GB/s, into each card. A
+# datasheet figure, not a measurement; the dry run's collective term
+# (``launch/roofline.py``) divides each device's collective bytes by it.
+NVLINK_BYTES_PER_S = 450e9
 # dense peaks by the dtype the products run in, keyed as str(torch dtype)
 PEAK_FLOPS = {"torch.bfloat16": 989e12,      # tensor cores
               "torch.float32": 67e12}        # CUDA-core FMA

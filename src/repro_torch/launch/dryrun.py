@@ -21,14 +21,22 @@ tensors the step made; ``code_bytes`` and ``alias_bytes`` are None: there
 is no compiled program); ``cost`` and ``cost_corrected`` with the traced
 dot FLOPs and bytes (the same numbers: an eager trace sees every layer,
 so there is no trip count to correct); ``t_trace_s`` in place of
-``t_lower_s``/``t_compile_s``; ``collectives`` None (nothing is sharded
-yet); ``argument_bytes_per_device`` from ``sharding.py``'s specs over the
-mesh; ``kernels`` (stand-in launches) and ``n_ops`` (aten ops). The
-counts are for the whole step; the mesh changes only the per-device
-bytes, so both meshes of a pair share one trace, and a sweep traces its
-pairs in ``JOBS`` processes. The port updates parameters, moments and
-caches in place, so ``output_bytes`` counts only what the step returns
-besides them.
+``t_lower_s``/``t_compile_s``; ``argument_bytes_per_device`` from
+``sharding.py``'s specs over the mesh; ``kernels`` (stand-in launches)
+and ``n_ops`` (aten ops). The FLOPs and bytes are counted over the whole
+unplaced step, which both meshes of a pair share (one trace a pair; a
+sweep traces its pairs in ``JOBS`` processes).
+
+``collectives`` is the reference's ``{kind: {"bytes", "count"}}``, one
+device's: a train step is traced a second time for each mesh, placed
+(``sharding.place``: every parameter a DTensor by its spec, the batch by
+``batch_spec``) on meta over a fake process group of the mesh's size,
+with ``spmd.CollectiveCounter`` counting the collectives DTensor's
+sharding propagation inserts (``t_place_s`` is that trace's time). A
+serving step is not placed: its ``collectives`` stay None and its
+``collectives_reason`` says why. The port updates parameters, moments
+and caches in place, so ``output_bytes`` counts only what the step
+returns besides them.
 """
 from __future__ import annotations
 
@@ -47,15 +55,17 @@ import torch
 
 from repro_torch.config import INPUT_SHAPES
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.launch import spmd
 from repro_torch.launch.cost_analysis import CostMode, nbytes
 from repro_torch.launch.input_specs import (decode_inputs, decode_window,
                                             skip_reason, supports_shape,
                                             train_inputs)
-from repro_torch.launch.mesh import (axis_size, batch_axes, make_debug_mesh,
-                                     make_production_mesh)
+from repro_torch.launch.mesh import (Mesh, axis_size, batch_axes,
+                                     make_debug_mesh, make_production_mesh)
 from repro_torch.launch.sharding import (batch_spec, cache_shardings,
-                                         local_bytes, params_shardings)
+                                         local_bytes, params_shardings, place)
 from repro_torch.models import Model
+from repro_torch.models.model import layer_descs, split_periodic
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optim import OptConfig, adamw_init
 
@@ -190,6 +200,85 @@ def argument_bytes_per_device(cfg, shape, args, model, mesh,
     return total
 
 
+# why a serving record has no collectives
+SERVE_REASON = ("serving steps are not placed: Model.prefill and "
+                "Model.serve_step write the decode cache in place "
+                "(aten.index_put_ through update_rows / _store_kv), and the "
+                "port serves on one device or over an expert mesh from one "
+                "controller, so cache_shardings' layouts are not applied")
+
+
+def _batch_merged(mesh):
+    """``mesh`` with its batch axes ("pod", "data") as one "data" axis of
+    their product (pod-major, as the batch's rows lie over them). Only the
+    batch shards over them; DTensor cannot reduce-scatter into a tensor
+    dim that two mesh dims shard."""
+    baxes = batch_axes(mesh)
+    if len(baxes) == 1:
+        return mesh
+    rest = [a for a in mesh.axis_names if a not in baxes]
+    return Mesh(("data", *rest),
+                (math.prod(axis_size(mesh, a) for a in baxes),
+                 *(axis_size(mesh, a) for a in rest)))
+
+
+def _placed_trace(cfg, shape, mesh, with_optimizer: bool,
+                  n_prefix: int) -> dict:
+    """The collectives of one placed train step of ``cfg`` whose first
+    ``n_prefix`` layers keep their activations (the rest are rematted)."""
+    mesh = _batch_merged(mesh)
+    with spmd.fake_group(mesh.size):
+        dm = spmd.device_mesh(mesh, "cpu")
+        model = place(Model(cfg, device="meta"), dm, mesh)
+        model.n_prefix = n_prefix
+        counter = spmd.CollectiveCounter()
+        if with_optimizer:
+            step = make_train_step(model, OptConfig(), remat=True)
+            opt = adamw_init(dict(model.named_parameters()))
+            with counter:
+                step(opt, train_inputs(cfg, shape))
+        else:
+            model.trainable()
+            with counter, spmd.step_context(model):
+                model.loss(train_inputs(cfg, shape), remat=True).backward()
+    return counter.record()
+
+
+def placed_collectives(cfg, shape, mesh, *,
+                       with_optimizer: bool = True) -> dict:
+    """One device's collectives in ``cfg``'s train step at ``shape``
+    placed over ``mesh``: the model on meta, placed over a fake group of
+    ``mesh.size`` ranks (this process is rank 0). -> the reference's
+    ``collectives`` record.
+
+    Every period group of the layer stack (``split_periodic``: the
+    reference's scan groups) has the same parameters, shapes and
+    placements, so it issues the same collectives: a stack of more than
+    two groups is traced cut to one group and to two, and the counts and
+    bytes are the one-group cut's plus the difference times the groups
+    past the first (exact: ``tests/test_torch_spmd.py`` holds it against
+    the whole stack's trace). The cuts keep the stack's remat layout. A
+    multi-pod mesh places over its pod and data axes as one
+    (``_batch_merged``): a batch-axis collective is one collective over
+    pod × data ranks.
+
+    The mesh is a ``cpu`` one (DTensor propagates a ``cuda`` mesh's shapes
+    on fake CUDA tensors, which a host without CUDA cannot make), so the
+    counts are those the gloo backend would see: where NCCL swaps a
+    sharded dim with an all-to-all, DTensor on a cpu mesh all-gathers and
+    slices."""
+    n_prefix, period = split_periodic(layer_descs(cfg))
+    groups = (cfg.n_layers - n_prefix) // period
+    if groups <= 2:
+        return _placed_trace(cfg, shape, mesh, with_optimizer, n_prefix)
+    one, two = (_placed_trace(
+        dataclasses.replace(cfg, n_layers=n_prefix + k * period), shape,
+        mesh, with_optimizer, n_prefix) for k in (1, 2))
+    return {kind: {f: one[kind][f] + (two[kind][f] - one[kind][f])
+                   * (groups - 1) for f in ("count", "bytes")}
+            for kind in one}
+
+
 def _mesh_name(multi_pod: bool, debug_mesh: bool) -> str:
     return ("debug-multi" if multi_pod else "debug") if debug_mesh \
         else ("2x16x16" if multi_pod else "16x16")
@@ -224,6 +313,13 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool,
     if key not in _TRACES:
         _TRACES[key] = trace(fn, args, model)
     t = _TRACES[key]
+    coll, t_place = None, None
+    if shape.kind == "train":
+        t0 = time.time()
+        coll = placed_collectives(cfg, shape, mesh, with_optimizer=with_opt)
+        t_place = round(time.time() - t0, 1)
+    else:
+        rec["collectives_reason"] = SERVE_REASON
     rec.update(
         cost_corrected={"dot_flops": t["dot_flops"],
                         "bytes_accessed": t["bytes_accessed"]},
@@ -235,7 +331,7 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool,
                 "code_bytes": None, "alias_bytes": None},
         cost={"flops": t["dot_flops"],
               "bytes_accessed": t["bytes_accessed"]},
-        collectives=None,
+        collectives=coll, t_place_s=t_place,
         argument_bytes_per_device=argument_bytes_per_device(
             cfg, shape, args, model, mesh, sharding_mode),
         kernels=t["kernels"], n_ops=t["n_ops"],

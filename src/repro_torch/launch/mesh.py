@@ -7,7 +7,8 @@ A :class:`Mesh` is the axis names and sizes that the reference's
 debug meshes, and with ``expert=True`` the same chip counts with the model
 axis split into ("model", "expert"). It holds no devices and touches no
 process group: the dry run (``launch/dryrun.py``) reads it to size each
-device's share of the arguments (``launch/sharding.py``).
+device's share of the arguments (``launch/sharding.py``) and to lay a
+``DeviceMesh`` over a group of its size.
 
 An :class:`ExpertMesh` is the 1-D ("expert",) serving mesh of
 ``make_expert_mesh``, over an explicit tuple of ``torch.device``s. The
@@ -16,8 +17,10 @@ D slot caches); so does the port: one process holds the D shard devices
 and the expert exchange is block copies between them
 (``kernels.moe_ffn.moe_ffn_sharded``). On the CPU its shards are logical,
 the counterpart of the forced host devices the reference's launcher sets
-up. Meshes of processes (training, ``launch/train.py --mesh``) wait for
-``torch.distributed``.
+up. Meshes of processes, one a device, are ``torch.distributed``
+``DeviceMesh``es laid over a ``Mesh`` by ``launch/spmd.py::device_mesh``:
+the sharded training step (``launch/train.py --mesh debug``) and the dry
+run's collectives (over a fake group of the mesh's size).
 """
 from __future__ import annotations
 

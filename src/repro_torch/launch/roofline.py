@@ -1,16 +1,19 @@
 """Roofline of a dry-run record on the H100.
 
-Two terms per (arch × shape × mesh), in seconds, from the dry run's
+Three terms per (arch × shape × mesh), in seconds, from the dry run's
 traced counts (``launch/dryrun.py``):
 
     compute    = dot FLOPs / (devices × 989e12 FLOP/s, bf16 dense)
     memory     = bytes accessed / (devices × 3.35e12 B/s of HBM)
+    collective = one device's collective bytes / 450e9 B/s of NVLink
 
-The port's counts are for the whole step (nothing is partitioned), so
-each term is the time of an even split over ``n_devices`` cards. The
-reference's third term, collectives over the mesh's links, is None here
-until the port shards a step over ``torch.distributed`` (ROADMAP, expert
-parallelism). ``_attn_context_flops``, ``model_flops_for`` and
+The dot FLOPs and bytes are counted over the whole step, so those terms
+are the time of an even split over ``n_devices`` cards. The collective
+bytes are one device's, from the placed step over a fake group of the
+mesh's size (the reference's ``collectives`` format); the link rate is
+the H100 SXM's NVLink 4 datasheet figure (``kernels/bounds.py``), not the
+TPU's ICI. A record whose step was not placed (``collectives`` None) has
+no collective term. ``_attn_context_flops``, ``model_flops_for`` and
 ``load_records`` are the reference's own: a step's model FLOPs follow from
 its config and shape alone, whatever code computes the step.
 """
@@ -26,6 +29,7 @@ from repro_torch.kernels import bounds as _bounds
 # H100 SXM: bf16 dense tensor cores, HBM3 (the kernels' bounds' peaks)
 PEAK_FLOPS = _bounds.PEAK_FLOPS["torch.bfloat16"]
 HBM_BW = _bounds.HBM_BYTES_PER_S
+LINK_BW = _bounds.NVLINK_BYTES_PER_S
 
 
 @dataclass
@@ -43,18 +47,23 @@ class Roofline:
 
 def analyze(rec: dict, model_flops: float) -> Roofline:
     """rec: one dry-run record (``status == "ok"``). model_flops: from
-    ``model_flops_for``. The dominant term is the larger of compute and
-    memory; ``useful_ratio`` is model FLOPs over traced dot FLOPs."""
+    ``model_flops_for``. The dominant term is the largest of compute,
+    memory and (when the record has ``collectives``) collective;
+    ``useful_ratio`` is model FLOPs over traced dot FLOPs."""
     n_dev = rec["n_devices"]
     cc = rec["cost_corrected"]
     flops, byts = cc["dot_flops"], cc["bytes_accessed"]
     compute_s = flops / (n_dev * PEAK_FLOPS)
     memory_s = byts / (n_dev * HBM_BW)
     terms = {"compute": compute_s, "memory": memory_s}
+    coll = collective_s = None
+    if rec.get("collectives") is not None:
+        coll = sum(v["bytes"] for v in rec["collectives"].values())
+        collective_s = terms["collective"] = coll / LINK_BW
     dominant = max(terms, key=terms.get)
     useful = model_flops / flops if flops else 0.0
-    return Roofline(compute_s, memory_s, None, dominant, flops, byts, None,
-                    model_flops, useful)
+    return Roofline(compute_s, memory_s, collective_s, dominant, flops, byts,
+                    coll, model_flops, useful)
 
 
 def _attn_context_flops(cfg, S: int, B: int, kind: str) -> float:

@@ -1,5 +1,5 @@
 """The reference's parameter, batch and cache sharding rules, written for
-the port's parameter names.
+the port's parameter names, and the placement of a model by them.
 
 The rules are the reference's (``launch/sharding.py``): name-based, with
 divisibility checks and replication as the fallback (GQA head counts
@@ -8,15 +8,24 @@ dim of MoE weights shards over ``model`` (expert parallelism). A spec is a
 tuple with one entry per dimension: None (replicated), an axis name, or a
 tuple of axis names. The port unstacks every layer (``layers.<i>.``,
 ``encoder.<i>.``), so no spec has the reference's leading scan-group
-entry. ``local_shape``/``local_bytes`` give one device's share; the dry
-run sizes its per-device arguments with them. Nothing here moves data:
-sharding a step across cards waits for ``torch.distributed``.
+entry. ``local_shape``/``local_bytes`` give one device's share.
+
+``placements`` turns a spec into ``DTensor`` placements over a
+``DeviceMesh`` (an entry naming a mesh axis is ``Shard(dim)`` on that
+mesh dim, everything else, and a mesh dim of one rank, ``Replicate()``),
+and ``place`` makes every
+parameter of a model a DTensor laid out by its spec: the sharded training
+step (``launch/train.py --mesh debug``) and the dry run's collectives
+(``launch/dryrun.py``) run over it.
 """
 from __future__ import annotations
 
 import math
 
-from repro_torch.launch.mesh import axis_size, batch_axes
+import torch
+from torch import nn
+
+from repro_torch.launch.mesh import Mesh, axis_size, batch_axes
 
 
 def _div(n: int, k: int) -> bool:
@@ -198,3 +207,72 @@ def local_bytes(t, spec, mesh) -> int:
     """Bytes of one device's block of tensor ``t`` laid out by ``spec``."""
     return math.prod(local_shape(tuple(t.shape), spec, mesh)) \
         * t.element_size()
+
+
+def placements(spec, device_mesh) -> list:
+    """``spec``'s ``DTensor`` placements over ``device_mesh`` (whose dim
+    names are the spec's axis names): ``Shard(dim)`` on each mesh dim of
+    more than one rank that a spec entry names, ``Replicate()`` on the
+    others. A mesh axis named twice, or an axis the mesh lacks, raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = device_mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        for a in ((axes,) if isinstance(axes, str) else axes):
+            if a not in names:
+                raise ValueError(f"spec {spec} names {a!r}, not an axis of "
+                                 f"the mesh {names}")
+            i = names.index(a)
+            if out[i].is_shard():
+                raise ValueError(f"spec {spec} shards two dims over {a!r}")
+            # a mesh dim of one rank holds the whole tensor dim: Replicate
+            # is the same block, and DTensor plans it far faster
+            out[i] = Shard(dim) if device_mesh.size(i) > 1 else Replicate()
+    return out
+
+
+@torch.no_grad()
+def place(model, device_mesh, mesh):
+    """Make every parameter of ``model`` a DTensor over ``device_mesh``
+    laid out by ``param_spec`` over ``mesh`` (the same axes): each rank
+    keeps its block of the weights it holds (every rank must hold the
+    same full weights; nothing is sent). A dim a spec shards that does not
+    split evenly raises: nothing is replicated outside ``param_spec``'s
+    own fallbacks. -> model."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.spmd import local_block
+    for name in [n for n, _ in model.named_parameters()]:
+        p = model.get_parameter(name)
+        spec = param_spec(name, tuple(p.shape), mesh)
+        pl = placements(spec, device_mesh)
+        block = local_block(p.detach(), pl, device_mesh)
+        if block.shape != p.shape:      # a copy, so the full one is freed
+            block = block.clone()
+        if tuple(block.shape) != local_shape(tuple(p.shape), spec, mesh):
+            raise ValueError(f"{name}: block {tuple(block.shape)} is not "
+                             f"the local shape of {spec}")
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, attr, nn.Parameter(
+            DTensor.from_local(block, device_mesh, pl, run_check=False),
+            requires_grad=p.requires_grad))
+    return model
+
+
+def place_batch(batch, device_mesh) -> dict:
+    """``batch`` ({name: tensor}, as every rank holds it) as DTensors laid
+    out by ``batch_spec`` over ``device_mesh`` (M-RoPE's (3, B, S)
+    ``positions`` on their second dim)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.spmd import local_block
+    mesh = Mesh(device_mesh.mesh_dim_names, tuple(device_mesh.shape))
+    out = {}
+    for k, t in batch.items():
+        spec = ((None,) + batch_spec(mesh) if k == "positions"
+                else batch_spec(mesh))
+        pl = placements(spec, device_mesh)
+        out[k] = DTensor.from_local(local_block(t, pl, device_mesh),
+                                    device_mesh, pl, run_check=False)
+    return out

@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import spmd
 from repro_torch.models.layers import apply_rope, rms_norm_headwise, softcap
 
 NEG_INF = -2.0e38
@@ -99,7 +100,16 @@ class MLA(nn.Module):
 
 def _sdpa(q, k, v, mask, logit_cap: float):
     """q (B,S,H,hd), k/v (B,T,Hkv,hd); mask (B,1,S,T) or (1,1,S,T) additive.
-    GQA groups the q heads (B,S,Hkv,rep,hd); K/V are never repeated."""
+    GQA groups the q heads (B,S,Hkv,rep,hd); K/V are never repeated. On a
+    placed model each rank attends over its batch rows and, where the
+    model axis divides Hkv, its KV groups' heads (else every head)."""
+    heads = 2 if k.shape[2] % spmd.axis_size(q, "model") == 0 else None
+    rows = (heads, 0)
+    return spmd.site(_sdpa_local, (rows, rows, rows, None, None), (rows,),
+                     q, k, v, mask, logit_cap)
+
+
+def _sdpa_local(q, k, v, mask, logit_cap: float):
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     rep = H // Hkv
@@ -224,13 +234,23 @@ def update_rows(buf, upd, pos, active=None):
 # ---------------------------------------------------------------------------
 
 
+def _heads(w, hd_dim: int):
+    """A GQA projection weight (or bias) as einsum takes it: on a placed
+    model, gathered over the model axis when it is sharded on its head_dim
+    (its heads do not split over the axis): torch 2.11's DTensor cannot
+    flatten (heads, head_dim) with head_dim sharded, as einsum and its
+    backward do. Else as it is."""
+    return spmd.gathered(w) if spmd.sharded_on(w, hd_dim) else w
+
+
 def _project_qkv(p, cfg: ArchConfig, x, positions):
     a = cfg.attn
-    q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
-    k = torch.einsum("bsd,dhk->bshk", x, p.w_k)
-    v = torch.einsum("bsd,dhk->bshk", x, p.w_v)
+    q = spmd.project("bsd,dhk->bshk", x, _heads(p.w_q, 2))
+    k = spmd.project("bsd,dhk->bshk", x, _heads(p.w_k, 2))
+    v = spmd.project("bsd,dhk->bshk", x, _heads(p.w_v, 2))
     if a.qkv_bias:
-        q, k, v = q + p.b_q, k + p.b_k, v + p.b_v
+        q, k, v = (q + _heads(p.b_q, 1), k + _heads(p.b_k, 1),
+                   v + _heads(p.b_v, 1))
     if a.qk_norm:
         q = rms_norm_headwise(q, p.q_norm_scale)
         k = rms_norm_headwise(k, p.k_norm_scale)
@@ -242,8 +262,8 @@ def _project_qkv(p, cfg: ArchConfig, x, positions):
 
 def _project_q(p, cfg: ArchConfig, x):
     """Cross-attention's query: no norm, no rotation."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
-    return q + p.b_q if cfg.attn.qkv_bias else q
+    q = spmd.project("bsd,dhk->bshk", x, _heads(p.w_q, 2))
+    return q + _heads(p.b_q, 1) if cfg.attn.qkv_bias else q
 
 
 def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0,
@@ -259,7 +279,8 @@ def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0,
         if mask is None and cfg.attn_impl == "blocked":
             out = _sdpa_blocked(q, k, v, cfg.attn.logit_softcap,
                                 window=window)
-            return torch.einsum("bshk,hkd->bsd", out, p.w_o), (k, v)
+            return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)),
+                    (k, v))
         if mask is None:
             mask = causal_mask(x.shape[1], k.shape[1], window=window,
                                device=x.device)
@@ -269,17 +290,17 @@ def attn_forward(p, cfg: ArchConfig, x, positions, *, window: int = 0,
         if mask is None:
             mask = torch.zeros((1, 1, 1, 1), device=x.device)
     out = _sdpa(q, k, v, mask, cfg.attn.logit_softcap)
-    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
+    out = spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1))
     return out, (k, v)
 
 
 def cross_kv(p, cfg: ArchConfig, enc_out):
     """Project the encoder output once into cross-attention K/V, each
     (B, S_enc, Hkv, hd)."""
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p.w_k)
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p.w_v)
+    k = spmd.project("bsd,dhk->bshk", enc_out, _heads(p.w_k, 2))
+    v = spmd.project("bsd,dhk->bshk", enc_out, _heads(p.w_v, 2))
     if cfg.attn.qkv_bias:
-        k, v = k + p.b_k, v + p.b_v
+        k, v = k + _heads(p.b_k, 1), v + _heads(p.b_v, 1)
     return k, v
 
 
@@ -331,7 +352,7 @@ def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
 def _mla_q(p, cfg: ArchConfig, x, positions):
     m = cfg.attn.mla
     cq = rms_norm_headwise(x @ p.w_dq, p.q_norm_scale)
-    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
+    q = spmd.project("bsr,rhk->bshk", cq, p.w_uq)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.attn.rope_theta)
@@ -357,15 +378,31 @@ def mla_forward(p, cfg: ArchConfig, x, positions):
     cache."""
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latents(p, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk)
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uv)
+    k_nope = spmd.project("bsr,rhk->bshk", c_kv, p.w_uk)
+    v = spmd.project("bsr,rhk->bshk", c_kv, p.w_uv)
+    mask = causal_mask(x.shape[1], x.shape[1], device=x.device)
+    # on a placed model each rank attends over its batch rows and, where
+    # the model axis divides H, its heads; k_rope is every head's, so its
+    # gradient is partial
+    heads = (2 if q_nope.shape[2] % spmd.axis_size(q_nope, "model") == 0
+             else None)
+    rows, shared = (heads, 0), (None, 0)
+    out = spmd.site(_mla_core, (rows, rows, rows, shared, rows, None, None),
+                    (rows,), q_nope, q_rope, k_nope, k_rope, v, mask,
+                    _mla_scale(cfg),
+                    grad_specs=(rows, rows, rows,
+                                ("partial" if heads is not None else None,
+                                 0), rows, None, None))
+    out = spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1))
+    return out, (c_kv, k_rope)
+
+
+def _mla_core(q_nope, q_rope, k_nope, k_rope, v, mask, scale: float):
+    """MLA's causal attention over materialized heads -> (B,S,H,v)."""
     scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
               + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float()
-    mask = causal_mask(x.shape[1], x.shape[1], device=x.device)
-    w = torch.softmax(scores * _mla_scale(cfg) + mask, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthk->bshk", w, v)
-    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
-    return out, (c_kv, k_rope)
+    w = torch.softmax(scores * scale + mask, dim=-1).to(q_nope.dtype)
+    return torch.einsum("bhst,bthk->bshk", w, v)
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache_ckv, cache_kr, pos, *,

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import spmd
 
 CHUNK = 256
 
@@ -69,7 +70,10 @@ def _ssm_inputs(p: Mamba, cfg: ArchConfig, xc):
     contiguous, as B5 takes them (the reference's ``_ssm_params`` before
     it forms dA/dBx)."""
     d_in, dt_rank = _dims(cfg)
-    dbc = xc @ p.w_x_dbc
+    # on a placed model w_x_dbc is row-parallel: its partial sums are
+    # reduced before the split (torch 2.11's DTensor picks a strategy for
+    # dt @ w_dt over a partial dt that it cannot redistribute into)
+    dbc = spmd.reduced(xc @ p.w_x_dbc)
     dt, Bm, Cm = torch.split(dbc, [dt_rank, cfg.mamba.d_state,
                                    cfg.mamba.d_state], dim=-1)
     dt = F.softplus(dt @ p.w_dt + p.dt_bias)                 # fp32
@@ -80,6 +84,14 @@ def _ssm_inputs(p: Mamba, cfg: ArchConfig, xc):
 def _gate_out(p: Mamba, y, xr, z, dtype):
     y = y.to(dtype) + xr * p.D.to(dtype)
     return (y * F.silu(z)) @ p.w_out
+
+
+def _scan(x, dt, A, Bm, Cm, h0):
+    """``ops.selective_scan`` over contiguous inputs (a rank's channel
+    slice of a placed model's is strided)."""
+    return ops.selective_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                              Bm.contiguous(), Cm.contiguous(),
+                              h0.contiguous())
 
 
 def mamba_forward(p: Mamba, cfg: ArchConfig, x, state=None):
@@ -103,7 +115,14 @@ def mamba_forward(p: Mamba, cfg: ArchConfig, x, state=None):
     dt, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
     h0 = (torch.zeros((B, d_in, m.d_state), dtype=torch.float32,
                       device=x.device) if state is None else state)
-    y, hN = ops.selective_scan(xc, dt, A, Bm, Cm, h0.contiguous())
+    # B5 over channels: on a placed model each rank scans its d_in
+    # channels (of its batch rows); B and C feed every channel, so their
+    # gradients are partial, as A's over the batch shards
+    ch, bc = (2, 0), (None, 0)
+    y, hN = spmd.site(_scan, (ch, ch, 0, bc, bc, (1, 0)), (ch, (1, 0)),
+                      xc, dt, A, Bm, Cm, h0,
+                      grad_specs=(ch, ch, (0, "partial"), ("partial", 0),
+                                  ("partial", 0), (1, 0)))
     return _gate_out(p, y, xr, z, x.dtype), hN, xp[:, S:]
 
 

@@ -41,6 +41,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
@@ -48,6 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
+from repro_torch.launch import spmd
 from repro_torch.models.attention import (MLA, Attention, attn_decode,
                                           attn_forward, cross_kv, mla_decode,
                                           mla_forward)
@@ -276,7 +278,11 @@ class Model(nn.Module):
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
-            x = self.embed[batch["tokens"]]
+            # a lookup (not indexing): its backward sums repeated tokens in
+            # one order, placed or not. A placed model gathers its
+            # vocab-sharded table over the model axis first (DTensor's
+            # masked lookup cannot be reduced twice, and the remat does)
+            x = F.embedding(batch["tokens"], spmd.gathered(self.embed))
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
         B, S = x.shape[:2]
@@ -287,8 +293,8 @@ class Model(nn.Module):
             if cfg.attn.mrope_sections:
                 positions = positions.expand(3, B, S)
         if not cfg.attn.use_rope:
-            x = x + self.pos_embed[positions if positions.dim() == 2
-                                   else positions[0]]
+            x = x + F.embedding(positions if positions.dim() == 2
+                                else positions[0], self.pos_embed)
         return x, positions
 
     def _embed_step(self, token_or_embeds, pos):

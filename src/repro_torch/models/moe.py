@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig, MoEConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import spmd
 from repro_torch.models.layers import FFN, apply_ffn, is_gated
 
 
@@ -114,6 +115,75 @@ def slot_out_dtype(x_dtype, slot_weights):
     return torch.promote_types(x_dtype, torch.float32 if narrow else w.dtype)
 
 
+def _slots(m: MoEConfig, idx, T: int, C: int, token_mask, capacity_factor):
+    """Capacity dispatch of the (T, k) routed experts ``idx``: -> (order,
+    the stable sort of the (token, expert) pairs by expert; slot_idx, each
+    sorted pair's slot in ``E*C`` (over-capacity pairs at the extra slot
+    E*C); slot_token, the token feeding each of the E*C slots, T for
+    none)."""
+    E, k = m.n_experts, m.top_k
+    dev = idx.device
+    flat_e = idx.reshape(T * k)
+    C_drop = C
+    if token_mask is not None:
+        # pad tokens route to sentinel expert E: they sort past every real
+        # segment and never take a capacity slot ahead of a real token
+        real = token_mask.reshape(T).repeat_interleave(k)
+        flat_e = torch.where(real, flat_e, torch.full_like(flat_e, E))
+        # drop exactly as an exact-length prefill would
+        C_drop = _traced_capacity(token_mask.sum(), m, capacity_factor)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]                                 # (T*k,)
+    token_of = order // k
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=dev, dtype=sorted_e.dtype),
+        side="left")
+    e_clip = torch.clamp(sorted_e, max=E - 1)
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[e_clip]
+    keep = (pos_in_e < C_drop) & (sorted_e < E)
+    slot = e_clip * C + torch.clamp(pos_in_e, max=C - 1)
+
+    # token feeding each of the E*C slots (T = "no token"); over-capacity
+    # entries scatter to the extra row E*C, which is sliced off
+    slot_idx = torch.where(keep, slot, torch.full_like(slot, E * C))
+    slot_token = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    slot_token[slot_idx] = token_of
+    return order, slot_idx, slot_token[:E * C]
+
+
+def _gather(xf, slot_token, E: int, C: int):
+    """xf (T, d) -> the (E, C, d) blocks of ``slot_token`` (zeros where no
+    token)."""
+    x_pad = torch.cat([xf, xf.new_zeros(1, xf.shape[1])], dim=0)
+    return x_pad[slot_token].reshape(E, C, xf.shape[1])
+
+
+def _combine(yg, gates, order, slot_idx, slot_token, T: int):
+    """The experts' (E, C, d) outputs, gate-weighted, summed back to their
+    tokens -> (T, d) in the accumulator dtype."""
+    E, C, d = yg.shape
+    yg = yg.reshape(E * C, d)
+    gate_flat = gates.reshape(-1)[order]
+    slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=yg.device)
+    slot_gate[slot_idx] = gate_flat
+    contrib = yg * slot_gate[:E * C, None].to(yg.dtype)
+    acc = _acc_dtype(contrib.dtype)
+    y = torch.zeros(T + 1, d, dtype=acc, device=yg.device)
+    y.index_add_(0, slot_token, contrib.to(acc))
+    return y[:T]
+
+
+def expert_ffn(p, xg, act: str):
+    """The grouped expert FFN of ``p``'s experts over (E, C, d) blocks: B1
+    on CUDA. On a placed model each rank runs it over its experts' blocks
+    (``local_map`` over the expert dim: expert parallelism)."""
+    w_gate = getattr(p, "w_gate", None)
+
+    def ffn(xg, w_gate, w_up, w_down):
+        return ops.moe_expert_ffn(xg, w_gate, w_up, w_down, act=act)
+    return spmd.site(ffn, (0, 0, 0, 0), (0,), xg, w_gate, p.w_up, p.w_down)
+
+
 def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
             expert_fn=None, token_mask=None, routing=None, slot_weights=None,
             slot_ids=None):
@@ -144,68 +214,40 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    dev = x.device
     xf = x.reshape(T, d)
     if routing is None:
         gates, idx, probs = route(p, m, xf)        # (T,k) (T,k) (T,E)
     else:
         (gates, idx), probs = routing, None
     C = capacity(T, m, capacity_factor)
-    E, k = m.n_experts, m.top_k
-
-    flat_e = idx.reshape(T * k)
-    C_drop = C
-    if token_mask is not None:
-        # pad tokens route to sentinel expert E: they sort past every real
-        # segment and never take a capacity slot ahead of a real token
-        real = token_mask.reshape(T).repeat_interleave(k)
-        flat_e = torch.where(real, flat_e, torch.full_like(flat_e, E))
-        # drop exactly as an exact-length prefill would
-        C_drop = _traced_capacity(token_mask.sum(), m, capacity_factor)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]                                 # (T*k,)
-    token_of = order // k
-    seg_start = torch.searchsorted(
-        sorted_e, torch.arange(E, device=dev, dtype=sorted_e.dtype),
-        side="left")
-    e_clip = torch.clamp(sorted_e, max=E - 1)
-    pos_in_e = torch.arange(T * k, device=dev) - seg_start[e_clip]
-    keep = (pos_in_e < C_drop) & (sorted_e < E)
-    slot = e_clip * C + torch.clamp(pos_in_e, max=C - 1)
-
-    # token feeding each of the E*C slots (T = "no token"); over-capacity
-    # entries scatter to the extra row E*C, which is sliced off
-    slot_idx = torch.where(keep, slot, torch.full_like(slot, E * C))
-    slot_token = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
-    slot_token[slot_idx] = token_of
-    slot_token = slot_token[:E * C]
-    x_pad = torch.cat([xf, xf.new_zeros(1, d)], dim=0)
-    xg = x_pad[slot_token].reshape(E, C, d)
+    E = m.n_experts
+    # the routing decisions are integers off the autograd graph: on a
+    # placed model each rank sorts its replicated copy (DTensor has no rule
+    # for argsort or searchsorted)
+    idx = spmd.local(idx)
+    order, slot_idx, slot_token = _slots(m, idx, T, C, token_mask,
+                                         capacity_factor)
+    # gather into (E, C, d) blocks; replicated on a placed model
+    xg = spmd.replicated(_gather, 1, xf, slot_token, E, C)
 
     if expert_fn is not None:
         yg = expert_fn(xg, p)
     elif slot_weights is None:
-        yg = ops.moe_expert_ffn(xg, getattr(p, "w_gate", None), p.w_up,
-                                p.w_down, act=cfg.act)
+        yg = expert_ffn(p, xg, cfg.act)
     else:
         yg = ops.moe_expert_ffn_slots(
             xg, slot_weights, slot_ids, act=cfg.act,
             out_dtype=slot_out_dtype(x.dtype, slot_weights))
-    yg = yg.reshape(E * C, d)
-
-    gate_flat = gates.reshape(T * k)[order]
-    slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=dev)
-    slot_gate[slot_idx] = gate_flat
-    contrib = yg * slot_gate[:E * C, None].to(yg.dtype)
-    acc = _acc_dtype(contrib.dtype)
-    y = torch.zeros(T + 1, d, dtype=acc, device=dev)
-    y.index_add_(0, slot_token, contrib.to(acc))
-    y = y[:T].reshape(B, S, d).to(x.dtype)
+    # combine: on a placed model B1's blocks are gathered from every rank
+    # and each rank runs the scatter and index_add_ (no DTensor rule)
+    y = spmd.replicated(_combine, 1, yg, gates, order, slot_idx,
+                        slot_token, T)
+    y = y.reshape(B, S, d).to(x.dtype)
 
     if m.n_shared_experts:
         y = y + apply_ffn(p.shared, x, cfg.act)
 
-    return y, _aux(m, idx.reshape(B, S * k), probs, token_mask)
+    return y, _aux(m, idx.reshape(B, S * m.top_k), probs, token_mask)
 
 
 def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
@@ -225,6 +267,10 @@ def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
     The reference's ``set_dispatch_constraint`` (a sharding hint that
     keeps the (B, E, C, d) blocks batch-sharded on a device mesh) has no
     counterpart on one device."""
+    if spmd.is_placed(p.w_up):
+        raise NotImplementedError(
+            "grouped dispatch on a placed model: the sharded step takes "
+            "the global dispatch (moe_dispatch='global')")
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.n_experts, m.top_k

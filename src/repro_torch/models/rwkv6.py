@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import spmd
 
 CHUNK = 256
 
@@ -93,23 +94,37 @@ def _rows(t):
     return t.transpose(1, 2).reshape(B * H, L, hd).contiguous()
 
 
+def _recurrence(r, k, v, w, u, state):
+    """The WKV6 recurrence of r, k, v, w (B,S,H,hd) with bonus u (H,hd)
+    from ``state`` (B,H,hd,hd) fp32 or None (zeros) -> (out (B,S,H,hd),
+    final state (B,H,hd,hd)): ``ops.wkv_scan`` over (B*H, S, hd) rows."""
+    B, S, H, hd = r.shape
+    s0 = (torch.zeros((B * H, hd, hd), dtype=torch.float32, device=r.device)
+          if state is None else state.reshape(B * H, hd, hd).contiguous())
+    uu = u.expand(B, H, hd).reshape(B * H, hd).contiguous()
+    out, sN = ops.wkv_scan(_rows(r), _rows(k), _rows(v), _rows(w), uu, s0)
+    return (out.reshape(B, H, S, hd).transpose(1, 2),
+            sN.reshape(B, H, hd, hd))
+
+
 def rwkv_time_mix(p: RWKV, cfg: ArchConfig, x, state=None, x_prev=None):
     """x (B,S,d); state (B,H,hd,hd) fp32 or None (zeros); x_prev (B,d) or
     None. Returns (y (B,S,d), (state, last_x)). As the reference, S above
     ``CHUNK`` must be a multiple of it."""
-    hd = cfg.rwkv.head_dim
     B, S, d = x.shape
-    H = d // hd
     if S > CHUNK and S % CHUNK:
         raise ValueError(f"seq {S} not divisible by rwkv chunk {CHUNK}")
     r, k, v, g, w = _projections(p, cfg, x, _shift(x, x_prev))
-    s0 = (torch.zeros((B * H, hd, hd), dtype=torch.float32, device=x.device)
-          if state is None else state.reshape(B * H, hd, hd).contiguous())
-    u = p.u.expand(B, H, hd).reshape(B * H, hd).contiguous()
-    out, sN = ops.wkv_scan(_rows(r), _rows(k), _rows(v), _rows(w), u, s0)
-    out = out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, d)
+    # B4 over heads: on a placed model each rank runs its heads' rows (of
+    # its batch rows; u's gradient sums over the batch shards)
+    rows, st = (2, 0), (1, 0)
+    out, sN = spmd.site(_recurrence, (rows, rows, rows, rows, 0, st),
+                        (rows, st), r, k, v, w, p.u, state,
+                        grad_specs=(rows, rows, rows, rows, (0, "partial"),
+                                    st))
+    out = out.reshape(B, S, d)
     y = out.to(x.dtype) * F.silu(g)
-    return y @ p.w_o, (sN.reshape(B, H, hd, hd), x[:, -1])
+    return y @ p.w_o, (sN, x[:, -1])
 
 
 def rwkv_channel_mix(p: RWKV, cfg: ArchConfig, x, x_prev=None):

@@ -6,26 +6,40 @@ as its raw 16 bits, and the reserved key ``BF16_KEY`` lists the arrays
 that hold such bits. ``restore`` converts every array to its parameter's
 dtype, as the reference's ``arr.astype(leaf.dtype)`` does: bf16 into bf16
 comes back bit for bit, bf16 into fp32 exactly, fp32 into bf16 rounded to
-nearest."""
+nearest.
+
+A placed model's parameters (DTensors) are saved as full tensors, gathered
+on every rank and written by rank 0, and restored into each rank's
+block."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.launch.spmd import local_block
 
 BF16_KEY = "__bf16__"
 
 
 def save(path: str, model) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    """Write ``model``'s parameters to ``path``. Every rank of a placed
+    model calls it (the full tensors are gathered); rank 0 writes."""
     flat, bf16 = {}, []
     for name, p in model.named_parameters():
+        if isinstance(p, DTensor):
+            p = p.full_tensor()
         t = p.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
             bf16.append(name)
         flat[name] = t.numpy()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, **flat, **{BF16_KEY: np.asarray(bf16, dtype=str)})
 
 
@@ -46,5 +60,9 @@ def restore(path: str, model):
             t = torch.from_numpy(arr)
             if name in bits:
                 t = t.view(torch.bfloat16)
-            p.copy_(t)
+            if isinstance(p, DTensor):
+                p.to_local().copy_(local_block(t, p.placements,
+                                               p.device_mesh))
+            else:
+                p.copy_(t)
     return model

@@ -1,6 +1,8 @@
 """Training loop: train_step (loss = LM + MoE aux, backward, AdamW) + host
 loop. The port of ``repro.train.loop``: eager autograd in place of a jitted
-``value_and_grad``, with the parameters and moments updated in place."""
+``value_and_grad``, with the parameters and moments updated in place. A
+placed model (``launch/sharding.py::place``) takes the same step over its
+DTensors, the batch laid out by ``batch_spec``."""
 from __future__ import annotations
 
 import time
@@ -10,6 +12,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch import sharding, spmd
 from repro_torch.train.optim import (OptConfig, adamw_init, adamw_update,
                                      decay_mask)
 
@@ -23,22 +26,28 @@ class TrainState:
 
 def make_train_step(model, opt_cfg: OptConfig, *, remat: bool = True,
                     capacity_factor: Optional[float] = None) -> Callable:
-    """-> ``train_step(opt_state, batch) -> (loss, gnorm)`` (0-d tensors),
-    which updates ``model``'s parameters and ``opt_state`` in place.
-    Makes every parameter trainable."""
+    """-> ``train_step(opt_state, batch) -> (loss, gnorm)`` (0-d tensors,
+    plain on a placed model too), which updates ``model``'s parameters and
+    ``opt_state`` in place. Makes every parameter trainable."""
     model.trainable()
     params = dict(model.named_parameters())
     decay = decay_mask(model)
+    device_mesh = next((p.device_mesh for p in params.values()
+                        if spmd.is_placed(p)), None)
 
     def train_step(opt_state, batch):
         for p in params.values():
             p.grad = None
-        loss = model.loss(batch, remat=remat, capacity_factor=capacity_factor)
-        loss.backward()
+        if device_mesh is not None:
+            batch = sharding.place_batch(batch, device_mesh)
+        with spmd.step_context(model):
+            loss = model.loss(batch, remat=remat,
+                              capacity_factor=capacity_factor)
+            loss.backward()
         gnorm = adamw_update(opt_cfg, params,
                              {n: p.grad for n, p in params.items()},
                              opt_state, decay)
-        return loss.detach(), gnorm
+        return spmd.local(loss.detach()), gnorm
     return train_step
 
 

@@ -9,6 +9,13 @@ Parameters, gradients and moments are dicts keyed by parameter name
 (``dict(model.named_parameters())``). The update walks each tensor in
 chunks of ``CHUNK`` elements, so its fp32 temporaries stay small next to
 a full-width expert stack.
+
+On a placed model (``launch/sharding.py::place``) the parameters are
+DTensors: each gradient is first laid out as its parameter is, the
+moments are the local blocks' and each rank updates its own blocks. The
+global norm sums each element once: squares over local blocks, summed
+over the mesh dims a parameter is sharded on (an all-reduce on the
+device, no host sync); a replicated parameter counts once.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor
 
 CHUNK = 1 << 26          # elements per in-place pass (256 MB of fp32)
 
@@ -32,9 +41,17 @@ class OptConfig:
     grad_clip: float = 1.0
 
 
+def _local(t):
+    """A DTensor's local block (its storage: updated in place), a plain
+    tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def adamw_init(params):
-    """-> {"mu", "nu": fp32 zeros per parameter, "step": 0}."""
+    """-> {"mu", "nu": fp32 zeros per parameter (per local block of a
+    DTensor), "step": 0}."""
     def zeros(p):
+        p = _local(p)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return {"mu": {n: zeros(p) for n, p in params.items()},
             "nu": {n: zeros(p) for n, p in params.items()},
@@ -51,17 +68,44 @@ def lr_schedule(cfg: OptConfig, step: int) -> float:
 
 
 def _chunks(t):
-    return t.view(-1).split(CHUNK)
+    return t.reshape(-1).split(CHUNK)
 
 
 def global_norm(tensors):
-    """√(Σ x²) over every tensor, in fp32 -> 0-d tensor."""
-    total = None
+    """√(Σ x²) over every tensor, in fp32 -> 0-d tensor. A DTensor (laid
+    out by Shard or Replicate) counts each element once: its local squares
+    are summed over the mesh dims it is sharded on; unplaced tensors, and
+    DTensors sharded on no dim of more than one rank, sum in one running
+    total, in order."""
+    totals, meshes = {}, {}
     for t in tensors:
+        key = ()
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            if any(p.is_partial() for p in t.placements):
+                raise ValueError("global_norm: a partial DTensor; lay it "
+                                 "out as its parameter first")
+            key = tuple(i for i, p in enumerate(t.placements)
+                        if p.is_shard() and mesh.size(i) > 1)
+            meshes[key] = mesh
+            t = t.to_local()
         for c in _chunks(t):
             s = torch.sum(torch.square(c.float()))
-            total = s if total is None else total + s
+            totals[key] = s if key not in totals else totals[key] + s
+    total = None
+    for key, s in totals.items():
+        for dim in key:
+            s = funcol.all_reduce(s, "sum", (meshes[key], dim))
+        total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def laid_out_as(g, p):
+    """Gradient ``g`` in parameter ``p``'s placements (a DTensor gradient
+    comes in whatever layout the backward left it)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def decay_mask(model):
@@ -88,14 +132,16 @@ def adamw_update(cfg: OptConfig, params, grads, state, decay):
     gradient norm before clipping (0-d fp32 tensor)."""
     state["step"] += 1
     step = state["step"]
-    present = [g for g in grads.values() if g is not None]
-    gnorm = global_norm(present)
+    grads = {n: laid_out_as(g, params[n]) for n, g in grads.items()
+             if g is not None}
+    gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - cfg.b1 ** step
     bc2 = 1 - cfg.b2 ** step
     lr = lr_schedule(cfg, step)
     for name, p in params.items():
-        g = grads.get(name)
+        p, g = _local(p), grads.get(name)
+        g = None if g is None else _local(g)
         wd = cfg.weight_decay if decay[name] else 0.0
         mu, nu = state["mu"][name], state["nu"][name]
         gcs = _chunks(g) if g is not None else [None] * len(_chunks(p))

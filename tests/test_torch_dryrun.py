@@ -355,7 +355,8 @@ def test_main_writes_ok_and_skipped_records(tmp_path):
 def test_train_record_counts_the_step_against_model_flops(tmp_path):
     """qwen2-1.5b train_4k without the optimizer: the traced dot FLOPs
     exceed ``model_flops_for`` (the remat recomputes the forward) by less
-    than the forward itself, and the roofline names a dominant term."""
+    than the forward itself, and the roofline names a dominant term; the
+    placed step's collectives give it a collective term over NVLink."""
     assert _main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
                   "--no-optimizer", "--out", str(tmp_path)]) == 0
     rec = roofline.load_records(str(tmp_path))[0]
@@ -363,4 +364,11 @@ def test_train_record_counts_the_step_against_model_flops(tmp_path):
     mf = roofline.model_flops_for(cfg, INPUT_SHAPES["train_4k"], "train")
     r = roofline.analyze(rec, mf)
     assert 1.0 < r.flops / mf < 4 / 3 + 0.05
-    assert r.dominant in ("compute", "memory") and r.compute_s > 0
+    assert r.dominant in ("compute", "memory", "collective")
+    assert r.compute_s > 0
+    coll = sum(v["bytes"] for v in rec["collectives"].values())
+    assert set(rec["collectives"]) == {"all-gather", "all-reduce",
+                                       "reduce-scatter", "all-to-all",
+                                       "collective-permute"}
+    assert coll > 0 and r.collective_bytes_per_dev == coll
+    assert r.collective_s == coll / roofline.LINK_BW

@@ -415,9 +415,19 @@ def test_launcher_matches_reference(tmp_path):
     with np.load(path) as ck:
         assert set(ck.files) == {n for n, _ in model.named_parameters()} \
             | {BF16_KEY}
-    with pytest.raises(NotImplementedError, match="sharding"):
-        torch_train_launch.main(["--reduced", "--device", "cpu", "--mesh",
-                                 "debug"])
+    # --mesh debug without a launcher: a one-rank gloo group in this
+    # process, a (1, 1) mesh, the unsharded lines to every digit
+    placed = from_reference(Model(cfg, device="cpu"),
+                            jax.tree.map(np.asarray, params))
+    args = torch_train_launch.parse_args(["--reduced", "--steps", "3",
+                                          "--device", "cpu", "--mesh",
+                                          "debug"])
+    mesh_out = {}
+    assert _lines(lambda: mesh_out.update(
+        torch_train_launch.train(args, cfg, placed))) == lines
+    assert mesh_out["losses"] == out["losses"]
+    for (n, p), q in zip(model.named_parameters(), placed.parameters()):
+        assert torch.equal(p.detach(), q.to_local().detach()), n
     assert torch_train_launch.config(torch_train_launch.parse_args(
         ["--layers", "1"])).n_layers == 1
 
