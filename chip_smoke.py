@@ -1117,10 +1117,10 @@ def _full_cfg(what, arch=QWEN3, depth=None):
             f"{mla.kv_lora_rank} qk {mla.qk_nope_head_dim} + "
             f"{mla.qk_rope_head_dim} v {mla.v_head_dim}")
     extra = ""
-    if m.n_shared_experts:
+    if m is not None and m.n_shared_experts:
         extra += (f" + {m.n_shared_experts} shared x "
                   f"{m.d_shared or m.d_expert}")
-    if m.first_dense_layers:
+    if m is not None and m.first_dense_layers:
         extra += (f", first {m.first_dense_layers} layer(s) dense d_ff "
                   f"{cfg.d_ff}")
     if cfg.mamba is not None:
@@ -1130,9 +1130,10 @@ def _full_cfg(what, arch=QWEN3, depth=None):
                   f"{mb.dt_rank or -(-cfg.d_model // 16)}), attention every "
                   f"{cfg.attn_layer_period} at offset {cfg.attn_layer_offset}"
                   f", MoE every {m.moe_layer_period}, dense d_ff {cfg.d_ff}")
+    experts = (f"no MoE, d_ff {cfg.d_ff}" if m is None else
+               f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert}")
     print(f"{what}, {cfg.name} at full width (d_model {cfg.d_model}, {attn}, "
-          f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert}"
-          f"{extra}, vocab {cfg.vocab}"
+          f"{experts}{extra}, vocab {cfg.vocab}"
           f"{'' if cfg.tie_embeddings else ' (head not tied)'}, "
           f"{cfg.dtype}); depth cut {full.n_layers} -> {cfg.n_layers} layers"
           f": {_layer_kinds(cfg)}")
@@ -3414,6 +3415,226 @@ def mesh_train_path(card, leg, arch, depth, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: B3's log-sum-exp output and merge (17a); the serving steps on a
+# placed model and cache over a (1, 1) NCCL mesh (17)
+# ---------------------------------------------------------------------------
+
+# |delta lse| <= atol + rtol |lse|: the kernel's and the plain version's
+# fp32 sums of the same scores, in other orders
+LSE_TOL = (1e-3, 1e-4)
+# (what, B, H, Hkv, hd, S, lengths, softcap): phase 3b's served and long
+# shapes, Gemma-2's softcapped ring, Whisper's cross-attention, and rows
+# with no valid position (out 0, lse -inf in the lse mode)
+B3_LSE_SHAPES = [
+    ("S 64", 4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
+    ("S 32768", *LONG_CACHE, [32768, 16384, 8192, 1], 0.0),
+    ("gemma2 ring ragged", 4, 8, 4, 256, 4096, [4096, 1, 2500, 17], 50.0),
+    ("whisper cross", 4, 12, 12, 64, 1500, [1500] * 4, 0.0),
+    ("no valid position", 3, 16, 2, 128, 1000, [0, 513, 0], 0.0),
+]
+LSE_BLOCKS = (2, 4, 16)
+MERGE_LENS = [32768, 20000, 5000, 100]  # many empty blocks at 16
+
+
+def check_flash_decode_lse(gen, card):
+    """Phase 17a: B3 with ``return_lse`` against ``flash_decode_ref`` at
+    ``B3_LSE_SHAPES`` in bf16 and fp32 (out within ``TOL``, lse within
+    ``LSE_TOL``, -inf exactly where a row has no valid position, out 0
+    there), and its output bit-equal to the launch without lse wherever
+    every row has a position; then the log-sum-exp merge
+    (``spmd.merge_blocks``) of B3 over phase 3b's 32768-position cache cut
+    into 2, 4 and 16 blocks against the unsplit kernel, with each block
+    launch's ms. -> keys of B3's row."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import spmd
+
+    print("phase 17a: flash_decode's lse output vs plain; the log-sum-exp "
+          "merge of B3 over blocks of a cache vs the unsplit kernel")
+    worst_o = worst_l = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, B, H, Hkv, hd, S, lens, cap in B3_LSE_SHAPES:
+            q = (torch.randn((B, H, hd), generator=gen, device="cuda")
+                 * (8.0 if cap else 1.0)).to(dtype)
+            k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
+                                device="cuda").to(dtype) for _ in "kv")
+            cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out, lse = flash_decode(q, k, v, cl, cap, return_lse=True)
+            want, want_lse = ref.flash_decode_ref(q, k, v, cl, cap,
+                                                  return_lse=True)
+            torch.cuda.synchronize()
+            err = compare(f"B3 lse out {what} {dtype}", out, want)
+            empty = want_lse == -torch.inf
+            if not torch.equal(lse == -torch.inf, empty) or bool(
+                    out[empty.any(-1)].ne(0).any()):
+                raise SystemExit(f"B3 lse {what} {dtype}: a row with no "
+                                 "valid position is not out 0, lse -inf")
+            dl = (lse - want_lse)[~empty].abs()
+            lerr = float(dl.max()) if dl.numel() else 0.0
+            if bool((dl > LSE_TOL[0] + LSE_TOL[1]
+                     * want_lse[~empty].abs()).any()):
+                raise SystemExit(f"B3 lse {what} {dtype}: |delta lse| "
+                                 f"{lerr:g} over {LSE_TOL}")
+            same = "-"
+            if min(lens) >= 1:
+                same = torch.equal(flash_decode(q, k, v, cl, cap), out)
+                if not same:
+                    raise SystemExit(f"B3 {what} {dtype}: the lse launch's "
+                                     "output differs from the plain launch's")
+            print(f"  {what} {dtype}: max |delta out| {err:.3e}, max |delta "
+                  f"lse| {lerr:.3e}; output bit-equal to the launch without "
+                  f"lse: {same}")
+            worst_o, worst_l = max(worst_o, err), max(worst_l, lerr)
+            del q, k, v, out, want
+    B, H, Hkv, hd, S = LONG_CACHE
+    dtype = torch.bfloat16
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in "kv")
+    cl = torch.tensor(MERGE_LENS, dtype=torch.int32, device="cuda")
+    whole = flash_decode(q, k, v, cl)
+    whole_ms = time_ms(lambda: flash_decode(q, k, v, cl), 100)
+    merges = {}
+    for n in LSE_BLOCKS:
+        L = S // n
+        blocks = [(k[:, i * L:(i + 1) * L].contiguous(),
+                   v[:, i * L:(i + 1) * L].contiguous(),
+                   torch.clamp(cl - i * L, 0, L).to(torch.int32))
+                  for i in range(n)]
+        parts = [flash_decode(q, kb, vb, lb, return_lse=True)
+                 for kb, vb, lb in blocks]
+        merged = spmd.merge_blocks(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]))
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(merged).all()):
+            raise SystemExit(f"B3 merge of {n} blocks is not finite")
+        err = compare(f"B3 merge of {n} blocks of {L} vs the unsplit kernel",
+                      merged.to(dtype), whole)
+        ms = [time_ms(lambda b=b: flash_decode(q, *b, return_lse=True), 50)
+              for b in blocks]
+        merge_ms = time_ms(lambda: spmd.merge_blocks(
+            torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts])), 20, ahead=False)
+        print(f"  merge of {n} blocks of {L} positions (B={B} H={H} Hkv="
+              f"{Hkv} hd={hd}, lens {MERGE_LENS}, bf16): max |delta| "
+              f"{err:.3e} vs the unsplit kernel ({whole_ms:.4f} ms); each "
+              f"block launch with lse ms "
+              f"{', '.join(f'{t:.4f}' for t in ms)}; the plain merge "
+              f"{merge_ms:.4f} ms [{card}]")
+        merges[n] = dict(max_abs_err=err, block_ms=ms, merge_ms=merge_ms)
+        del blocks, parts, merged
+    del q, k, v, whole
+    torch.cuda.empty_cache()
+    return dict(lse_max_abs_err_out=worst_o, lse_max_abs_err=worst_l,
+                lse_merge=dict(shape=f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} "
+                                     f"lens={MERGE_LENS} bf16",
+                               unsplit_ms=whole_ms, blocks=merges))
+
+
+# (leg, arch, depth, the kernels its serving steps launch): phase 4's
+# qwen3-moe cut, rwkv6-7b at 4 layers, and phase 8's Jamba cut (its
+# smallest with attention and MoE)
+SERVE_MESH_LEGS = (("qwen3", QWEN3, 4, ("moe_ffn", "flash_decode")),
+                   ("rwkv", RWKV6, 4, ("wkv6",)),
+                   ("jamba", JAMBA, 5, ("moe_ffn", "flash_decode",
+                                        "selective_scan")))
+SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 4, 32, 8
+
+
+def placed_serve_path(card, leg, arch, depth, kernels):
+    """Phase 17: ``Model.prefill`` of phase 4's request mix (B = 4 prompts
+    of 32 tokens) and 8 greedy ``Model.serve_step``s at every published
+    width, depth cut to ``depth``: first on the model as built, then on
+    the same weights placed (``sharding.place``) over a (1, 1) ("data",
+    "model") mesh of one NCCL rank, the cache placed by
+    ``sharding.place_cache`` (every kernel through its site). The tokens
+    must be equal, the logits bit-equal and the kernels' launches the
+    same; each run's decode-step ms and the collectives of one more
+    placed step are printed. -> (the placed run's launch counts, a dict
+    for the kernels' rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import sharding, spmd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+
+    cfg = _full_cfg(f"phase 17 {leg}: prefill + {SERVE_MESH_STEPS} decode "
+                    "steps, unplaced | placed on a (1, 1) NCCL mesh", arch,
+                    depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda").init(0)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, S = SERVE_MESH_B, SERVE_MESH_PROMPT
+    prompts = torch.randint(0, min(cfg.vocab, DATA_VOCAB), (B, S),
+                            generator=g, device="cuda")
+    T = S + SERVE_MESH_STEPS
+
+    def run(cache):
+        _reset_counts()
+        logits, toks, ms = [], [], []
+        with torch.no_grad(), spmd.step_context(model):
+            lg, cache, _ = model.prefill({"tokens": prompts}, cache)
+            logits.append(lg)
+            for _ in range(SERVE_MESH_STEPS):
+                tok = lg.argmax(-1)
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache, _ = model.serve_step(cache, tok)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg)
+        return dict(logits=logits, tokens=torch.stack(toks, 1).tolist(),
+                    ms=ms, counts=_counts(), cache=cache)
+
+    plain = run(model.init_cache(B, T))
+    del plain["cache"]
+    spmd.start("cuda")
+    mesh = Mesh(("data", "model"), (1, 1))
+    dm = spmd.device_mesh(mesh, "cuda")
+    sharding.place(model, dm, mesh)
+    placed = run(sharding.place_cache(model.init_cache(B, T), dm, mesh, cfg,
+                                      shard_seq=False))
+    counter = spmd.CollectiveCounter()
+    with torch.no_grad(), counter, spmd.step_context(model):
+        model.serve_step(placed["cache"], placed["logits"][-1].argmax(-1))
+    torch.cuda.synchronize()
+    spmd.stop()
+    delta = max(float((a - b).abs().max())
+                for a, b in zip(plain["logits"], placed["logits"]))
+    finite = all(bool(torch.isfinite(t).all()) for t in placed["logits"])
+    med = {k: float(np.median(r["ms"][1:]))
+           for k, r in (("unplaced", plain), ("placed", placed))}
+    print(f"  tokens (4 rows x {SERVE_MESH_STEPS}): unplaced "
+          f"{plain['tokens']} | placed {placed['tokens']}")
+    print(f"  max |delta logits| over prefill + {SERVE_MESH_STEPS} steps "
+          f"{delta:g} (finite: {finite}); launches "
+          f"{({k: v for k, v in plain['counts'].items() if v})} | "
+          f"{({k: v for k, v in placed['counts'].items() if v})}; decode-"
+          f"step ms (median of steps 2-{SERVE_MESH_STEPS}) "
+          f"{med['unplaced']:.3f} | {med['placed']:.3f}, first step "
+          f"{plain['ms'][0]:.1f} | {placed['ms'][0]:.1f} [{card}]; one more "
+          f"placed step's collectives {counter.record()}")
+    bad = []
+    if plain["tokens"] != placed["tokens"] or delta != 0 or not finite:
+        bad.append("tokens or logits differ (or are not finite)")
+    if plain["counts"] != placed["counts"] or not all(
+            placed["counts"][k] > 0 for k in kernels):
+        bad.append(f"launches differ or miss one of {kernels}")
+    counts = placed["counts"]
+    del model, plain, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"phase 17 {leg}: " + "; ".join(bad))
+    return counts, dict(decode_step_ms=med, max_abs_delta=delta,
+                        collectives=counter.record())
+
+
+# ---------------------------------------------------------------------------
 # the launch-time variants: grouped MoE dispatch in training (11), blocked
 # attention at prefill (11b), and the dry run (11c)
 # ---------------------------------------------------------------------------
@@ -3775,36 +3996,58 @@ def dryrun_sweep():
     """Phase 11c: ``python -m repro_torch.launch.dryrun --all`` in a
     subprocess on this machine (meta tensors: no card): the seconds it
     takes, the records by status (an error record fails the phase), the
-    roofline of qwen3-moe's decode_32k and train_4k records, and every
-    train record's collectives (one without fails the phase)."""
+    roofline of qwen3-moe's decode_32k and train_4k records, every train
+    record's collectives (one without fails the phase), and the serving
+    records' (qwen3-moe's decode_32k on 16 x 16 and every long_500k
+    record, each with its roofline's collective term and whether its K/V
+    cache is all-gathered at B3's site; an ok serving record without
+    collectives is listed with the op that refused, and fails the
+    phase)."""
     import collections
     import tempfile
     from repro_torch.config import INPUT_SHAPES
     from repro_torch.configs import get_config
     from repro_torch.launch import roofline
 
-    print("phase 11c: the dry run, --all over meta tensors, in a subprocess;"
-          " then the debug meshes' train records")
+    print("phase 11c: the dry run, --all over meta tensors, and the debug "
+          "meshes' train records, in two subprocesses at once")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     recs = []
-    for flags in (["--all"], ["--debug-mesh", "--both-meshes", "--shape",
-                              "train_4k"]):
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            res = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
-                 "--out", tmp], env=env, capture_output=True,
-                text=True, timeout=900)
-            secs = time.perf_counter() - t0
-            got = roofline.load_records(tmp)
-        status = collections.Counter(r["status"] for r in got)
-        print(f"  {' '.join(flags)}: {len(got)} "
-              f"records in {secs:.1f} s: {dict(status)}; exit code "
-              f"{res.returncode}")
-        if res.returncode or status["error"] or not status["ok"]:
-            print(res.stdout[-3000:], res.stderr[-3000:], sep="\n")
-            raise SystemExit("phase 11c: the dry run wrote error records")
-        recs += got
+    # the two sweeps at once (each traces in up to dryrun.JOBS processes;
+    # the host's cores are otherwise idle here)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = []
+        for i, flags in enumerate((["--all"], ["--debug-mesh",
+                                               "--both-meshes", "--shape",
+                                               "train_4k"])):
+            out = os.path.join(tmp, str(i))
+            with open(out + ".log", "w") as log:     # a file: no pipe fills
+                runs.append((flags, out, time.perf_counter(),
+                             subprocess.Popen(
+                                 [sys.executable, "-m",
+                                  "repro_torch.launch.dryrun", *flags,
+                                  "--out", out], env=env, stdout=log,
+                                 stderr=subprocess.STDOUT)))
+        try:
+            for flags, out, t0, proc in runs:
+                proc.wait(timeout=900)
+                secs = time.perf_counter() - t0
+                got = roofline.load_records(out)
+                status = collections.Counter(r["status"] for r in got)
+                print(f"  {' '.join(flags)}: {len(got)} "
+                      f"records in {secs:.1f} s: {dict(status)}; exit code "
+                      f"{proc.returncode}")
+                if proc.returncode or status["error"] or not status["ok"]:
+                    with open(out + ".log") as log:
+                        print(log.read()[-6000:])
+                    raise SystemExit("phase 11c: the dry run wrote error "
+                                     "records")
+                recs += got
+        finally:                    # stop a sweep left running by a fault
+            for *_, proc in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     for shape in ("decode_32k", "train_4k"):
         rec = next(r for r in recs if r["arch"] == QWEN3
                    and r["shape"] == shape and r["mesh"] == "16x16")
@@ -3821,6 +4064,39 @@ def dryrun_sweep():
               f"traced {r.useful_ratio:.3f}; argument bytes per device "
               f"{rec['argument_bytes_per_device']:.4e}; traced in "
               f"{rec['t_trace_s']} s")
+    serving = [r for r in recs if r["status"] == "ok"
+               and r["kind"] != "train"]
+    unplaced = [r for r in serving if r["collectives"] is None]
+    gathered = [r for r in serving if r.get("collectives_note")]
+    print(f"  serving records: {len(serving)} ok, "
+          f"{len(serving) - len(unplaced)} with collectives (their placed "
+          f"traces {sum(r['t_place_s'] or 0 for r in serving):.1f} s of "
+          f"the sweep's processes' time), {len(gathered)} of them decode "
+          f"records whose K/V cache is all-gathered at B3's site "
+          f"(collectives_note); without: "
+          + ("none" if not unplaced else "; ".join(
+              f"{r['arch']} {r['shape']} {r['mesh']}: "
+              f"{r['collectives_reason'][:120]}" for r in unplaced)))
+    if unplaced:
+        raise SystemExit(f"phase 11c: {len(unplaced)} ok serving records "
+                         "have no collectives")
+    for rec in serving:
+        if not (rec["shape"] == "long_500k" or (
+                rec["arch"] == QWEN3 and rec["shape"] == "decode_32k"
+                and rec["mesh"] == "16x16")):
+            continue
+        sh_ = INPUT_SHAPES[rec["shape"]]
+        r = roofline.analyze(rec, roofline.model_flops_for(
+            get_config(rec["arch"]), sh_, sh_.kind))
+        print(f"  collectives {rec['arch']} {rec['shape']} {rec['mesh']} "
+              f"(per device; placed trace {rec['t_place_s']} s): "
+              + ", ".join(f"{k} {v['count']} x {v['bytes']:.4e} B"
+                          for k, v in rec["collectives"].items()
+                          if v["count"])
+              + f"; collective term {r.collective_s:.4e} s over NVLink's "
+              f"datasheet rate, dominant {r.dominant}"
+              + ("; K/V all-gathered at B3's site (collectives_note)"
+                 if rec.get("collectives_note") else ""))
     for rec in recs:
         if rec["status"] == "ok" and rec["kind"] == "train":
             if rec["collectives"] is None:
@@ -4490,12 +4766,21 @@ def main() -> int:
     for leg, arch, depth, kernels in MESH_LEGS:
         paths[f"train_mesh_{leg}"], mesh_rows[leg] = timed(
             f"16 {leg}", mesh_train_path, card, leg, arch, depth, kernels)
+    rows[2].update(timed("17a", check_flash_decode_lse, gen, card))
+    serve_rows = {}
+    for leg, arch, depth, kernels in SERVE_MESH_LEGS:
+        paths[f"serve_mesh_{leg}"], serve_rows[leg] = timed(
+            f"17 {leg}", placed_serve_path, card, leg, arch, depth, kernels)
     print(f"phase seconds (wall, each phase's own): {seconds}; total "
           f"{time.perf_counter() - t0:.1f} s since the build began")
     rows[5]["train_rwkv"], rows[6]["train_jamba"] = (recurrent["rwkv"],
                                                      recurrent["jamba"])
     rows[0]["mesh_qwen3"], rows[3]["mesh_rwkv"], rows[4]["mesh_jamba"] = (
         mesh_rows["qwen3"], mesh_rows["rwkv"], mesh_rows["jamba"])
+    for leg, _, _, names in SERVE_MESH_LEGS:
+        for row in rows:
+            if row["name"] in names:
+                row[f"serve_mesh_{leg}"] = serve_rows[leg]
     jamba = ("flash_decode", "moe_ffn", "selective_scan")
     for path, names in (("all_resident", ("flash_decode", "moe_ffn")),
                         ("streaming", ("flash_decode", "moe_ffn_quant")),
@@ -4514,6 +4799,8 @@ def main() -> int:
                                          "selective_scan_bwd")),
                         *((f"train_mesh_{leg}", names)
                           for leg, _, _, names in MESH_LEGS),
+                        *((f"serve_mesh_{leg}", names)
+                          for leg, _, _, names in SERVE_MESH_LEGS),
                         ("ep_streaming_d2", ("flash_decode",
                                              "moe_ffn_quant")),
                         ("ep_streaming_d4", ("flash_decode",

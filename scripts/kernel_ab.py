@@ -4,6 +4,7 @@ kernels of two trees of this repo on one GPU, in turns: the other tree,
 this one, this one, the other.
 
     python3 scripts/kernel_ab.py --parent DIR [--paths] [--train]
+    python3 scripts/kernel_ab.py --parent DIR --steps
     python3 scripts/kernel_ab.py --lanes
     python3 scripts/kernel_ab.py --b3-q
 
@@ -50,6 +51,12 @@ forward is the same) and its gradient norm within 1e-3 relative. Kernel times ar
 the host's enqueue ahead of the card). Prints each run's JSON line (``AB
 {...}``) and a table; needs one CUDA GPU.
 
+``--steps`` times, instead of the kernels, each tree's unplaced serving
+steps (``Model.prefill`` and ``Model.serve_step``) at ``chip_smoke.py``
+phase 17's legs: the decode step's wall and host enqueue ms, its
+top-level aten ops and device kernels, and the greedy tokens, which must
+be equal in every run (``serve_steps``).
+
 ``--lanes`` times this tree's B5 alone at the same shapes for each lane
 group size G (lanes a channel's states are split over) and ring-stage
 depth (steps a stage holds), each built as its own library from the same
@@ -68,7 +75,9 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
+import time
 import sys
 from pathlib import Path
 
@@ -91,9 +100,11 @@ def _module(path: Path, name: str):
     return mod
 
 
-def measure(tree: Path, paths: bool, train: bool = False) -> dict:
+def measure(tree: Path, paths: bool, train: bool = False,
+            steps: bool = False) -> dict:
     """One run: B2, B1, B4, B5, B3 and the backward kernels of ``tree`` on
-    this process's card."""
+    this process's card; with ``steps``, only its unplaced serving steps
+    (``serve_steps``)."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import repro_torch
@@ -107,6 +118,8 @@ def measure(tree: Path, paths: bool, train: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: CUDA is not available")
     cs = _module(ROOT / "chip_smoke.py", "chip_smoke_here")
+    if steps:
+        return {"tree": str(tree), "steps": serve_steps(cs)}
     build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan",
                  "flash_decode", "wkv6_bwd", "selective_scan_bwd"])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -179,6 +192,75 @@ def measure(tree: Path, paths: bool, train: bool = False) -> dict:
         own.streaming_path(card)
         own.rwkv_path(card)
     return out
+
+
+STEP_AB_STEPS = 24     # greedy decode steps a leg; the first is not timed
+
+
+def serve_steps(cs) -> dict:
+    """The unplaced ``Model.prefill`` / ``Model.serve_step`` of the tree on
+    the path, at ``chip_smoke.py`` phase 17's legs (full-width qwen3-moe 4
+    layers, rwkv6-7b 4, Jamba 5; B = 4 prompts of 32, seed-0 weights), each
+    with ``STEP_AB_STEPS`` greedy steps: the decode step's synchronised
+    wall ms and its host enqueue ms (``perf_counter`` around the call, no
+    sync inside), medians of steps 2 on, and one more step under
+    ``torch.profiler`` (``chip_smoke.profile_step``: top-level aten ops,
+    device kernels and copies, busy ms). -> {leg: {...}, with the greedy
+    tokens}."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    out = {}
+    for leg, arch, depth, _ in cs.SERVE_MESH_LEGS:
+        cfg = cs._full_cfg(f"kernel_ab --steps {leg}: unplaced prefill + "
+                           f"{STEP_AB_STEPS} decode steps", arch, depth)
+        model = Model(cfg, device="cuda").init(0)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        B, S = cs.SERVE_MESH_B, cs.SERVE_MESH_PROMPT
+        prompts = torch.randint(0, min(cfg.vocab, DATA_VOCAB), (B, S),
+                                generator=g, device="cuda")
+        cache = model.init_cache(B, S + STEP_AB_STEPS + 1)
+        wall, enqueue, toks = [], [], []
+        with torch.no_grad():
+            lg, cache, _ = model.prefill({"tokens": prompts}, cache)
+            for _ in range(STEP_AB_STEPS):
+                tok = lg.argmax(-1)
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache, _ = model.serve_step(cache, tok)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                enqueue.append((t1 - t0) * 1e3)
+            busy, kernels, ops, _, _ = cs.profile_step(
+                lambda: model.serve_step(cache, lg.argmax(-1)))
+        out[leg] = {"step_ms": float(np.median(wall[1:])),
+                    "enqueue_ms": float(np.median(enqueue[1:])),
+                    "aten_ops": ops, "kernels": kernels, "busy_ms": busy,
+                    "tokens": torch.stack(toks, 1).tolist()}
+        del model, cache, lg
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_steps(runs) -> None:
+    """The serving steps' table, runs side by side; every run's greedy
+    tokens must be equal."""
+    print("unplaced decode step, runs in order: step ms (synchronised "
+          "wall) | host enqueue ms | top-level aten ops | device kernels "
+          "and copies | busy ms")
+    for leg in runs[0][1]["steps"]:
+        rs = [run["steps"][leg] for _, run in runs]
+        for key in ("step_ms", "enqueue_ms", "aten_ops", "kernels",
+                    "busy_ms"):
+            print(f"{leg} {key} | " + " | ".join(
+                f"{r[key]:.3f}" if isinstance(r[key], float)
+                else str(r[key]) for r in rs))
+        if any(r["tokens"] != rs[0]["tokens"] for r in rs):
+            raise SystemExit(f"{leg}: the runs' greedy tokens differ")
+    print("greedy tokens equal in every run")
 
 
 # B3's phase-3b shapes: (what, B, H, Hkv, hd, S, per-row lengths, softcap)
@@ -433,10 +515,12 @@ def b3_q(card: str) -> None:
     for v, log in logs.items():
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Li256E" in line and "flash_decode_kernelI13__nv_bfloat16" \
-                    in line:
+            # the bf16 hd 256 kernels' <kCap, kLse> flags, serving (no lse)
+            flags = re.search(r"flash_decode_kernelI13__nv_bfloat16Li256E"
+                              r"Lb(\d)ELb0E", line)
+            if flags:
                 print(f"FLASH_Q_SMEM_HD={v} bf16 hd 256 "
-                      f"{'capped' if 'Lb1E' in line else 'uncapped'}: "
+                      f"{'capped' if flags[1] == '1' else 'uncapped'}: "
                       + "; ".join(x.strip() for x in lines[i + 1:i + 3]))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"B3 ms per launch, bf16, by FLASH_Q_SMEM_HD (q in shared memory "
@@ -461,7 +545,7 @@ def b3_q(card: str) -> None:
                 build.check("flash_decode", fn(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
                     out.data_ptr(), part.data_ptr() if n_split > 1 else None,
-                    B, S, Hkv, H // Hkv, hd, n_split, split_len,
+                    None, B, S, Hkv, H // Hkv, hd, n_split, split_len,
                     hd ** -0.5, cap, build.DTYPES[torch.bfloat16],
                     torch.cuda.current_stream().cuda_stream))
                 return out
@@ -490,11 +574,15 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true",
                     help="also train each tree's phase-14 legs and compare "
                          "their losses and gradient norms")
+    ap.add_argument("--steps", action="store_true",
+                    help="time only each tree's unplaced serving steps at "
+                         "chip_smoke.py phase 17's legs")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.measure:
         print("AB " + json.dumps(measure(args.measure, args.paths,
-                                         args.train)), flush=True)
+                                         args.train, args.steps)),
+              flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
@@ -513,7 +601,8 @@ def main(argv=None) -> int:
                         ("change", ROOT), ("parent", args.parent)):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--measure",
                str(tree.resolve())] + (["--paths"] if args.paths else []) \
-            + (["--train"] if args.train else [])
+            + (["--train"] if args.train else []) \
+            + (["--steps"] if args.steps else [])
         print(f"== {label}: {tree}", flush=True)
         proc = subprocess.run(cmd, capture_output=True, text=True)
         print(proc.stdout + proc.stderr[-4000:], flush=True)
@@ -521,6 +610,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"{label} run failed ({proc.returncode})")
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         runs.append((label, json.loads(line[-1][3:])))
+    if args.steps:
+        print(f"[{card.splitlines()[0]}]")
+        compare_steps(runs)
+        return 0
     print(f"ms per launch, runs in order [{card.splitlines()[0]}]")
     keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3", "b4_bwd",
                                    "b5_bwd")

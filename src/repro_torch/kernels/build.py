@@ -46,10 +46,10 @@ _SIGNATURES = {
     # xg, w_gate, w_up, w_down, s_gate, s_up, s_down, slot_ids, flags, h,
     # y, E, C, d, f, act, x_dtype, w_dtype, out_dtype, stream
     "moe_ffn_quant": ("moe_ffn_quant_launch", [_P] * 11 + [_I] * 8 + [_P]),
-    # q, k, v, lens, out, part, B, S, Hkv, rep, hd, splits, split_len,
-    # scale, softcap, dtype, stream
+    # q, k, v, lens, out, part, lse (or None), B, S, Hkv, rep, hd, splits,
+    # split_len, scale, softcap, dtype, stream
     "flash_decode": ("flash_decode_launch",
-                     [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P]),
+                     [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]),
     # r, k, v, w, u, s0, o, sN, ck (or None), BH, T, hd, rows, cols, dtype,
     # w_dtype, stream
     "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 7 + [_P]),

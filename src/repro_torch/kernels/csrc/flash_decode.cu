@@ -48,6 +48,14 @@
 //    lengths live on the device); splits past a row's prefix exit at once.
 //    Each split writes fp32 (m, l, acc) partials and a second small kernel
 //    combines them. One split runs straight to the output.
+//  - Optionally (a non-null `lse`) each row's fp32 log-sum-exp of its
+//    scaled, softcapped scores, m + log(l), from the state the output is
+//    normalised by: the one-split merge and the combine both hold it. A
+//    caller that splits a cache across devices (context-parallel decode)
+//    merges the blocks' outputs by it. In that mode a row with no valid
+//    position has no positions at all (lse = -inf, out = 0), not the
+//    uniform softmax above. It is a template flag, as the softcap is:
+//    without `lse` each instantiation is the kernel it was before.
 #include "sm90.cuh"
 
 #include <math.h>
@@ -70,6 +78,7 @@ struct Args {
   const int* lens;      // (B,)
   void* out;            // (B, H, hd)
   float* part;          // (B, H, splits, hd + 2): acc, m, l; null if splits == 1
+  float* lse;           // (B, H) log-sum-exp of each row's scores, or null
   int S, Hkv, rep, splits, split_len;
   float scale;
   float cap;            // logit softcap (> 0 only in the kCap instantiations)
@@ -338,7 +347,7 @@ struct WarpF32 {
   }
 };
 
-template <typename T, int HD, bool kCap>
+template <typename T, int HD, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -352,12 +361,17 @@ flash_decode_kernel(const Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int len = a.lens[b];
   // positions that can contribute: the valid prefix; with no valid position
-  // every score is masked and (as in the reference) the softmax is uniform
-  const int n = len >= 1 ? min(len, a.S) : a.S;
+  // every score is masked and (as in the reference) the softmax is uniform,
+  // unless the caller asks for the log-sum-exp: then there is none
+  const int n = len >= 1 ? min(len, a.S) : (kLse ? 0 : a.S);
   const int p_begin = sp * a.split_len;
   const int p_end = min(n, p_begin + a.split_len);
   if (p_begin >= p_end) {              // a split past this row's prefix
-    if (threadIdx.x < rows) {
+    if (kLse && a.splits == 1) {       // lse mode, no valid position: out 0
+      for (int i = threadIdx.x; i < rows * HD; i += kThreads)
+        static_cast<T*>(a.out)[((size_t)b * H + h0) * HD + i] = from_f32<T>(0.f);
+      if (threadIdx.x < rows) a.lse[(size_t)b * H + h0 + threadIdx.x] = -INFINITY;
+    } else if (threadIdx.x < rows) {
       float* pr = a.part + (((size_t)b * H + h0 + threadIdx.x) * a.splits + sp) * (HD + 2);
       pr[HD] = -INFINITY;
       pr[HD + 1] = 0.f;
@@ -463,6 +477,7 @@ flash_decode_kernel(const Args a) {
     const size_t row = (size_t)b * H + h0 + r;
     if (a.splits == 1) {
       static_cast<T*>(a.out)[row * HD + c] = from_f32<T>(O / L);
+      if (kLse && c == 0) a.lse[row] = M + logf(L);
     } else {
       float* pr = a.part + (row * a.splits + sp) * (HD + 2);
       pr[c] = O;
@@ -477,7 +492,9 @@ flash_decode_kernel(const Args a) {
 // out[row] = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M) over the splits
 // of each (b, h) row; one block of HD threads per row. The split weights
 // are found by all threads at once (reductions over the splits), then each
-// thread sums its column over the splits with independent loads.
+// thread sums its column over the splits with independent loads. With
+// `lse`, also lse[row] = M + log(L), and a row whose every split is empty
+// (possible only then) gets out 0 and lse -inf.
 template <int N>
 __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
   for (int o = 16; o > 0; o >>= 1) {
@@ -493,16 +510,22 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
   return v;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(HD)
-combine_kernel(const float* __restrict__ part, T* __restrict__ out, int splits) {
+combine_kernel(const float* __restrict__ part, T* __restrict__ out, float* __restrict__ lse,
+               int splits) {
   extern __shared__ float wgt[];            // (splits,) weights e^(m_s - M)
   __shared__ float red[HD / 32];
   const size_t row = blockIdx.x;
   const float* pr = part + row * splits * (HD + 2);
   float M = -INFINITY;
   for (int s = threadIdx.x; s < splits; s += HD) M = fmaxf(M, pr[(size_t)s * (HD + 2) + HD]);
-  M = block_reduce<HD>(M, true, red);       // finite: split 0 is never empty
+  M = block_reduce<HD>(M, true, red);       // finite unless lse mode found no position
+  if (kLse && M == -INFINITY) {
+    out[row * HD + threadIdx.x] = from_f32<T>(0.f);
+    if (threadIdx.x == 0) lse[row] = -INFINITY;
+    return;
+  }
   float L = 0.f;
   for (int s = threadIdx.x; s < splits; s += HD) {
     const float* ps = pr + (size_t)s * (HD + 2);
@@ -519,31 +542,35 @@ combine_kernel(const float* __restrict__ part, T* __restrict__ out, int splits) 
     O = w != 0.f ? fmaf(v, w, O) : O;
   }
   out[row * HD + threadIdx.x] = from_f32<T>(O / L);
+  if (kLse && threadIdx.x == 0) lse[row] = M + logf(L);
 }
 
-template <typename T, int HD, bool kCap>
+template <typename T, int HD, bool kCap, bool kLse>
 cudaError_t launch(const Args& a, int B, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<T, HD>();
   static_assert(smem <= 232448, "over the H100's shared memory per block");
   // once per instantiation (thread-safe static initialisation)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_decode_kernel<T, HD, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_decode_kernel<T, HD, kCap, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (attr != cudaSuccess) return attr;
   const int mtiles = (a.rep + kHeads - 1) / kHeads;
   const dim3 grid(a.Hkv * mtiles, B, a.splits);
-  flash_decode_kernel<T, HD, kCap><<<grid, kThreads, smem, s>>>(a);
+  flash_decode_kernel<T, HD, kCap, kLse><<<grid, kThreads, smem, s>>>(a);
   if (a.splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    combine_kernel<T, HD><<<B * a.Hkv * a.rep, HD, a.splits * sizeof(float), s>>>(
-        a.part, static_cast<T*>(a.out), a.splits);
+    combine_kernel<T, HD, kLse><<<B * a.Hkv * a.rep, HD, a.splits * sizeof(float), s>>>(
+        a.part, static_cast<T*>(a.out), a.lse, a.splits);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_cap(const Args& a, int B, cudaStream_t s) {
-  return a.cap > 0.f ? launch<T, HD, true>(a, B, s) : launch<T, HD, false>(a, B, s);
+  if (a.lse != nullptr)
+    return a.cap > 0.f ? launch<T, HD, true, true>(a, B, s) : launch<T, HD, false, true>(a, B, s);
+  return a.cap > 0.f ? launch<T, HD, true, false>(a, B, s) : launch<T, HD, false, false>(a, B, s);
 }
 
 template <typename T>
@@ -560,12 +587,14 @@ cudaError_t launch_hd(const Args& a, int B, int hd, cudaStream_t s) {
 // contiguous, q/k/v/out one dtype, hd 64, 128 or 256. softcap: the logit
 // cap (0 for none; cap * tanh(s / cap) of the scaled score s otherwise).
 // part: fp32 scratch of
-// B * H * splits * (hd + 2) floats, or null when splits == 1. Split sp takes
+// B * H * splits * (hd + 2) floats, or null when splits == 1. lse: (B, H)
+// fp32 for each row's log-sum-exp (then a row with no valid position gives
+// out 0 and lse -inf), or null. Split sp takes
 // positions [sp * split_len, (sp + 1) * split_len) of each row's prefix;
 // splits * split_len must cover S. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const void* lens, void* out, void* part, int B,
+                                   const void* lens, void* out, void* part, void* lse, int B,
                                    int S, int Hkv, int rep, int hd, int splits,
                                    int split_len, float scale, float softcap,
                                    int dtype, void* stream) {
@@ -575,7 +604,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
       !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lens), out, static_cast<float*>(part),
-               S, Hkv, rep, splits, split_len, scale, softcap};
+               static_cast<float*>(lse), S, Hkv, rep, splits, split_len, scale, softcap};
   if (dtype == kFloat32) return launch_hd<float>(a, B, hd, s);
   if (dtype == kBFloat16) return launch_hd<__nv_bfloat16>(a, B, hd, s);
   return cudaErrorInvalidValue;

@@ -38,11 +38,15 @@ def splits(B: int, Hkv: int, rep: int, S: int, n_sm: int):
     return math.ceil(tiles / per), per * TILE
 
 
-def flash_decode(q, k, v, cache_len, softcap: float = 0.0):
+def flash_decode(q, k, v, cache_len, softcap: float = 0.0, *,
+                 return_lse: bool = False):
     """q: (B, H, hd); k/v: (B, S, Hkv, hd); cache_len: int or int tensor,
     scalar or (B,) per-slot valid lengths; hd in ``HEAD_DIMS``;
     ``softcap``: logit cap (0 = none), ``cap * tanh(s / cap)`` of the
-    scaled scores. -> (B, H, hd) in q's dtype."""
+    scaled scores. -> (B, H, hd) in q's dtype; with ``return_lse`` also
+    each row's fp32 log-sum-exp of its scaled, capped scores (B, H), and a
+    row with no valid position gives out 0 and lse -inf (without it, the
+    uniform softmax of ``ref.flash_decode_ref``)."""
     global launches
     if q.device.type != "cuda":
         raise ValueError("flash_decode kernel needs CUDA tensors; the CPU "
@@ -72,13 +76,16 @@ def flash_decode(q, k, v, cache_len, softcap: float = 0.0):
     part = (torch.empty((B * H * n_split * (hd + 2),), dtype=torch.float32,
                         device=dev) if n_split > 1 else None)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     fn = build.load("flash_decode")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
                  out.data_ptr(), part.data_ptr() if part is not None else None,
-                 B, S, Hkv, rep, hd, n_split, split_len, hd ** -0.5,
+                 lse.data_ptr() if lse is not None else None, B, S, Hkv,
+                 rep, hd, n_split, split_len, hd ** -0.5,
                  softcap, build.DTYPES[dt], stream)
     build.check("flash_decode", err)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -99,14 +99,18 @@ def moe_ffn(xg, w_gate, w_up, w_down, out_dtype=None):
     return y
 
 
-def flash_decode(q, k, v):
-    """B3: q (B, H, hd) over k/v (B, S, Hkv, hd) -> (B, H, hd). Products:
-    q·Kᵀ and p·V over every cache position."""
+def flash_decode(q, k, v, return_lse: bool = False):
+    """B3: q (B, H, hd) over k/v (B, S, Hkv, hd) -> (B, H, hd), and with
+    ``return_lse`` each row's fp32 log-sum-exp (B, H). Products: q·Kᵀ and
+    p·V over every cache position."""
     B, H, hd = q.shape
     S = k.shape[1]
-    (o,) = stand_in("flash_decode", (q, k, v), [(q.shape, q.dtype)],
+    specs = [(q.shape, q.dtype)]
+    if return_lse:
+        specs.append(((B, H), torch.float32))
+    outs = stand_in("flash_decode", (q, k, v), specs,
                     2 * 2.0 * B * H * S * hd)
-    return o
+    return outs if return_lse else outs[0]
 
 
 def wkv6(r, k, v, w, u, s0):

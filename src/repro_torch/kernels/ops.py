@@ -47,14 +47,18 @@ def moe_expert_ffn_slots(xg, bufs, slot_ids, *, act: str = "swiglu",
     return moe_ffn_quant(xg, *ws, *ss, slot_ids, act=act, out_dtype=out_dtype)
 
 
-def decode_attention(q, k, v, cache_len, softcap: float = 0.0):
+def decode_attention(q, k, v, cache_len, softcap: float = 0.0, *,
+                     return_lse: bool = False):
     """Single-token GQA attention over a per-slot-length KV cache, with an
-    optional logit softcap."""
+    optional logit softcap; ``return_lse``: -> (out, each row's fp32
+    log-sum-exp (B, H)), for merging blocks of a cache split across
+    devices (``flash_decode``)."""
     if q.device.type == "cpu":
-        return ref.flash_decode_ref(q, k, v, cache_len, softcap)
+        return ref.flash_decode_ref(q, k, v, cache_len, softcap,
+                                    return_lse=return_lse)
     if q.device.type == "meta":
-        return meta.flash_decode(q, k, v)
-    return flash_decode(q, k, v, cache_len, softcap)
+        return meta.flash_decode(q, k, v, return_lse=return_lse)
+    return flash_decode(q, k, v, cache_len, softcap, return_lse=return_lse)
 
 
 def wkv_scan(r, k, v, w, u, s0):

@@ -73,11 +73,15 @@ def lengths(cache_len, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(cache_len), dtype=torch.int32, device=device)
 
 
-def flash_decode_ref(q, k, v, cache_len, softcap: float = 0.0):
+def flash_decode_ref(q, k, v, cache_len, softcap: float = 0.0, *,
+                     return_lse: bool = False):
     """q: (B, H, hd); k/v: (B, S, Hkv, hd); cache_len scalar or (B,)
     per-slot lengths; ``softcap`` > 0 caps the scaled scores at
     ``softcap * tanh(s / softcap)`` before the length mask, in the order of
-    the reference's ``_sdpa``."""
+    the reference's ``_sdpa``. ``return_lse``: also each row's fp32
+    log-sum-exp of its scaled, capped scores over the valid positions (B,
+    H); a row with none gives out 0 and lse -inf (without it, a uniform
+    softmax over all S, as the reference)."""
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -89,6 +93,13 @@ def flash_decode_ref(q, k, v, cache_len, softcap: float = 0.0):
     lens = lengths(cache_len, B, q.device)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, None, :] < lens[:, None, None]
+    if return_lse:
+        scores = torch.where(mask, scores, -torch.inf)
+        lse = torch.logsumexp(scores, dim=-1)
+        empty = (lse == -torch.inf)[..., None]
+        wts = torch.exp(scores - torch.where(empty, 0.0, lse[..., None]))
+        out = torch.einsum("bhs,bshd->bhd", wts, vf)
+        return out.to(q.dtype), lse
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     wts = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bshd->bhd", wts, vf).to(q.dtype)

@@ -28,15 +28,21 @@ unplaced step, which both meshes of a pair share (one trace a pair; a
 sweep traces its pairs in ``JOBS`` processes).
 
 ``collectives`` is the reference's ``{kind: {"bytes", "count"}}``, one
-device's: a train step is traced a second time for each mesh, placed
-(``sharding.place``: every parameter a DTensor by its spec, the batch by
-``batch_spec``) on meta over a fake process group of the mesh's size,
-with ``spmd.CollectiveCounter`` counting the collectives DTensor's
-sharding propagation inserts (``t_place_s`` is that trace's time). A
-serving step is not placed: its ``collectives`` stay None and its
-``collectives_reason`` says why. The port updates parameters, moments
-and caches in place, so ``output_bytes`` counts only what the step
-returns besides them.
+device's: each step is traced a second time for each mesh, placed
+(``sharding.place``: every parameter a DTensor by its spec; the batch by
+``batch_spec``; a serving step's cache by ``cache_shardings`` through
+``sharding.place_cache``, its sequence over the batch axes when the batch
+is smaller than them) on meta over a fake process group of the mesh's
+size, with ``spmd.CollectiveCounter`` counting the collectives DTensor's
+sharding propagation inserts and the kernel sites' merges issue
+(``t_place_s`` is that trace's time). A serving step that cannot be
+placed (an op with no sharding rule, or one the port refuses on a placed
+model: ``NotImplementedError``) keeps ``collectives`` None, and its
+``collectives_reason`` names the op; any other fault is an error record.
+A decode record whose K/V cache is sharded on head_dim, and so
+all-gathered at B3's site, carries ``collectives_note``. The port updates parameters, moments and caches in
+place, so ``output_bytes`` counts only what the step returns besides
+them.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from repro_torch.launch.input_specs import (decode_inputs, decode_window,
 from repro_torch.launch.mesh import (Mesh, axis_size, batch_axes,
                                      make_debug_mesh, make_production_mesh)
 from repro_torch.launch.sharding import (batch_spec, cache_shardings,
-                                         local_bytes, params_shardings, place)
+                                         local_bytes, params_shardings, place,
+                                         place_cache)
 from repro_torch.models import Model
 from repro_torch.models.model import layer_descs, split_periodic
 from repro_torch.train.loop import make_train_step
@@ -200,14 +207,6 @@ def argument_bytes_per_device(cfg, shape, args, model, mesh,
     return total
 
 
-# why a serving record has no collectives
-SERVE_REASON = ("serving steps are not placed: Model.prefill and "
-                "Model.serve_step write the decode cache in place "
-                "(aten.index_put_ through update_rows / _store_kv), and the "
-                "port serves on one device or over an expert mesh from one "
-                "controller, so cache_shardings' layouts are not applied")
-
-
 def _batch_merged(mesh):
     """``mesh`` with its batch axes ("pod", "data") as one "data" axis of
     their product (pod-major, as the batch's rows lie over them). Only the
@@ -224,15 +223,28 @@ def _batch_merged(mesh):
 
 def _placed_trace(cfg, shape, mesh, with_optimizer: bool,
                   n_prefix: int) -> dict:
-    """The collectives of one placed train step of ``cfg`` whose first
-    ``n_prefix`` layers keep their activations (the rest are rematted)."""
+    """The collectives of one placed step of ``cfg`` at ``shape``: a train
+    step whose first ``n_prefix`` layers keep their activations (the rest
+    are rematted), or a serving step (``Model.prefill`` into, or
+    ``Model.serve_step`` over, a cache placed by ``cache_shardings``)."""
     mesh = _batch_merged(mesh)
     with spmd.fake_group(mesh.size):
         dm = spmd.device_mesh(mesh, "cpu")
         model = place(Model(cfg, device="meta"), dm, mesh)
         model.n_prefix = n_prefix
         counter = spmd.CollectiveCounter()
-        if with_optimizer:
+        if shape.kind != "train":
+            rows = math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
+            cache, token = decode_inputs(cfg, shape, model)
+            cache = place_cache(cache, dm, mesh, cfg,
+                                shard_seq=shape.global_batch < rows)
+            with torch.no_grad(), counter, spmd.step_context(model):
+                if shape.kind == "prefill":
+                    model.prefill(train_inputs(cfg, shape), cache)
+                else:
+                    model.serve_step(cache, token,
+                                     decode_window=decode_window(cfg, shape))
+        elif with_optimizer:
             step = make_train_step(model, OptConfig(), remat=True)
             opt = adamw_init(dict(model.named_parameters()))
             with counter:
@@ -246,10 +258,10 @@ def _placed_trace(cfg, shape, mesh, with_optimizer: bool,
 
 def placed_collectives(cfg, shape, mesh, *,
                        with_optimizer: bool = True) -> dict:
-    """One device's collectives in ``cfg``'s train step at ``shape``
-    placed over ``mesh``: the model on meta, placed over a fake group of
-    ``mesh.size`` ranks (this process is rank 0). -> the reference's
-    ``collectives`` record.
+    """One device's collectives in ``cfg``'s step at ``shape`` (train,
+    prefill or decode) placed over ``mesh``: the model (and a serving
+    step's cache) on meta, placed over a fake group of ``mesh.size`` ranks
+    (this process is rank 0). -> the reference's ``collectives`` record.
 
     Every period group of the layer stack (``split_periodic``: the
     reference's scan groups) has the same parameters, shapes and
@@ -277,6 +289,29 @@ def placed_collectives(cfg, shape, mesh, *,
     return {kind: {f: one[kind][f] + (two[kind][f] - one[kind][f])
                    * (groups - 1) for f in ("count", "bytes")}
             for kind in one}
+
+
+# a decode record whose collectives hold the K/V cache's all-gather
+KV_GATHER_NOTE = (
+    "K/V cache sharded on head_dim (its KV heads do not split over the "
+    "model axis) and all-gathered over the model axis at B3's site in "
+    "every attention layer (attention._attend): a cost of the port's "
+    "decode design, not of the reference's sharding (ROADMAP: partial "
+    "scores over head_dim shards)")
+
+
+def kv_gathered(cfg, shape, mesh, model=None) -> bool:
+    """Whether ``cfg``'s placed decode step at ``shape`` over ``mesh``
+    all-gathers its K/V cache: ``cache_shardings`` shards a K/V entry on
+    head_dim when its KV heads do not split over the model axis, and B3
+    takes whole heads."""
+    cache, _ = decode_inputs(cfg, shape, model)
+    rows = math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
+    specs = cache_shardings(cache, mesh, cfg,
+                            shard_seq=shape.global_batch < rows)
+    return any(spec[3] == "model" for layer in specs["layers"]
+               for key, spec in layer.items()
+               if key in ("k", "v", "cross_k", "cross_v"))
 
 
 def _mesh_name(multi_pod: bool, debug_mesh: bool) -> str:
@@ -313,13 +348,23 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool,
     if key not in _TRACES:
         _TRACES[key] = trace(fn, args, model)
     t = _TRACES[key]
-    coll, t_place = None, None
+    t0 = time.time()
     if shape.kind == "train":
-        t0 = time.time()
         coll = placed_collectives(cfg, shape, mesh, with_optimizer=with_opt)
-        t_place = round(time.time() - t0, 1)
     else:
-        rec["collectives_reason"] = SERVE_REASON
+        try:
+            coll = placed_collectives(cfg, shape, mesh)
+        except NotImplementedError as e:
+            # an op DTensor has no sharding rule for, or one the port
+            # refuses on a placed model (each names the op): not an error
+            coll = None
+            rec["collectives_reason"] = (
+                f"the placed {shape.kind} step raised "
+                f"{type(e).__name__}: {str(e)[:300]}")
+        if coll is not None and shape.kind == "decode" and \
+                kv_gathered(cfg, shape, mesh, model):
+            rec["collectives_note"] = KV_GATHER_NOTE
+    t_place = round(time.time() - t0, 1)
     rec.update(
         cost_corrected={"dot_flops": t["dot_flops"],
                         "bytes_accessed": t["bytes_accessed"]},

@@ -16,7 +16,8 @@ mesh dim, everything else, and a mesh dim of one rank, ``Replicate()``),
 and ``place`` makes every
 parameter of a model a DTensor laid out by its spec: the sharded training
 step (``launch/train.py --mesh debug``) and the dry run's collectives
-(``launch/dryrun.py``) run over it.
+(``launch/dryrun.py``) run over it. ``place_cache`` lays a decode cache
+out by ``cache_shardings`` for the placed serving steps.
 """
 from __future__ import annotations
 
@@ -259,6 +260,41 @@ def place(model, device_mesh, mesh):
             DTensor.from_local(block, device_mesh, pl, run_check=False),
             requires_grad=p.requires_grad))
     return model
+
+
+@torch.no_grad()
+def place_cache(cache, device_mesh, mesh, cfg, shard_seq: bool) -> dict:
+    """A decode cache (``Model.init_cache``'s structure, as every rank
+    holds it) as DTensors over ``device_mesh``, each entry laid out by
+    ``cache_shardings(cache, mesh, cfg, shard_seq=shard_seq)``: each rank
+    keeps its block of rows, sequence positions, heads or channels
+    (nothing is sent). ``pos`` is replicated. A dim the spec shards that
+    does not split evenly raises, as in ``place``; an entry the specs do
+    not name raises. -> the placed cache (a new dict; the blocks are
+    copies, so the full tensors can be freed)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.spmd import local_block
+    specs = cache_shardings(cache, mesh, cfg, shard_seq=shard_seq)
+
+    def one(t, spec):
+        if spec is None:
+            raise ValueError(f"no sharding spec for a cache entry of shape "
+                             f"{tuple(t.shape)}")
+        pl = placements(spec, device_mesh)
+        block = local_block(t, pl, device_mesh)
+        if tuple(block.shape) != local_shape(tuple(t.shape), spec, mesh):
+            raise ValueError(f"cache block {tuple(block.shape)} is not the "
+                             f"local shape of {spec}")
+        return DTensor.from_local(block.clone(), device_mesh, pl,
+                                  run_check=False)
+
+    layers = []
+    for layer, lspec in zip(cache["layers"], specs["layers"]):
+        if set(layer) != set(lspec):
+            raise ValueError(f"cache entries {sorted(layer)} have no specs "
+                             f"{sorted(set(layer) - set(lspec))}")
+        layers.append({k: one(t, lspec[k]) for k, t in layer.items()})
+    return {"pos": one(cache["pos"], specs["pos"]), "layers": layers}
 
 
 def place_batch(batch, device_mesh) -> dict:

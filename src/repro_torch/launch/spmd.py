@@ -1,4 +1,4 @@
-"""The sharded training step's process group, its kernel sites and its
+"""The sharded steps' process group, their kernel sites and their
 collective counter.
 
 The reference runs one controller over a ``jax.make_mesh`` and lets GSPMD
@@ -18,6 +18,13 @@ replicated inputs: the MoE dispatch's sort, scatter and ``index_add_``,
 for which DTensor has no sharding rule. Both call the function directly
 when no argument is a DTensor, so an unplaced model runs the same ops.
 
+The serving steps write a decode cache placed by ``cache_shardings``:
+``block_site`` runs each write over this rank's block of a cache entry
+(its rows, heads or channels, and on a sequence-sharded cache only the
+positions its block holds), so no cache is gathered to write a row; on
+a sequence-sharded cache decode attention runs over each rank's block
+and ``merge_blocks`` merges the blocks by their log-sum-exp.
+
 ``CollectiveCounter`` counts every ``_c10d_functional`` collective by the
 reference's kinds, with its output bytes (``roofline.collective_bytes``'s
 definition): the dry run records them over a fake group of the mesh's
@@ -26,6 +33,7 @@ size (``fake_group``).
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 from collections import defaultdict
 
@@ -151,7 +159,7 @@ def step_context(model):
     return contextlib.nullcontext()
 
 
-def _on_mesh(t, mesh, placements):
+def on_mesh(t, mesh, placements):
     """``t`` as a DTensor with ``placements`` (a plain tensor is taken as
     replicated); Replicate -> Shard is a local slice, Partial -> Replicate
     an all-reduce."""
@@ -171,17 +179,28 @@ def site(fn, in_specs, out_specs, *args, grad_specs=None):
     mesh: an int, the dim sharded over the ``model`` axis; a pair (that
     dim or None, the dim sharded over the batch axes or None); None,
     replicated (a non-tensor argument takes None). An axis of one rank
-    replicates. ``grad_specs``: per argument, ``"partial"`` in place of
-    a dim where each rank's gradient is a partial sum (a replicated input
-    read by every model shard, or by every batch shard), else the input's
-    own spec."""
+    replicates, and so do the batch axes when some argument's batch dim
+    does not split over them (a batch of one row over two data ranks:
+    context-parallel decode shards the cache's sequence instead).
+    ``grad_specs``: per argument, ``"partial"`` in place of a dim where
+    each rank's gradient is a partial sum (a replicated input read by
+    every model shard, or by every batch shard), else the input's own
+    spec."""
     if not is_placed(*args):
         return fn(*args)
     mesh = mesh_of(*args)
     names = mesh.mesh_dim_names
+    rows = math.prod(mesh.size(i) for i, n in enumerate(names)
+                     if n in ("pod", "data"))
+    split = all(a.shape[s[1]] % rows == 0
+                for a, s in zip(args, in_specs)
+                if isinstance(a, torch.Tensor) and isinstance(s, tuple)
+                and isinstance(s[1], int))
 
     def pl(spec):
         model, batch = spec if isinstance(spec, tuple) else (spec, None)
+        if not split:
+            batch = None
         out = [Replicate()] * mesh.ndim
         for i, name in enumerate(names):
             if mesh.size(i) == 1:
@@ -199,7 +218,7 @@ def site(fn, in_specs, out_specs, *args, grad_specs=None):
     tensor = [isinstance(a, torch.Tensor) for a in args]
     in_pl = tuple(pl(s) if is_t else None
                   for s, is_t in zip(in_specs, tensor))
-    args = [_on_mesh(a, mesh, p) for a, p in zip(args, in_pl)]
+    args = [on_mesh(a, mesh, p) for a, p in zip(args, in_pl)]
     grads = None
     if grad_specs is not None:
         grads = tuple(pl(g) if is_t else None
@@ -209,6 +228,97 @@ def site(fn, in_specs, out_specs, *args, grad_specs=None):
                        in_placements=in_pl, in_grad_placements=grads,
                        device_mesh=mesh)
     return mapped(*args)
+
+
+def offset(t, dim: int) -> int:
+    """The global index of this rank's first element of DTensor ``t``
+    along ``dim`` (0 for a plain tensor, or a dim no mesh dim shards)."""
+    if not isinstance(t, DTensor):
+        return 0
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return off[dim]
+
+
+def _following(buf, a, skip=None):
+    """Placements of tensor ``a`` laid out as DTensor ``buf``: sharded as
+    ``buf`` on each mesh dim that shards a dim ``a`` also has (its leading
+    dims are ``buf``'s), except ``skip``; replicated elsewhere."""
+    return [p if p.is_shard() and p.dim < a.dim() and p.dim != skip
+            else Replicate() for p in buf.placements]
+
+
+def block_site(fn, buf, *args, seq_dim=None):
+    """A write into a cache entry, rank by rank: ``fn(buf, *args, off)``
+    over the local blocks when ``buf`` is a DTensor, which returns this
+    rank's new block (``buf``'s, written in place, or a tensor of its
+    shape); ``fn(buf, *args, None)`` otherwise. ``off`` is the global index of the block's first
+    position along ``seq_dim`` when a mesh dim shards it (the rank whose
+    block holds a position writes it, the others keep theirs), else None
+    (the block holds the whole sequence). Each tensor argument lies as
+    ``buf`` does on the dims it shares with it (batch rows, heads,
+    channels), and whole along ``seq_dim``: every rank holds the new rows;
+    a plain one counts as replicated. -> ``buf``'s DTensor, its placements
+    kept (nothing is gathered to write a row)."""
+    if not isinstance(buf, DTensor):
+        return fn(buf, *args, None)
+    mesh = buf.device_mesh
+    off = (offset(buf, seq_dim) if seq_dim is not None and any(
+        p.is_shard(seq_dim) and mesh.size(i) > 1
+        for i, p in enumerate(buf.placements)) else None)
+    in_pl = (tuple(buf.placements),) + tuple(
+        tuple(_following(buf, a, seq_dim)) if isinstance(a, torch.Tensor)
+        else None for a in args) + (None,)
+    args = [on_mesh(a, mesh, p) for a, p in zip((buf,) + args, in_pl)]
+    mapped = local_map(fn, list(buf.placements), in_placements=in_pl,
+                       device_mesh=mesh)
+    return mapped(*args, off)
+
+
+def merge_blocks(out, lse):
+    """The softmax over a sequence sharded across ranks, from each rank's
+    block: ``out`` (N, ..., hd), each block's normalised output, and
+    ``lse`` (N, ...), its log-sum-exp (-inf where the block has no valid
+    position), stacked on a dim 0 that the sequence's mesh dims shard.
+    The merge is the reference's softmax over a sharded axis, as GSPMD
+    partitions it: an all-reduce of the largest ``lse``, then of the sum
+    of the weights exp(lse - max) and of the weighted outputs. A block
+    with no valid position weighs 0 (no NaN). -> (..., hd) fp32."""
+    M = reduced(lse.amax(0))
+    w = torch.where(lse == -torch.inf, 0.0,
+                    torch.exp(lse - torch.where(M == -torch.inf, 0.0, M)))
+    num = reduced((w[..., None] * out.float()).sum(0))
+    den = reduced(w.sum(0))[..., None]
+    return num / torch.where(den == 0, 1.0, den)
+
+
+def rows(t, device_mesh: DeviceMesh):
+    """A plain tensor every rank holds whole as a DTensor over
+    ``device_mesh``: its dim 0 (the batch's rows) split over the batch
+    axes where it divides evenly, else replicated (no collective); a
+    DTensor as it is."""
+    if isinstance(t, DTensor) or not isinstance(t, torch.Tensor):
+        return t
+    names = device_mesh.mesh_dim_names
+    n = math.prod(device_mesh.size(i) for i, a in enumerate(names)
+                  if a in ("pod", "data"))
+    pl = [Shard(0) if a in ("pod", "data") and device_mesh.size(i) > 1
+          and t.dim() and t.shape[0] % n == 0 else Replicate()
+          for i, a in enumerate(names)]
+    return DTensor.from_local(local_block(t, pl, device_mesh), device_mesh,
+                              pl, run_check=False)
+
+
+def replicate_like(t, like):
+    """Plain tensor ``t`` (every rank's same copy) as a replicated DTensor
+    on ``like``'s mesh when ``like`` is a DTensor; else ``t``."""
+    if not isinstance(like, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def project(eq: str, x, w):

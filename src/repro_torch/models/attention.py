@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
@@ -215,18 +217,107 @@ def update_rows(buf, upd, pos, active=None):
     positions ``pos`` ((B,) int tensor), **in place**, and return ``buf``.
     Start indices are clamped so the update fits, as the reference's
     ``dynamic_update_slice`` does. With ``active`` ((B,) bool) only active
-    rows change; inactive rows are rewritten with their own old values."""
+    rows change; inactive rows are rewritten with their own old values.
+    On a placed cache each rank writes its own block (``spmd.block_site``):
+    its batch rows, and on a sequence-sharded cache only the positions its
+    block holds."""
+    n = upd.shape[1]
+    start = pos.to(torch.long).clamp(0, buf.shape[1] - n)
+    return spmd.block_site(_write_rows, buf, upd, start, active, seq_dim=1)
+
+
+def _write_rows(buf, upd, start, active, off):
+    """``update_rows`` on one block: the whole sequence (``off`` None), or
+    a block of a sequence-sharded cache whose first position is ``off``."""
     B, T = buf.shape[:2]
     n = upd.shape[1]
-    start = pos.to(torch.long).clamp(0, T - n)
-    idx = start[:, None] + torch.arange(n, device=buf.device)[None, :]
     rows = torch.arange(B, device=buf.device)[:, None]
     new = upd.to(buf.dtype)
-    if active is not None:
-        keep = active.reshape((B, 1) + (1,) * (buf.dim() - 2))
-        new = torch.where(keep, new, buf[rows, idx])
-    buf[rows, idx] = new
+    if off is None:
+        idx = start[:, None] + torch.arange(n, device=buf.device)[None, :]
+        if active is not None:
+            keep = active.reshape((B, 1) + (1,) * (buf.dim() - 2))
+            new = torch.where(keep, new, buf[rows, idx])
+        buf[rows, idx] = new
+        return buf
+    # a block of a sequence-sharded cache: one position at a time, each
+    # written only where this block holds it
+    for j in range(n):
+        at = start + j - off
+        keep = (at >= 0) & (at < T)
+        if active is not None:
+            keep = keep & active
+        at = at.clamp(0, T - 1)[:, None]
+        keep = keep.reshape((B, 1) + (1,) * (buf.dim() - 2))
+        buf[rows, at] = torch.where(keep, new[:, j:j + 1], buf[rows, at])
     return buf
+
+
+def store_rows(buf, full, rows=slice(None)):
+    """A prefill's full-sequence rows ``full`` (B, S, ...) into rows
+    ``rows`` of cache ``buf`` (L positions), in place: ``full[:, :S]`` at
+    0..S-1 when S <= L, else its last L positions, position p at ``p % L``
+    (a ring). On a placed cache each rank writes its own block
+    (``spmd.block_site``)."""
+    return spmd.block_site(_store_block, buf, full, buf.shape[1], rows,
+                           seq_dim=1)
+
+
+def _store_block(buf, full, L: int, rows, off):
+    """``store_rows`` on one block: the whole sequence (``off`` None), or
+    a block of a sequence-sharded cache whose first position is ``off``."""
+    S, T = full.shape[1], buf.shape[1]
+    off = off or 0
+    if S <= L:
+        hi = min(S, off + T)
+        if hi > off:
+            buf[rows, :hi - off] = full[:, off:hi].to(buf.dtype)
+    else:
+        buf[rows] = torch.roll(full[:, S - L:], S % L,
+                               dims=1)[:, off:off + T].to(buf.dtype)
+    return buf
+
+
+def _attend(q, k, v, lens, cap: float):
+    """B3 (``ops.decode_attention``) of q (B, H, hd) over the cache k/v
+    (B, T, Hkv, hd) filled to ``lens`` -> (B, H, hd). On a placed cache, a
+    site over its batch rows and KV heads: each rank's query heads are
+    those of its KV heads. A cache sharded on hd (its KV heads do not
+    split over the model axis) is gathered over the model axis here, and
+    only here: B3 needs whole heads. On a sequence-sharded cache each rank
+    runs B3 over its block at lengths ``clamp(lens - offset, 0, T/N)`` with
+    the log-sum-exp, and ``spmd.merge_blocks`` merges the blocks."""
+    if not spmd.is_placed(k, v):
+        return ops.decode_attention(q, k, v, lens, cap)
+    mesh = k.device_mesh
+    kpl = [Replicate() if p.is_shard(3) else p for p in k.placements]
+    k, v = (t.redistribute(mesh, kpl) for t in (k, v))
+    qpl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+           else Replicate() for p in kpl]
+    lpl = [Shard(0) if p.is_shard(0) else Replicate() for p in kpl]
+    if not isinstance(lens, torch.Tensor):
+        lens = torch.full((q.shape[0],), lens, dtype=torch.int32,
+                          device=q.device)
+    ins = (qpl, kpl, kpl, lpl)
+    args = [spmd.on_mesh(t, mesh, p) for t, p in zip((q, k, v, lens), ins)]
+    if not any(p.is_shard(1) for p in kpl):
+        def local(q, k, v, lens):
+            return ops.decode_attention(q, k, v, lens, cap)
+        return local_map(local, qpl, in_placements=ins,
+                         device_mesh=mesh)(*args)
+    off = spmd.offset(k, 1)
+
+    def block(q, k, v, lens):
+        n = torch.clamp(lens - off, 0, k.shape[1]).to(torch.int32)
+        out, lse = ops.decode_attention(q, k, v, n, cap, return_lse=True)
+        return out[None], lse[None]
+    # each rank's (out, lse) stacked on a new dim 0 that the sequence's
+    # mesh dims shard
+    opl = [Shard(0) if kp.is_shard(1) else Shard(qp.dim + 1)
+           if qp.is_shard() else Replicate() for kp, qp in zip(kpl, qpl)]
+    out, lse = local_map(block, (opl, opl), in_placements=ins,
+                         device_mesh=mesh)(*args)
+    return spmd.merge_blocks(out, lse).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -328,20 +419,22 @@ def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
             "over a ring of its window (ring=True)")
     if cross:
         q = _project_q(p, cfg, x)
-        out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
-                                   T, a.logit_softcap)[:, None]
-        return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_k, cache_v
+        out = _attend(q[:, 0].contiguous(), cache_k, cache_v, T,
+                      a.logit_softcap)[:, None]
+        return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)),
+                cache_k, cache_v)
     positions = pos[:, None]
     if a.mrope_sections:
         positions = positions.expand(3, *positions.shape)
     q, k, v = _project_qkv(p, cfg, x, positions)
     wpos = pos % T if ring else pos
-    update_rows(cache_k, k, wpos, active)
-    update_rows(cache_v, v, wpos, active)
+    cache_k = update_rows(cache_k, k, wpos, active)
+    cache_v = update_rows(cache_v, v, wpos, active)
     lens = torch.clamp(pos + 1, max=T) if ring else pos + 1
-    out = ops.decode_attention(q[:, 0].contiguous(), cache_k, cache_v, lens,
-                               a.logit_softcap)[:, None]
-    return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_k, cache_v
+    out = _attend(q[:, 0].contiguous(), cache_k, cache_v, lens,
+                  a.logit_softcap)[:, None]
+    return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)), cache_k,
+            cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -417,13 +510,77 @@ def mla_decode(p, cfg: ArchConfig, x, cache_ckv, cache_kr, pos, *,
     q_nope, q_rope = _mla_q(p, cfg, x, positions)            # (B,1,H,*)
     c_kv, k_rope = _mla_latents(p, cfg, x, positions)        # (B,1,r/rope)
     wpos = pos % T if ring else pos
-    update_rows(cache_ckv, c_kv, wpos, active)
-    update_rows(cache_kr, k_rope, wpos, active)
-    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p.w_uk)   # absorb W_uk
-    scores = (torch.einsum("bshr,btr->bhst", q_abs, cache_ckv)
-              + torch.einsum("bshk,btk->bhst", q_rope, cache_kr)).float()
-    mask = decode_mask(T, torch.clamp(pos + 1, max=T) if ring else pos + 1)
-    w = torch.softmax(scores * _mla_scale(cfg) + mask, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhst,btr->bshr", w, cache_ckv)       # (B,1,H,r)
-    out = torch.einsum("bshr,rhk->bshk", ctx, p.w_uv)        # absorb W_uv
-    return torch.einsum("bshk,hkd->bsd", out, p.w_o), cache_ckv, cache_kr
+    cache_ckv = update_rows(cache_ckv, c_kv, wpos, active)
+    cache_kr = update_rows(cache_kr, k_rope, wpos, active)
+    lens = torch.clamp(pos + 1, max=T) if ring else pos + 1
+    out = _mla_attend(q_nope, q_rope, p.w_uk, p.w_uv, cache_ckv, cache_kr,
+                      lens, _mla_scale(cfg))
+    return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)), cache_ckv,
+            cache_kr)
+
+
+def _mla_absorbed(q_nope, q_rope, w_uk, w_uv, ckv, kr, lens, scale: float,
+                  off=None):
+    """The absorbed-matrix attention of one query over the latent cache
+    ckv (B,T,r) / kr (B,T,rope) filled to ``lens`` -> (B,1,H,v). With
+    ``off`` (a block of a sequence-sharded cache whose first position is
+    ``off``) -> (out[None], lse[None] (1,B,1,H)): the block's normalised
+    output and log-sum-exp, for ``spmd.merge_blocks``."""
+    T = ckv.shape[1]
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)     # absorb W_uk
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, kr)).float()
+    if off is None:
+        mask = decode_mask(T, lens)
+        w = torch.softmax(scores * scale + mask, dim=-1).to(q_nope.dtype)
+    else:
+        n = torch.clamp(lens - off, 0, T).reshape(-1, 1, 1, 1)
+        kpos = torch.arange(T, device=ckv.device)
+        s = torch.where(kpos < n, scores * scale, -torch.inf)
+        lse = torch.logsumexp(s, dim=-1)                     # (B,H,1)
+        w = torch.exp(s - torch.where(lse == -torch.inf, 0.0, lse)[..., None])
+        w = w.to(q_nope.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckv)             # (B,1,H,r)
+    out = torch.einsum("bshr,rhk->bshk", ctx, w_uv)          # absorb W_uv
+    if off is None:
+        return out
+    return out[None], lse.transpose(1, 2)[None]
+
+
+def _mla_attend(q_nope, q_rope, w_uk, w_uv, ckv, kr, lens, scale: float):
+    """``_mla_absorbed`` over the cache; on a placed model a site over
+    the cache's batch rows and, where the model axis divides them, the
+    heads; on a sequence-sharded cache each rank takes its block and
+    ``spmd.merge_blocks`` merges them (the plain einsum form of B3's
+    context-parallel decode)."""
+    if not spmd.is_placed(q_nope, ckv, w_uk):
+        return _mla_absorbed(q_nope, q_rope, w_uk, w_uv, ckv, kr, lens,
+                             scale)
+    mesh = spmd.mesh_of(q_nope, ckv, w_uk)
+    names = mesh.mesh_dim_names
+    H = q_nope.shape[2]
+    cpl = (list(ckv.placements) if spmd.is_placed(ckv)
+           else [Replicate()] * mesh.ndim)
+    heads = [n == "model" and mesh.size(i) > 1
+             and H % mesh.size(i) == 0 for i, n in enumerate(names)]
+    qpl = [Shard(0) if c.is_shard(0) else Shard(2) if h else Replicate()
+           for c, h in zip(cpl, heads)]
+    wpl = [Shard(1) if h else Replicate() for h in heads]
+    lpl = [Shard(0) if c.is_shard(0) else Replicate() for c in cpl]
+    ins = (qpl, qpl, wpl, wpl, cpl, cpl, lpl)
+    args = [spmd.on_mesh(t, mesh, p) for t, p in
+            zip((q_nope, q_rope, w_uk, w_uv, ckv, kr, lens), ins)]
+    if not any(c.is_shard(1) for c in cpl):
+        def local(*a):
+            return _mla_absorbed(*a, scale)
+        return local_map(local, qpl, in_placements=ins,
+                         device_mesh=mesh)(*args)
+    off = spmd.offset(ckv, 1)
+
+    def block(*a):
+        return _mla_absorbed(*a, scale, off)
+    opl = [Shard(0) if c.is_shard(1) else Shard(q.dim + 1)
+           if q.is_shard() else Replicate() for c, q in zip(cpl, qpl)]
+    out, lse = local_map(block, (opl, opl), in_placements=ins,
+                         device_mesh=mesh)(*args)
+    return spmd.merge_blocks(out, lse).to(q_nope.dtype)

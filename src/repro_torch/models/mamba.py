@@ -135,6 +135,10 @@ def mamba_decode(p: Mamba, cfg: ArchConfig, x, conv_state, ssm_state):
     xc = F.silu(torch.einsum("bcd,cd->bd", window, p.conv_w))[:, None] \
         .contiguous()
     dt, A, Bm, Cm = _ssm_inputs(p, cfg, xc)
-    y, h = ops.selective_scan(xc, dt, A, Bm, Cm, ssm_state.contiguous())
+    # B5 over channels, as in mamba_forward: on a placed model each rank
+    # steps its d_in channels' states
+    ch, bc = (2, 0), (None, 0)
+    y, h = spmd.site(_scan, (ch, ch, 0, bc, bc, (1, 0)), (ch, (1, 0)),
+                     xc, dt, A, Bm, Cm, ssm_state)
     y = _gate_out(p, y[:, 0], xr, z, x.dtype)
     return y[:, None], window[:, 1:], h

@@ -52,7 +52,7 @@ from repro_torch.config import ArchConfig, BLOCK_ATTN, BLOCK_MAMBA, BLOCK_RWKV
 from repro_torch.launch import spmd
 from repro_torch.models.attention import (MLA, Attention, attn_decode,
                                           attn_forward, cross_kv, mla_decode,
-                                          mla_forward)
+                                          mla_forward, store_rows)
 from repro_torch.models.layers import FFN, Norm, apply_ffn, softcap
 from repro_torch.models.mamba import Mamba, _dims, mamba_decode, mamba_forward
 from repro_torch.models.moe import MoE, moe_ffn
@@ -279,10 +279,14 @@ class Model(nn.Module):
             x = batch["embeds"].to(self.dtype)
         else:
             # a lookup (not indexing): its backward sums repeated tokens in
-            # one order, placed or not. A placed model gathers its
-            # vocab-sharded table over the model axis first (DTensor's
-            # masked lookup cannot be reduced twice, and the remat does)
-            x = F.embedding(batch["tokens"], spmd.gathered(self.embed))
+            # one order, placed or not. A placed model under a gradient
+            # gathers its vocab-sharded table over the model axis first
+            # (DTensor's masked lookup cannot be reduced twice, and the
+            # remat does); serving takes the masked lookup, reduced at
+            # once (an all-reduce of the rows, not a gather of the table)
+            table = (spmd.gathered(self.embed) if torch.is_grad_enabled()
+                     else self.embed)
+            x = spmd.reduced(F.embedding(batch["tokens"], table))
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
         B, S = x.shape[:2]
@@ -301,14 +305,19 @@ class Model(nn.Module):
         """(B,) decode tokens, or (B, 1, d) embeddings, at the per-slot
         positions ``pos`` -> (B, 1, d)."""
         cfg = self.cfg
+        placed = spmd.is_placed(self.embed)
         if token_or_embeds.dim() == 1:
-            x = self.embed[token_or_embeds][:, None]
+            # on a placed model the vocab-sharded table's masked lookup
+            x = (spmd.reduced(F.embedding(token_or_embeds[:, None],
+                                          self.embed)) if placed
+                 else self.embed[token_or_embeds][:, None])
         else:
             x = token_or_embeds.to(self.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
         if not cfg.attn.use_rope:
-            x = x + self.pos_embed[pos][:, None]
+            x = x + (F.embedding(pos[:, None], self.pos_embed) if placed
+                     else self.pos_embed[pos][:, None])
         return x
 
     def _encode(self, enc_embeds):
@@ -345,15 +354,12 @@ class Model(nn.Module):
         keeps it; the reference writes them from 0 (its prefill asks that a
         prompt fit the window), which is the same for S <= L. A right-padded
         prompt longer than a ring would put pad rows in it: prefill such a
-        prompt at its exact length."""
+        prompt at its exact length. A placed cache is written rank by rank
+        (``attention.store_rows``), whole rows only."""
         keys = ("ckv", "kr") if "ckv" in bc else ("k", "v")
         for key, full in zip(keys, kv):
-            S, L = full.shape[1], bc[key].shape[1]
-            if S <= L:
-                bc[key][rows, :S] = full.to(bc[key].dtype)
-            else:
-                bc[key][rows] = torch.roll(full[:, S - L:], S % L,
-                                           dims=1).to(bc[key].dtype)
+            _whole(bc[key], rows)
+            bc[key] = store_rows(bc[key], full, rows)
 
     def _seed_mixer(self, bc, desc: LayerDesc, aux, rows=slice(None)):
         """Write a prefill's mixer state (``_apply_block_pre``'s aux) into
@@ -363,14 +369,14 @@ class Model(nn.Module):
         if desc.kind == BLOCK_ATTN:
             self._store_kv(bc, aux["kv"], rows)
             if "cross_kv" in aux:
-                bc["cross_k"][rows] = aux["cross_kv"][0].to(self.dtype)
-                bc["cross_v"][rows] = aux["cross_kv"][1].to(self.dtype)
+                for key, full in zip(("cross_k", "cross_v"), aux["cross_kv"]):
+                    _write(bc, key, full, rows)
             return
         keys = ({"conv": "mamba_conv", "ssm": "mamba_state"}
                 if desc.kind == BLOCK_MAMBA
                 else {"state": "rwkv_state", "tm": "rwkv_tm"})
         for key, name in keys.items():
-            bc[key][rows] = aux[name].to(bc[key].dtype)
+            _write(bc, key, aux[name], rows)
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -561,6 +567,14 @@ class Model(nn.Module):
             y2 = p.post_norm2(y2)
         return x_mid + y2, counts
 
+    def _rows(self, t):
+        """A placed model's input ``t`` (as every rank holds it) split by
+        rows over the batch axes where they divide, else replicated
+        (``spmd.rows``); an unplaced model's as it is."""
+        if not spmd.is_placed(self.embed):
+            return t
+        return spmd.rows(t, self.embed.device_mesh)
+
     # -- public: prefill / serve_step -----------------------------------------
     def prefill(self, batch, cache, *, expert_fn=None, true_len=None):
         """Run the prompt, fill ``cache`` (in place), return last-token
@@ -570,7 +584,17 @@ class Model(nn.Module):
         each row's last real token. As in the reference, recurrent (mamba,
         rwkv) state is not pad-corrected: prefill those at exact lengths.
         ``expert_fn``: see ``moe.moe_ffn``. Returns (logits (B,V), cache,
-        aux)."""
+        aux).
+
+        On a placed model (``sharding.place``) with a placed cache
+        (``sharding.place_cache``) each rank runs its blocks: ``batch``
+        (as every rank holds it) is split by rows over the batch axes where
+        they divide, the cache is written rank by rank, and the logits
+        (full vocabulary, every row) and counts come back as plain tensors,
+        the same on every rank."""
+        # M-RoPE's (3, B, S) positions stay replicated
+        batch = {k: t if k == "positions" else self._rows(t)
+                 for k, t in batch.items()}
         x, positions = self._embed(batch)
         B, S = x.shape[:2]
         token_mask = None
@@ -591,19 +615,21 @@ class Model(nn.Module):
                                                 token_mask=token_mask)
             self._seed_mixer(bc, desc, aux)
             if desc.kind == BLOCK_RWKV:
-                bc["cm"].copy_(aux_ffn["rwkv_cm"])
+                _write(bc, "cm", aux_ffn["rwkv_cm"])
             if "counts" in aux_ffn:
-                counts.append(aux_ffn["counts"])
+                counts.append(spmd.local(aux_ffn["counts"]))
         if true_len is None:
-            cache["pos"] = torch.full((B,), S, dtype=torch.int32,
-                                      device=x.device)
+            pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
             x_last = x[:, -1:]
         else:
-            cache["pos"] = true_len.clone()
+            pos = true_len.clone()
             idx = (true_len.long() - 1)[:, None, None].expand(B, 1,
                                                              x.shape[-1])
-            x_last = torch.gather(x, 1, idx)
-        logits = self._logits(self.final_norm(x_last))[:, 0]
+            # on a placed model DTensor's gather may leave a masked
+            # partial, which may be reduced only once: reduce it here
+            x_last = spmd.reduced(torch.gather(x, 1, idx))
+        cache["pos"] = spmd.replicate_like(pos, cache["pos"])
+        logits = spmd.local(self._logits(self.final_norm(x_last))[:, 0])
         return logits, cache, {
             "counts": torch.stack(counts) if counts else None}
 
@@ -615,9 +641,12 @@ class Model(nn.Module):
         optional (B,) bool mask; inactive slots are computed (fixed batch
         shape) but their cache rows, position and counts stay untouched.
         ``expert_fn``: see ``moe.moe_ffn``. Returns (logits (B,V), cache,
-        aux)."""
-        pos = cache["pos"]
-        x = self._embed_step(token_or_embeds, pos)
+        aux). A placed model and cache run as in ``prefill``; a cache whose
+        sequence is sharded (``shard_seq``) decodes context-parallel: each
+        rank attends over its block and the blocks merge by their
+        log-sum-exp (``spmd.merge_blocks``)."""
+        pos = spmd.local(cache["pos"])
+        x = self._embed_step(self._rows(token_or_embeds), pos)
         counts = []
         for p, desc, bc in zip(self.layers, self.descs, cache["layers"]):
             x_mid, h2, bc = self._decode_block_pre(
@@ -627,10 +656,11 @@ class Model(nn.Module):
                                              expert_fn=expert_fn,
                                              active=active)
             if cnt is not None:
-                counts.append(cnt)
-        cache["pos"] = (pos + 1 if active is None
-                        else _gate_rows(active, pos + 1, pos))
-        logits = self._logits(self.final_norm(x))[:, 0]
+                counts.append(spmd.local(cnt))
+        cache["pos"] = spmd.replicate_like(
+            pos + 1 if active is None else _gate_rows(active, pos + 1, pos),
+            cache["pos"])
+        logits = spmd.local(self._logits(self.final_norm(x))[:, 0])
         counts = torch.stack(counts) if counts else None
         if counts is not None and active is not None:
             counts = counts * active.to(counts.dtype)[None, :, None]
@@ -645,6 +675,30 @@ def _gate_rows(active, new, old):
 
 def _gate_into(bc, active, **new):
     """Replace block-cache entries with ``new``, keeping the old rows where
-    ``active`` is False (all rows replaced when ``active`` is None)."""
+    ``active`` is False (all rows replaced when ``active`` is None); a
+    placed entry rank by rank (``spmd.block_site``)."""
     for key, val in new.items():
-        bc[key] = val if active is None else _gate_rows(active, val, bc[key])
+        bc[key] = spmd.block_site(_gate_block, bc[key], val, active)
+
+
+def _gate_block(buf, new, active, off):
+    return new if active is None else _gate_rows(active, new, buf)
+
+
+def _whole(buf, rows):
+    if spmd.is_placed(buf) and not (isinstance(rows, slice)
+                                    and rows == slice(None)):
+        raise NotImplementedError("a placed cache is written whole rows at "
+                                  "a time, not a slot's")
+
+
+def _write(bc, key, new, rows=slice(None)):
+    """``bc[key][rows] = new`` in ``bc[key]``'s dtype, in place; a placed
+    entry rank by rank (``spmd.block_site``), whole rows only."""
+    _whole(bc[key], rows)
+    bc[key] = spmd.block_site(_copy_block, bc[key], new, rows)
+
+
+def _copy_block(buf, new, rows, off):
+    buf[rows] = new.to(buf.dtype)
+    return buf

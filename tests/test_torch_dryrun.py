@@ -326,7 +326,19 @@ def test_main_writes_ok_and_skipped_records(tmp_path):
                        .read_text()) for m in ("single", "multi")]
     for rec, n_dev, name in zip(recs, (256, 512), ("16x16", "2x16x16")):
         assert rec["status"] == "ok" and rec["n_devices"] == n_dev
-        assert rec["mesh"] == name and rec["collectives"] is None
+        assert rec["mesh"] == name
+        # the placed decode step's collectives, in the reference's kinds,
+        # give the roofline a collective term
+        assert set(rec["collectives"]) == {
+            "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute"} and "collectives_reason" not in rec
+        # its 2 KV heads do not split over the model axis's 16: the
+        # cache is sharded on head_dim and gathered at B3's site
+        assert rec["collectives_note"] == dryrun.KV_GATHER_NOTE
+        assert rec["collectives"]["all-gather"]["count"] > 0
+        coll = sum(v["bytes"] for v in rec["collectives"].values())
+        r = roofline.analyze(rec, 1.0)
+        assert coll > 0 and r.collective_s == coll / roofline.LINK_BW
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                       "temp_bytes", "code_bytes",
                                       "alias_bytes"}
@@ -345,11 +357,59 @@ def test_main_writes_ok_and_skipped_records(tmp_path):
     rec = json.loads((tmp_path / "qwen3-moe-235b-a22b__decode_32k__single"
                       "_var.json").read_text())
     assert rec["overrides"] == ["moe_dispatch=grouped", "attn_impl=blocked"]
+    # the port refuses grouped dispatch on a placed model: the record is
+    # ok, without collectives, and names the refusal
+    assert rec["status"] == "ok" and rec["collectives"] is None
+    assert "grouped dispatch on a placed model" in rec["collectives_reason"]
     assert rec["kernels"] == {"flash_decode": 94, "moe_ffn": 94}
     before = sorted(p.stat().st_mtime_ns for p in tmp_path.iterdir())
     assert _main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
                   "--both-meshes", "--out", out]) == 0
     assert sorted(p.stat().st_mtime_ns for p in tmp_path.iterdir()) == before
+
+
+def test_report_prints_a_row_per_record(tmp_path, capsys):
+    """``python -m repro_torch.launch.report --dir`` over records that
+    ``dryrun.main`` wrote: one §Dry-run row per record, its collective
+    column each record's ``collectives``, and a §Roofline row per 16x16
+    record with its collective term; ``--md`` fills a file's markers."""
+    from repro_torch.launch import report
+    out = str(tmp_path)
+    assert _main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                  "--both-meshes", "--out", out]) == 0
+    assert _main(["--arch", "qwen3-1.7b", "--shape", "long_500k", "--out",
+                  out]) == 0
+    recs = roofline.load_records(out)
+    md = tmp_path / "report.md"
+    md.write_text("# x\n<!-- DRYRUN_TABLE -->\n<!-- ROOFLINE_TABLE -->\n")
+    capsys.readouterr()
+    report.main(["--dir", out, "--md", str(md)])
+    text = capsys.readouterr().out
+    rows = [line for line in text.splitlines()
+            if line.startswith(("| qwen2-1.5b", "| qwen3-1.7b"))]
+    dry, roof = rows[:len(recs)], rows[len(recs):]
+    assert len(recs) == 3 and len(dry) == 3 and len(roof) == 1
+    for rec in recs:
+        row = next(r for r in dry
+                   if r.startswith(f"| {rec['arch']} | {rec['shape']} | "
+                                   f"{rec.get('mesh', '-')} |"))
+        cell = row.rstrip(" |").rsplit("| ", 1)[1]
+        if rec["status"] == "ok":
+            assert cell == report.collective_cell(
+                rec["collectives"], rec.get("collectives_note"))
+            assert cell.endswith(report.NOTE_MARK) == bool(
+                rec.get("collectives_note"))
+            assert all(f"{k.replace('collective-', 'c-')}:"
+                       f"{report.fmt_bytes(v['bytes'])}" in cell
+                       for k, v in rec["collectives"].items() if v["count"])
+        else:
+            assert "skipped" in row
+    r = roofline.analyze(next(x for x in recs if x.get("mesh") == "16x16"),
+                         1.0)
+    assert f"| {r.collective_s:.2e}{report.NOTE_MARK} |" in roof[0]
+    assert f"{report.NOTE_MARK.strip()} {dryrun.KV_GATHER_NOTE}" in text
+    assert "report: 2 ok, 1 skipped, 0 error" in text
+    assert dry[0] in md.read_text() and roof[0] in md.read_text()
 
 
 def test_train_record_counts_the_step_against_model_flops(tmp_path):

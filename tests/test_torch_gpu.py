@@ -19,6 +19,7 @@ from repro_torch.kernels import moe_ffn as moe_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import selective_scan as scan_mod
 from repro_torch.kernels import wkv6 as wkv_mod
+from repro_torch.launch import spmd
 from repro_torch.models import Model
 from repro_torch.serving import EngineConfig, TorchModelServer
 
@@ -225,6 +226,55 @@ def test_flash_decode_kernel_softcap_and_head_dims(cuda, rep, hd, cap, dtype):
         y = fd_mod.flash_decode(q, k, v, lens, softcap=cap)
         np.testing.assert_allclose(_f32(y), _f32(ref.flash_decode_ref(
             q, k, v, lens, cap)), **_tol(dtype))
+
+
+@pytest.mark.parametrize("hd,cap", [(64, 0.0), (128, 0.0), (256, 50.0)])
+@pytest.mark.parametrize("S", [300, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_lse_matches_plain(cuda, hd, cap, S, dtype):
+    """``return_lse``: the output and each row's log-sum-exp against the
+    plain version's, one split and several; rows of length 0 give out 0
+    and lse -inf (the launch without lse keeps the uniform softmax there);
+    the other rows' outputs are bit-equal to the launch without lse."""
+    rng = np.random.default_rng(24)
+    B, Hkv, rep = 4, 2, 4
+    q = _rand(rng, (B, Hkv * rep, hd), 6.0 if cap else 1.0, dtype, cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, cuda)
+    lens = torch.tensor([0, 1, S, S // 3], dtype=torch.int32, device=cuda)
+    y, lse = fd_mod.flash_decode(q, k, v, lens, softcap=cap,
+                                 return_lse=True)
+    want, want_lse = ref.flash_decode_ref(q, k, v, lens, cap,
+                                          return_lse=True)
+    np.testing.assert_allclose(_f32(y), _f32(want), **_tol(dtype))
+    assert bool((lse[0] == -torch.inf).all()) and bool((y[0] == 0).all())
+    np.testing.assert_allclose(_f32(lse[1:]), _f32(want_lse[1:]), atol=1e-3,
+                               rtol=1e-4)
+    plain = fd_mod.flash_decode(q, k, v, lens, softcap=cap)
+    assert torch.equal(plain[1:], y[1:])
+
+
+@pytest.mark.parametrize("blocks", [2, 4, 16])
+def test_flash_decode_lse_merge_equals_the_unsplit_kernel(cuda, blocks):
+    """B3 over a 4096-position cache cut into blocks (lengths clamped to
+    each, later blocks of short rows empty), merged by
+    ``spmd.merge_blocks``, equals the unsplit launch."""
+    rng = np.random.default_rng(25)
+    B, H, Hkv, hd, S = 4, 32, 2, 128, 4096
+    q = _rand(rng, (B, H, hd), 1.0, "float32", cuda)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, "float32", cuda)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, "float32", cuda)
+    lens = torch.tensor([S, 3000, 200, 1], dtype=torch.int32, device=cuda)
+    n = S // blocks
+    parts = [fd_mod.flash_decode(
+        q, k[:, i * n:(i + 1) * n].contiguous(),
+        v[:, i * n:(i + 1) * n].contiguous(),
+        torch.clamp(lens - i * n, 0, n).to(torch.int32), return_lse=True)
+        for i in range(blocks)]
+    merged = spmd.merge_blocks(torch.stack([p[0] for p in parts]),
+                           torch.stack([p[1] for p in parts]))
+    np.testing.assert_allclose(_f32(merged), _f32(fd_mod.flash_decode(
+        q, k, v, lens)), **_tol("float32"))
 
 
 @pytest.mark.parametrize("hd", [64, 128])

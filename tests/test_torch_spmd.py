@@ -210,8 +210,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _start_ranks(mode, args, tmp_path):
-    """Start ``RANKS`` gloo ranks running ``mode``; -> (processes, out)."""
+def _start_ranks(mode, args, tmp_path, worker=None):
+    """Start ``RANKS`` gloo ranks running ``mode`` of ``worker`` (default
+    this file's); -> (processes, out)."""
     out = str(tmp_path / mode)
     port = _free_port()
     procs = []
@@ -223,7 +224,7 @@ def _start_ranks(mode, args, tmp_path):
                    MASTER_ADDR="localhost", MASTER_PORT=str(port),
                    OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _WORKER, mode,
+            [sys.executable, "-c", worker or _WORKER, mode,
              json.dumps(dict(args, out=out))], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     return procs, out
