@@ -219,6 +219,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      lines equal to every printed digit, the same launch counts, the
      largest |delta| over the parameters, both runs' step ms, one more
      placed step's collectives and an NCCL all-reduce;
+ 17a B3's log-sum-exp output against the plain version, and its merge of
+     2, 4 and 16 blocks of a 32768-position cache against the unsplit
+     kernel;
+ 17. the placed serving steps: prefill of 4 prompts of 32 and 8 greedy
+     decode steps at full width (qwen3-moe 4 layers, rwkv6-7b 4, jamba 5),
+     unplaced, then placed on a (1, 1) NCCL mesh with the cache placed:
+     tokens equal, logits bit-equal, the same launches;
+ 18. grouped MoE dispatch on a placed model: phase 10's qwen3-moe cut
+     under ``moe_dispatch="grouped"``, ``Model.loss`` and its backward
+     unplaced, then placed on a (1, 1) NCCL mesh (B1 through the grouped
+     dispatch's site): loss and every gradient bit-equal, the same
+     launches, both step times; then phase 17's qwen3-moe leg grouped;
+ 18a B3's two halves over a head_dim-sharded cache: B3-qk
+     (``decode_scores``) and B3-pv (``decode_values``) against their plain
+     versions at 17a's shapes over 2, 4 and 16 head_dim slices, bf16 and
+     fp32; then the split decode (each slice's scores summed, on one card
+     the stand-in for the all-reduce over the model axis) against unsplit
+     B3, the launches counted; both timed at the 32768 cache beside their
+     bounds, their plain versions and ``torch.matmul`` (B3-qk);
 then one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -1147,6 +1166,7 @@ def _layer_kinds(cfg):
 
 
 def _reset_counts():
+    from repro_torch.kernels import decode_split as ds_mod
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
     from repro_torch.kernels import selective_scan as scan_mod
@@ -1154,9 +1174,11 @@ def _reset_counts():
     moe_mod.launches = moe_mod.quant_launches = fd_mod.launches = 0
     wkv_mod.launches = scan_mod.launches = 0
     wkv_mod.bwd_launches = scan_mod.bwd_launches = 0
+    ds_mod.scores_launches = ds_mod.values_launches = 0
 
 
 def _counts():
+    from repro_torch.kernels import decode_split as ds_mod
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import moe_ffn as moe_mod
     from repro_torch.kernels import selective_scan as scan_mod
@@ -1167,7 +1189,9 @@ def _counts():
             "wkv6": wkv_mod.launches,
             "selective_scan": scan_mod.launches,
             "wkv6_bwd": wkv_mod.bwd_launches,
-            "selective_scan_bwd": scan_mod.bwd_launches}
+            "selective_scan_bwd": scan_mod.bwd_launches,
+            "decode_scores": ds_mod.scores_launches,
+            "decode_values": ds_mod.values_launches}
 
 
 def _want(**counts):
@@ -3542,7 +3566,8 @@ SERVE_MESH_LEGS = (("qwen3", QWEN3, 4, ("moe_ffn", "flash_decode")),
 SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 4, 32, 8
 
 
-def placed_serve_path(card, leg, arch, depth, kernels):
+def placed_serve_path(card, leg, arch, depth, kernels, phase="17",
+                      **overrides):
     """Phase 17: ``Model.prefill`` of phase 4's request mix (B = 4 prompts
     of 32 tokens) and 8 greedy ``Model.serve_step``s at every published
     width, depth cut to ``depth``: first on the model as built, then on
@@ -3551,8 +3576,9 @@ def placed_serve_path(card, leg, arch, depth, kernels):
     ``sharding.place_cache`` (every kernel through its site). The tokens
     must be equal, the logits bit-equal and the kernels' launches the
     same; each run's decode-step ms and the collectives of one more
-    placed step are printed. -> (the placed run's launch counts, a dict
-    for the kernels' rows)."""
+    placed step are printed. ``overrides``: config fields (phase 18 runs
+    it under ``moe_dispatch="grouped"``). -> (the placed run's launch
+    counts, a dict for the kernels' rows)."""
     import numpy as np
     import torch
     from repro_torch.launch import sharding, spmd
@@ -3560,9 +3586,11 @@ def placed_serve_path(card, leg, arch, depth, kernels):
     from repro_torch.launch.serve import DATA_VOCAB
     from repro_torch.models import Model
 
-    cfg = _full_cfg(f"phase 17 {leg}: prefill + {SERVE_MESH_STEPS} decode "
-                    "steps, unplaced | placed on a (1, 1) NCCL mesh", arch,
-                    depth)
+    cfg = dataclasses.replace(_full_cfg(
+        f"phase {phase} {leg}: prefill + {SERVE_MESH_STEPS} decode steps, "
+        f"unplaced | placed on a (1, 1) NCCL mesh"
+        + "".join(f", {k}={v}" for k, v in overrides.items()), arch, depth),
+        **overrides)
     gc.collect()
     torch.cuda.empty_cache()
     model = Model(cfg, device="cuda").init(0)
@@ -3629,9 +3657,304 @@ def placed_serve_path(card, leg, arch, depth, kernels):
     gc.collect()
     torch.cuda.empty_cache()
     if bad:
-        raise SystemExit(f"phase 17 {leg}: " + "; ".join(bad))
+        raise SystemExit(f"phase {phase} {leg}: " + "; ".join(bad))
     return counts, dict(decode_step_ms=med, max_abs_delta=delta,
                         collectives=counter.record())
+
+
+# ---------------------------------------------------------------------------
+# phase 18: grouped MoE dispatch on a placed model over a (1, 1) NCCL mesh;
+# 18a: B3's two halves over head_dim slices (B3-qk, B3-pv)
+# ---------------------------------------------------------------------------
+
+GROUPED_MESH_STEPS = 3
+
+
+def grouped_mesh_train(card):
+    """Phase 18 (training): phase 10's full-width qwen3-moe cut to 1 layer
+    under ``moe_dispatch="grouped"``, one batch of 4 x 128: ``Model.loss``
+    (remat on) and its backward, ``GROUPED_MESH_STEPS`` times, first
+    unplaced, then on the same weights placed (``sharding.place``) over a
+    (1, 1) ("data", "model") mesh of one NCCL rank, the batch by
+    ``sharding.place_batch``: the grouped dispatch's site over the local
+    blocks, B1 over (E, B·C, d). The loss and every gradient must be
+    bit-equal and B1's launches the same; both runs' step ms are printed.
+    -> (the placed run's launch counts, a dict for B1's row)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding, spmd
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import DATA_VOCAB
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.loop import to_batch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(
+        _full_cfg("phase 18: loss and gradients with grouped MoE dispatch, "
+                  "unplaced | placed on a (1, 1) NCCL mesh", QWEN3, depth=1),
+        moe_dispatch="grouped")
+    model = Model(cfg, device="cuda").init(0).trainable()
+    data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
+                                  seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
+    batch = to_batch(next(iter(data.batches(1, seed=18))), "cuda")
+    shapes = []
+    ffn = ops.moe_expert_ffn
+
+    def recording(xg, *args, **kw):
+        shapes.append(tuple(xg.shape))
+        return ffn(xg, *args, **kw)
+
+    def run(b):
+        _reset_counts()
+        ms = []
+        for _ in range(GROUPED_MESH_STEPS):
+            for p in model.parameters():
+                p.grad = None
+            shapes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with spmd.step_context(model):
+                loss = model.loss(b, remat=True)
+                loss.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        grads = {n: p.grad.to_local() if spmd.is_placed(p.grad) else p.grad
+                 for n, p in model.named_parameters()}
+        return dict(loss=spmd.local(loss.detach()), grads=grads, ms=ms,
+                    counts=_counts(), shapes=list(shapes))
+
+    ops.moe_expert_ffn = recording
+    try:
+        plain = run(batch)
+        spmd.start("cuda")
+        mesh = Mesh(("data", "model"), (1, 1))
+        dm = spmd.device_mesh(mesh, "cuda")
+        sharding.place(model, dm, mesh)
+        placed = run(sharding.place_batch(batch, dm))
+        spmd.stop()
+    finally:
+        ops.moe_expert_ffn = ffn
+    same_loss = bool(torch.equal(plain["loss"], placed["loss"]))
+    differ = [n for n, g in plain["grads"].items()
+              if not torch.equal(g, placed["grads"][n])]
+    finite = bool(torch.isfinite(placed["loss"])) and all(
+        bool(torch.isfinite(g).all()) for g in placed["grads"].values())
+    med = {k: float(np.median(r["ms"][1:]))
+           for k, r in (("unplaced", plain), ("placed", placed))}
+    print(f"  loss {float(plain['loss']):.6f} | {float(placed['loss']):.6f} "
+          f"(bit-equal: {same_loss}); gradients bit-equal: "
+          f"{len(plain['grads']) - len(differ)} of {len(plain['grads'])}; "
+          f"B1 inputs {placed['shapes']}; launches "
+          f"{({k: v for k, v in plain['counts'].items() if v})} | "
+          f"{({k: v for k, v in placed['counts'].items() if v})}; loss + "
+          f"backward ms (median of steps 2-{GROUPED_MESH_STEPS}) "
+          f"{med['unplaced']:.3f} | {med['placed']:.3f}, first "
+          f"{plain['ms'][0]:.1f} | {placed['ms'][0]:.1f} [{card}]")
+    counts, same_counts = placed["counts"], plain["counts"] == placed["counts"]
+    del model, plain, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same_loss or differ or not finite:
+        raise SystemExit(f"phase 18: the placed grouped step differs from "
+                         f"the unplaced one (loss bit-equal {same_loss}, "
+                         f"finite {finite}; gradients that differ: "
+                         f"{differ[:5]})")
+    if not same_counts or counts != _want(moe_ffn=counts["moe_ffn"]) or \
+            counts["moe_ffn"] < GROUPED_MESH_STEPS:
+        raise SystemExit(f"phase 18: launches {counts} differ from the "
+                         "unplaced run's, or B1 missed a step, or another "
+                         "kernel ran")
+    return counts, dict(step_ms=med)
+
+
+# phase 18a's head_dim splits: the model axis's ranks a cache's head_dim
+# is cut into (16: hd 64 -> 4 columns a slice, Whisper's on 16 x 16)
+HD_SPLITS = (2, 4, 16)
+
+
+def _split_decode(q, k, v, lens, cap, n):
+    """Decode of q over K/V cut into ``n`` head_dim slices as the placed
+    step runs it, one slice a rank: B3-qk over each slice, the slices'
+    scores summed (on one card the stand-in for the all-reduce over the
+    model axis), B3-pv over each V slice; the slices' outputs side by
+    side."""
+    import torch
+    from repro_torch.kernels import decode_split as ds_mod
+
+    hd = q.shape[-1]
+    w = hd // n
+    sl = [slice(i * w, (i + 1) * w) for i in range(n)]
+    slices = [(q[..., s].contiguous(), k[..., s].contiguous(),
+               v[..., s].contiguous()) for s in sl]
+    scores = torch.stack([ds_mod.decode_scores(qs, ks, lens, hd ** -0.5)
+                          for qs, ks, _ in slices]).sum(0)
+    return torch.cat([ds_mod.decode_values(scores, vs, lens, cap)
+                      for _, _, vs in slices], -1)
+
+
+def check_decode_split(gen, card):
+    """Phase 18a: B3-qk (``decode_scores``) and B3-pv (``decode_values``)
+    at ``B3_LSE_SHAPES`` (phase 17a's: qwen3-moe's 64/4 heads x 128 at S
+    64 and 32768, Gemma-2's hd 256 with softcap 50 over a ragged ring,
+    Whisper's cross-attention at hd 64, rows with no valid position), bf16
+    and fp32, over 2, 4 and 16 head_dim slices: each slice's scores
+    against ``ref.decode_scores_ref`` (0 past each length), each V slice's
+    output and lse against ``ref.decode_values_ref`` (out 0, lse -inf
+    where a row has no position); these launches are not counted. Then,
+    counts at 0, the split decode of every shape as the placed step runs
+    it (``_split_decode``) against unsplit B3 (the lse launch where a row
+    has no position): the launches counted are that run's. Timed at the
+    32768 cache over 2, 4 and 16 slices (one slice's launch, as one
+    rank's):
+    kernels, plain versions, ``torch.matmul`` over the GQA view for B3-qk
+    (B3-pv has no one-call library counterpart). -> (the split run's
+    launch counts, B3-qk's row, B3-pv's row)."""
+    import torch
+    from repro_torch.kernels import decode_split as ds_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    print("phase 18a: B3-qk and B3-pv vs plain over head_dim slices; the "
+          "split decode (scores summed as the all-reduce sums them) vs "
+          "unsplit B3")
+    errs = {"decode_scores": 0.0, "decode_values": 0.0}
+
+    def inputs(B, H, Hkv, hd, S, lens, cap, dtype):
+        q = (torch.randn((B, H, hd), generator=gen, device="cuda")
+             * (8.0 if cap else 1.0)).to(dtype)
+        k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in "kv")
+        return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, B, H, Hkv, hd, S, lens, cap in B3_LSE_SHAPES:
+            q, k, v, cl = inputs(B, H, Hkv, hd, S, lens, cap, dtype)
+            for n in HD_SPLITS:
+                w = hd // n
+                qs, ks, vs = (t[..., :w].contiguous() for t in (q, k, v))
+                sc = ds_mod.decode_scores(qs, ks, cl, hd ** -0.5)
+                want = ref.decode_scores_ref(qs, ks, cl, hd ** -0.5)
+                torch.cuda.synchronize()
+                e_s = compare(f"B3-qk {what} {dtype} 1/{n}", sc, want)
+                past = (torch.arange(S, device="cuda")[None, None, :]
+                        >= cl[:, None, None]).expand_as(sc)
+                if bool(sc[past].any()):
+                    raise SystemExit(f"B3-qk {what}: a score past a row's "
+                                     "length is not 0")
+                out, lse = ds_mod.decode_values(want, vs, cl, cap,
+                                                return_lse=True)
+                w_o, w_l = ref.decode_values_ref(want, vs, cl, cap,
+                                                 return_lse=True)
+                torch.cuda.synchronize()
+                e_v = compare(f"B3-pv {what} {dtype} 1/{n}", out, w_o)
+                empty = w_l == -torch.inf
+                if not torch.equal(lse == -torch.inf, empty) or bool(
+                        out[empty].any()):
+                    raise SystemExit(f"B3-pv {what} {dtype}: a row with no "
+                                     "valid position is not out 0, lse -inf")
+                dl = (lse - w_l)[~empty].abs()
+                if dl.numel() and bool((dl > LSE_TOL[0] + LSE_TOL[1]
+                                        * w_l[~empty].abs()).any()):
+                    raise SystemExit(f"B3-pv lse {what} {dtype}: |delta| "
+                                     f"{float(dl.max()):g} over {LSE_TOL}")
+                errs["decode_scores"] = max(errs["decode_scores"], e_s)
+                errs["decode_values"] = max(errs["decode_values"], e_v)
+            cases.append((what, dtype, q, k, v, cl, cap))
+    # unsplit B3 first (the lse launch where a row has no position), then
+    # the split decode as the placed step runs it: only its launches count
+    wholes = []
+    for what, dtype, q, k, v, cl, cap in cases:
+        lse_mode = min(cl.tolist()) < 1
+        whole = flash_decode(q, k, v, cl, cap, return_lse=lse_mode)
+        wholes.append((whole[0] if lse_mode else whole,
+                       " (lse mode)" if lse_mode else ""))
+    torch.cuda.synchronize()
+    _reset_counts()
+    split = []
+    for (what, dtype, q, k, v, cl, cap), (whole, mode) in zip(cases, wholes):
+        for n in HD_SPLITS:
+            split.append((f"{what} {dtype} over {n} slices vs unsplit B3"
+                          f"{mode}", _split_decode(q, k, v, cl, cap, n),
+                          whole))
+    torch.cuda.synchronize()
+    counts = _counts()
+    worst = max(compare(name, out, whole) for name, out, whole in split)
+    del split, cases, wholes
+    want = len(B3_LSE_SHAPES) * 2 * sum(HD_SPLITS)
+    if counts != _want(decode_scores=want, decode_values=want):
+        raise SystemExit(f"phase 18a: launches {counts}, expected B3-qk and "
+                         f"B3-pv {want} each")
+    # times at the 32768 cache (bf16), one slice's launch as one rank's
+    B, H, Hkv, hd, S = LONG_CACHE
+    q, k, v, cl = inputs(B, H, Hkv, hd, S, [32768, 16384, 8192, 1], 0.0,
+                         torch.bfloat16)
+    n_valid = sum(min(int(n), S) for n in cl.tolist())
+    times = {}
+    for n in HD_SPLITS:
+        w = hd // n
+        qs, ks, vs = (t[..., :w].contiguous() for t in (q, k, v))
+        scores = ds_mod.decode_scores(qs, ks, cl, hd ** -0.5)
+        rep = H // Hkv
+        qg = qs.view(B, Hkv, rep, w)
+        kt = ks.permute(0, 2, 3, 1)                  # (B, Hkv, w, S) view
+        t = dict(
+            qk_ms=time_ms(lambda: ds_mod.decode_scores(qs, ks, cl,
+                                                       hd ** -0.5), 100),
+            qk_plain_ms=time_ms(lambda: ref.decode_scores_ref(
+                qs, ks, cl, hd ** -0.5), 3, ahead=False),
+            qk_library_ms=time_ms(lambda: torch.matmul(qg, kt), 100),
+            pv_ms=time_ms(lambda: ds_mod.decode_values(scores, vs, cl),
+                          100),
+            pv_plain_ms=time_ms(lambda: ref.decode_values_ref(
+                scores, vs, cl), 3, ahead=False))
+        t["qk_bound_ms"], t["qk_bound_by"] = bounds.decode_scores(
+            B, H, Hkv, w, n_valid, 2, torch.bfloat16)
+        t["pv_bound_ms"], t["pv_bound_by"] = bounds.decode_values(
+            B, H, Hkv, w, n_valid, 2, torch.bfloat16)
+        n_split, split_len = ds_mod.splits(
+            B, Hkv, S, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        print(f"  time B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens "
+              f"{cl.tolist()} bf16, one of {n} slices (hd_l {w}): B3-qk "
+              f"{t['qk_ms']:.4f} ms (plain {t['qk_plain_ms']:.4f}, library "
+              f"torch.matmul over the GQA view {t['qk_library_ms']:.4f}, "
+              f"bound {t['qk_bound_ms']:.6f} ({t['qk_bound_by']}), roofline "
+              f"{t['qk_bound_ms'] / t['qk_ms']:.1%}); B3-pv {n_split} splits "
+              f"of {split_len}: {t['pv_ms']:.4f} ms (plain "
+              f"{t['pv_plain_ms']:.4f}, library none: no one call takes the "
+              f"scores to a masked, softcapped softmax times V; bound "
+              f"{t['pv_bound_ms']:.6f} ({t['pv_bound_by']}), roofline "
+              f"{t['pv_bound_ms'] / t['pv_ms']:.1%}) [{card}]")
+        times[n] = t
+        del scores
+    shape = (f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens={cl.tolist()} "
+             f"bf16, one of 2 head_dim slices (hd_l {hd // 2})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    t = times[2]
+    common = dict(route="cuda", replaces="src/repro/kernels/flash_decode.py"
+                  ":83", shape=shape, split_vs_unsplit_max_abs_err=worst)
+    qk = dict(name="decode_scores", source="src/repro_torch/kernels/csrc/"
+              "decode_scores.cu", max_abs_err=errs["decode_scores"],
+              ms=t["qk_ms"], plain_ms=t["qk_plain_ms"],
+              bound_ms=t["qk_bound_ms"], bound_by=t["qk_bound_by"],
+              library_ms=t["qk_library_ms"],
+              by_slices={n: {k: v for k, v in x.items()
+                             if k.startswith("qk")}
+                         for n, x in times.items()}, **common)
+    pv = dict(name="decode_values", source="src/repro_torch/kernels/csrc/"
+              "decode_values.cu", max_abs_err=errs["decode_values"],
+              ms=t["pv_ms"], plain_ms=t["pv_plain_ms"],
+              bound_ms=t["pv_bound_ms"], bound_by=t["pv_bound_by"],
+              library_ms=None,
+              by_slices={n: {k: v for k, v in x.items()
+                             if k.startswith("pv")}
+                         for n, x in times.items()}, **common)
+    return counts, qk, pv
 
 
 # ---------------------------------------------------------------------------
@@ -3999,10 +4322,9 @@ def dryrun_sweep():
     roofline of qwen3-moe's decode_32k and train_4k records, every train
     record's collectives (one without fails the phase), and the serving
     records' (qwen3-moe's decode_32k on 16 x 16 and every long_500k
-    record, each with its roofline's collective term and whether its K/V
-    cache is all-gathered at B3's site; an ok serving record without
-    collectives is listed with the op that refused, and fails the
-    phase)."""
+    record, each with its roofline's collective term; an ok serving
+    record without collectives is listed with the op that refused, and
+    fails the phase)."""
     import collections
     import tempfile
     from repro_torch.config import INPUT_SHAPES
@@ -4067,13 +4389,10 @@ def dryrun_sweep():
     serving = [r for r in recs if r["status"] == "ok"
                and r["kind"] != "train"]
     unplaced = [r for r in serving if r["collectives"] is None]
-    gathered = [r for r in serving if r.get("collectives_note")]
     print(f"  serving records: {len(serving)} ok, "
           f"{len(serving) - len(unplaced)} with collectives (their placed "
           f"traces {sum(r['t_place_s'] or 0 for r in serving):.1f} s of "
-          f"the sweep's processes' time), {len(gathered)} of them decode "
-          f"records whose K/V cache is all-gathered at B3's site "
-          f"(collectives_note); without: "
+          f"the sweep's processes' time); without: "
           + ("none" if not unplaced else "; ".join(
               f"{r['arch']} {r['shape']} {r['mesh']}: "
               f"{r['collectives_reason'][:120]}" for r in unplaced)))
@@ -4094,9 +4413,7 @@ def dryrun_sweep():
                           for k, v in rec["collectives"].items()
                           if v["count"])
               + f"; collective term {r.collective_s:.4e} s over NVLink's "
-              f"datasheet rate, dominant {r.dominant}"
-              + ("; K/V all-gathered at B3's site (collectives_note)"
-                 if rec.get("collectives_note") else ""))
+              f"datasheet rate, dominant {r.dominant}")
     for rec in recs:
         if rec["status"] == "ok" and rec["kind"] == "train":
             if rec["collectives"] is None:
@@ -4702,10 +5019,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds = {"2": round(time.perf_counter() - t0, 1)}
 
-    def timed(phase, fn, *args, **kw):
+    def timed(label, fn, *args, **kw):
         t = time.perf_counter()
         out = fn(*args, **kw)
-        seconds[phase] = round(time.perf_counter() - t, 1)
+        seconds[label] = round(time.perf_counter() - t, 1)
         return out
     rows = [timed("3a", check_moe_ffn, gen, card),
             timed("3c", check_moe_ffn_quant, gen, card),
@@ -4771,6 +5088,14 @@ def main() -> int:
     for leg, arch, depth, kernels in SERVE_MESH_LEGS:
         paths[f"serve_mesh_{leg}"], serve_rows[leg] = timed(
             f"17 {leg}", placed_serve_path, card, leg, arch, depth, kernels)
+    paths["train_mesh_grouped"], rows[0]["mesh_grouped_train"] = timed(
+        "18 train", grouped_mesh_train, card)
+    paths["serve_mesh_grouped"], rows[0]["mesh_grouped_serve"] = timed(
+        "18 serve", placed_serve_path, card, "qwen3", QWEN3, 4,
+        ("moe_ffn", "flash_decode"), phase="18", moe_dispatch="grouped")
+    paths["hd_split"], qk_row, pv_row = timed("18a", check_decode_split,
+                                              gen, card)
+    rows += [qk_row, pv_row]
     print(f"phase seconds (wall, each phase's own): {seconds}; total "
           f"{time.perf_counter() - t0:.1f} s since the build began")
     rows[5]["train_rwkv"], rows[6]["train_jamba"] = (recurrent["rwkv"],
@@ -4801,6 +5126,9 @@ def main() -> int:
                           for leg, _, _, names in MESH_LEGS),
                         *((f"serve_mesh_{leg}", names)
                           for leg, _, _, names in SERVE_MESH_LEGS),
+                        ("train_mesh_grouped", ("moe_ffn",)),
+                        ("serve_mesh_grouped", ("moe_ffn", "flash_decode")),
+                        ("hd_split", ("decode_scores", "decode_values")),
                         ("ep_streaming_d2", ("flash_decode",
                                              "moe_ffn_quant")),
                         ("ep_streaming_d4", ("flash_decode",

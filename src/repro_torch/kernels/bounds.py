@@ -87,6 +87,24 @@ def flash_decode(B, H, Hkv, hd, n_valid, esz, dtype):
                  4 * H * hd * n_valid, dtype)
 
 
+def decode_scores(B, H, Hkv, hd_l, n_valid, esz, dtype):
+    """B3-qk, one head_dim slice's partial scores: q's slice once, the K
+    slice of the ``n_valid`` valid positions summed over the rows, and
+    their fp32 scores written once; q·Kᵀ, 2 operations a head, slice
+    dimension and valid position."""
+    return bound(esz * (B * H * hd_l + n_valid * Hkv * hd_l)
+                 + 4 * H * n_valid, 2 * H * hd_l * n_valid, dtype)
+
+
+def decode_values(B, H, Hkv, hd_l, n_valid, esz, dtype):
+    """B3-pv, the softmax of the summed scores over one head_dim slice of
+    V: the fp32 scores of the ``n_valid`` valid positions and the V slice
+    there read once, the output's slice written once; p·V, 2 operations a
+    head, slice dimension and valid position."""
+    return bound(4 * H * n_valid + esz * (n_valid * Hkv * hd_l + B * H * hd_l),
+                 2 * H * hd_l * n_valid, dtype)
+
+
 def _wkv6_bytes(BH, T, hd, rkv_esz, w_esz):
     """r, k, v, o (rkv_esz), w (w_esz), u, s0 and sN (fp32) once."""
     return (4 * BH * T * hd * rkv_esz + BH * T * hd * w_esz

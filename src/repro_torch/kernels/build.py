@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 KERNELS = ("moe_ffn", "moe_ffn_quant", "flash_decode", "wkv6",
-           "selective_scan", "wkv6_bwd", "selective_scan_bwd")
+           "selective_scan", "wkv6_bwd", "selective_scan_bwd",
+           "decode_scores", "decode_values")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # codes of csrc/common.cuh
 WIRE_DTYPES = {torch.float16: 2, torch.int8: 3}
 # B4/B5 under a gradient: the forwards store the fp32 state before every
@@ -50,6 +51,13 @@ _SIGNATURES = {
     # split_len, scale, softcap, dtype, stream
     "flash_decode": ("flash_decode_launch",
                      [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P]),
+    # q, k, lens, scores, B, T, Hkv, rep, hd, scale, dtype, stream
+    "decode_scores": ("decode_scores_launch",
+                      [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
+    # scores, v, lens, out, part, lse (or None), B, T, Hkv, rep, hd,
+    # splits, split_len, softcap, dtype, stream
+    "decode_values": ("decode_values_launch",
+                      [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     # r, k, v, w, u, s0, o, sN, ck (or None), BH, T, hd, rows, cols, dtype,
     # w_dtype, stream
     "wkv6": ("wkv6_launch", [_P] * 9 + [_I] * 7 + [_P]),

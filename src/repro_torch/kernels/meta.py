@@ -113,6 +113,30 @@ def flash_decode(q, k, v, return_lse: bool = False):
     return outs if return_lse else outs[0]
 
 
+def decode_scores(q, k):
+    """B3-qk: q (B, H, hd_l) against k (B, S, Hkv, hd_l) -> the partial
+    scores (B, H, S) fp32. Product: q·Kᵀ over every cache position."""
+    B, H, hd = q.shape
+    S = k.shape[1]
+    (scores,) = stand_in("decode_scores", (q, k),
+                         [((B, H, S), torch.float32)], 2.0 * B * H * S * hd)
+    return scores
+
+
+def decode_values(scores, v, return_lse: bool = False):
+    """B3-pv: the summed scores (B, H, S) over v (B, S, Hkv, hd_l) ->
+    (B, H, hd_l), and with ``return_lse`` each row's fp32 log-sum-exp
+    (B, H). Product: p·V over every cache position."""
+    B, H, S = scores.shape
+    hd = v.shape[3]
+    specs = [((B, H, hd), v.dtype)]
+    if return_lse:
+        specs.append(((B, H), torch.float32))
+    outs = stand_in("decode_values", (scores, v), specs,
+                    2.0 * B * H * S * hd)
+    return outs if return_lse else outs[0]
+
+
 def wkv6(r, k, v, w, u, s0):
     """B4: (BH, T, hd) rows from s0 (BH, hd, hd) -> (o, sN fp32). Product:
     r_t·S per step (the state update is elementwise). Backward

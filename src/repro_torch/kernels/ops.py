@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from repro_torch.core.slot_cache import EXPERT_WEIGHT_NAMES
 from repro_torch.kernels import build, meta, ref
+from repro_torch.kernels.decode_split import decode_scores as _scores
+from repro_torch.kernels.decode_split import decode_values as _values
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.moe_ffn import MoEFFN, moe_ffn, moe_ffn_quant
 from repro_torch.kernels.selective_scan import SelectiveScan
@@ -59,6 +61,30 @@ def decode_attention(q, k, v, cache_len, softcap: float = 0.0, *,
     if q.device.type == "meta":
         return meta.flash_decode(q, k, v, return_lse=return_lse)
     return flash_decode(q, k, v, cache_len, softcap, return_lse=return_lse)
+
+
+def decode_scores(q, k, cache_len, scale: float):
+    """B3-qk: one head_dim slice's partial decode scores (B, H, S) fp32 of
+    q (B, H, hd_l) against k (B, S, Hkv, hd_l), ``scale`` 1/sqrt of the
+    whole head_dim, 0 past each row's length (``decode_split``)."""
+    if q.device.type == "cpu":
+        return ref.decode_scores_ref(q, k, cache_len, scale)
+    if q.device.type == "meta":
+        return meta.decode_scores(q, k)
+    return _scores(q, k, cache_len, scale)
+
+
+def decode_values(scores, v, cache_len, softcap: float = 0.0, *,
+                  return_lse: bool = False):
+    """B3-pv: the softcapped, masked softmax of the summed scores (B, H, S)
+    times one head_dim slice of V (B, S, Hkv, hd_l) -> (B, H, hd_l), and
+    with ``return_lse`` each row's fp32 log-sum-exp (``decode_split``)."""
+    if v.device.type == "cpu":
+        return ref.decode_values_ref(scores, v, cache_len, softcap,
+                                     return_lse=return_lse)
+    if v.device.type == "meta":
+        return meta.decode_values(scores, v, return_lse=return_lse)
+    return _values(scores, v, cache_len, softcap, return_lse=return_lse)
 
 
 def wkv_scan(r, k, v, w, u, s0):

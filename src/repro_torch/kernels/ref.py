@@ -105,6 +105,46 @@ def flash_decode_ref(q, k, v, cache_len, softcap: float = 0.0, *,
     return torch.einsum("bhs,bshd->bhd", wts, vf).to(q.dtype)
 
 
+def decode_scores_ref(q, k, cache_len, scale: float):
+    """B3-qk's plain version: q (B, H, hd_l) against k (B, S, Hkv, hd_l),
+    one head_dim slice of each, times ``scale`` (1/sqrt of the whole
+    head_dim) -> the partial scores (B, H, S) fp32, 0 past each row's
+    length. The slices' partial scores sum to ``flash_decode_ref``'s scaled
+    scores."""
+    B, H, _ = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // Hkv, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), kf) * scale
+    lens = lengths(cache_len, B, q.device)
+    mask = torch.arange(S, device=q.device)[None, None, :] \
+        < lens[:, None, None]
+    return torch.where(mask, scores, 0.0)
+
+
+def decode_values_ref(scores, v, cache_len, softcap: float = 0.0, *,
+                      return_lse: bool = False):
+    """B3-pv's plain version: the summed scores (B, H, S) fp32, softcapped
+    as ``flash_decode_ref`` caps them, softmaxed over each row's valid
+    positions, times v (B, S, Hkv, hd_l), one head_dim slice -> (B, H,
+    hd_l) in v's dtype; ``return_lse``: also each row's fp32 log-sum-exp
+    (B, H). A row with no valid position gives out 0 and lse -inf."""
+    B, H, S = scores.shape
+    Hkv = v.shape[2]
+    s = scores.float()
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    lens = lengths(cache_len, B, scores.device)
+    mask = torch.arange(S, device=scores.device)[None, None, :] \
+        < lens[:, None, None]
+    s = torch.where(mask, s, -torch.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    empty = (lse == -torch.inf)[..., None]
+    wts = torch.exp(s - torch.where(empty, 0.0, lse[..., None]))
+    vf = v.float().repeat_interleave(H // Hkv, dim=2)
+    out = torch.einsum("bhs,bshd->bhd", wts, vf).to(v.dtype)
+    return (out, lse) if return_lse else out
+
+
 def wkv6_ref(r, k, v, w, u, s0):
     """RWKV6 recurrence, a sequential fp32 loop over T. r/k/v/w: (BH, T,
     hd); u: (BH, hd); s0: (BH, hd, hd). Per step

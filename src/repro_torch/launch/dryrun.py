@@ -35,14 +35,14 @@ device's: each step is traced a second time for each mesh, placed
 is smaller than them) on meta over a fake process group of the mesh's
 size, with ``spmd.CollectiveCounter`` counting the collectives DTensor's
 sharding propagation inserts and the kernel sites' merges issue
-(``t_place_s`` is that trace's time). A serving step that cannot be
-placed (an op with no sharding rule, or one the port refuses on a placed
-model: ``NotImplementedError``) keeps ``collectives`` None, and its
+(``t_place_s`` is that trace's time). A decode step over a K/V cache
+sharded on head_dim all-reduces its partial scores there (B3-qk, then
+B3-pv) and gathers no cache. A step that cannot be placed (an op with no
+sharding rule, or one the port refuses on a placed model:
+``NotImplementedError``) keeps ``collectives`` None, and its
 ``collectives_reason`` names the op; any other fault is an error record.
-A decode record whose K/V cache is sharded on head_dim, and so
-all-gathered at B3's site, carries ``collectives_note``. The port updates parameters, moments and caches in
-place, so ``output_bytes`` counts only what the step returns besides
-them.
+The port updates parameters, moments and caches in place, so
+``output_bytes`` counts only what the step returns besides them.
 """
 from __future__ import annotations
 
@@ -291,29 +291,6 @@ def placed_collectives(cfg, shape, mesh, *,
             for kind in one}
 
 
-# a decode record whose collectives hold the K/V cache's all-gather
-KV_GATHER_NOTE = (
-    "K/V cache sharded on head_dim (its KV heads do not split over the "
-    "model axis) and all-gathered over the model axis at B3's site in "
-    "every attention layer (attention._attend): a cost of the port's "
-    "decode design, not of the reference's sharding (ROADMAP: partial "
-    "scores over head_dim shards)")
-
-
-def kv_gathered(cfg, shape, mesh, model=None) -> bool:
-    """Whether ``cfg``'s placed decode step at ``shape`` over ``mesh``
-    all-gathers its K/V cache: ``cache_shardings`` shards a K/V entry on
-    head_dim when its KV heads do not split over the model axis, and B3
-    takes whole heads."""
-    cache, _ = decode_inputs(cfg, shape, model)
-    rows = math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
-    specs = cache_shardings(cache, mesh, cfg,
-                            shard_seq=shape.global_batch < rows)
-    return any(spec[3] == "model" for layer in specs["layers"]
-               for key, spec in layer.items()
-               if key in ("k", "v", "cross_k", "cross_v"))
-
-
 def _mesh_name(multi_pod: bool, debug_mesh: bool) -> str:
     return ("debug-multi" if multi_pod else "debug") if debug_mesh \
         else ("2x16x16" if multi_pod else "16x16")
@@ -349,21 +326,15 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool,
         _TRACES[key] = trace(fn, args, model)
     t = _TRACES[key]
     t0 = time.time()
-    if shape.kind == "train":
+    try:
         coll = placed_collectives(cfg, shape, mesh, with_optimizer=with_opt)
-    else:
-        try:
-            coll = placed_collectives(cfg, shape, mesh)
-        except NotImplementedError as e:
-            # an op DTensor has no sharding rule for, or one the port
-            # refuses on a placed model (each names the op): not an error
-            coll = None
-            rec["collectives_reason"] = (
-                f"the placed {shape.kind} step raised "
-                f"{type(e).__name__}: {str(e)[:300]}")
-        if coll is not None and shape.kind == "decode" and \
-                kv_gathered(cfg, shape, mesh, model):
-            rec["collectives_note"] = KV_GATHER_NOTE
+    except NotImplementedError as e:
+        # an op DTensor has no sharding rule for, or one the port refuses
+        # on a placed model (each names the op): not an error
+        coll = None
+        rec["collectives_reason"] = (
+            f"the placed {shape.kind} step raised "
+            f"{type(e).__name__}: {str(e)[:300]}")
     t_place = round(time.time() - t0, 1)
     rec.update(
         cost_corrected={"dot_flops": t["dot_flops"],

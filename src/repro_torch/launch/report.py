@@ -6,8 +6,7 @@
 
 Prints the §Dry-run table (one row per record: status, trace seconds,
 dot TFLOPs of the whole step, argument and temporary bytes per device,
-and each collective kind's bytes per device as the record holds them,
-marked with a footnote where the record carries a ``collectives_note``)
+and each collective kind's bytes per device as the record holds them)
 and the §Roofline table (the 16x16 records through ``roofline.analyze``:
 compute, memory and collective seconds on H100 datasheet rates). With
 ``--md`` it also writes them between the file's ``<!-- DRYRUN_TABLE -->``
@@ -36,26 +35,14 @@ def fmt_bytes(b):
     return f"{b:.1f}PB"
 
 
-# marks a record whose collectives carry a ``collectives_note``
-NOTE_MARK = " †"
-
-
-def collective_cell(coll, note=None) -> str:
+def collective_cell(coll) -> str:
     """A record's ``collectives`` as the table shows them: each kind with
-    a count, its bytes per device; "not placed" for None; marked when the
-    record has a ``collectives_note``."""
+    a count, its bytes per device; "not placed" for None."""
     if coll is None:
         return "not placed"
-    return (", ".join(
+    return ", ".join(
         f"{k.replace('collective-', 'c-')}:{fmt_bytes(v['bytes'])}"
-        for k, v in coll.items() if v["count"]) or "none") \
-        + (NOTE_MARK if note else "")
-
-
-def _footnotes(recs) -> str:
-    notes = sorted({r["collectives_note"] for r in recs
-                    if r.get("collectives_note")})
-    return "".join(f"\n\n{NOTE_MARK.strip()} {n}" for n in notes)
+        for k, v in coll.items() if v["count"]) or "none"
 
 
 def _key(r):
@@ -70,8 +57,7 @@ def dryrun_table(recs) -> str:
         head = f"| {r['arch']} | {r['shape']} | {r.get('mesh', '-')}"
         if r["status"] == "ok":
             n = r["n_devices"]
-            coll = collective_cell(r["collectives"],
-                                   r.get("collectives_note"))
+            coll = collective_cell(r["collectives"])
             lines.append(
                 f"{head} | ok | {r['t_trace_s']}s | "
                 f"{(r['cost']['flops'] or 0) / 1e12:.1f} | "
@@ -84,7 +70,7 @@ def dryrun_table(recs) -> str:
         else:
             lines.append(f"{head} | ERROR | — | — | — | — | "
                          f"{r.get('error', '')[:80]} |")
-    return "\n".join(lines) + _footnotes(recs)
+    return "\n".join(lines)
 
 
 def roofline_table(recs) -> str:
@@ -98,13 +84,11 @@ def roofline_table(recs) -> str:
         rf = roofline.analyze(r, roofline.model_flops_for(
             get_config(r["arch"]), shape, r["kind"]))
         coll = "-" if rf.collective_s is None else f"{rf.collective_s:.2e}"
-        if r.get("collectives_note"):
-            coll += NOTE_MARK
         lines.append(
             f"| {r['arch']} | {r['shape']} | {rf.compute_s:.2e} | "
             f"{rf.memory_s:.2e} | {coll} | **{rf.dominant}** | "
             f"{rf.useful_ratio:.2f} | {NOTES[rf.dominant]} |")
-    return "\n".join(lines) + _footnotes(single)
+    return "\n".join(lines)
 
 
 def _replace(text, marker, content):

@@ -311,6 +311,23 @@ def rows(t, device_mesh: DeviceMesh):
                               pl, run_check=False)
 
 
+def gather_positions(x, idx):
+    """``torch.gather(x, 1, idx)``: positions ``idx`` (B, n, d) of each row
+    of an activation x (B, S, d). On a placed x, over its local blocks
+    with ``idx`` laid out as x's rows (and channels): a gather along a dim
+    no mesh dim shards is local and linear, so a pending sum stays pending
+    (DTensor's own gather may shard the gathered dim over two mesh dims,
+    whose masked sums it then cannot reduce)."""
+    if not isinstance(x, DTensor):
+        return torch.gather(x, 1, idx)
+    mesh = x.device_mesh
+    xpl = [Replicate() if p.is_shard(1) else p for p in x.placements]
+    ipl = [Replicate() if p.is_partial() else p for p in xpl]
+    x, idx = on_mesh(x, mesh, xpl), on_mesh(idx, mesh, ipl)
+    return local_map(lambda x, i: torch.gather(x, 1, i), xpl,
+                     in_placements=(xpl, ipl), device_mesh=mesh)(x, idx)
+
+
 def replicate_like(t, like):
     """Plain tensor ``t`` (every rank's same copy) as a replicated DTensor
     on ``like``'s mesh when ``like`` is a DTensor; else ``t``."""

@@ -7,7 +7,9 @@ the (S, T) scores, or ``_sdpa_blocked``'s online softmax over KV blocks
 under ``attn_impl="blocked"``;
 GQA's one-token decode, self or cross, goes through
 ``kernels.ops.decode_attention``, i.e. the hand-written flash-decode kernel
-(with the logit softcap) on CUDA. A sliding-window layer decodes over a
+(with the logit softcap) on CUDA, and over a head_dim-sharded cache on a
+placed model through its two halves (``ops.decode_scores``,
+``ops.decode_values``) with an all-reduce of the scores between them. A sliding-window layer decodes over a
 ring of ``window`` positions (``ring=True``): every stored position is
 inside the window, so the kernel needs no window of its own. MLA decode is
 the reference's absorbed-matrix einsums over the latent cache (the
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.config import ArchConfig
@@ -280,43 +282,89 @@ def _store_block(buf, full, L: int, rows, off):
 
 def _attend(q, k, v, lens, cap: float):
     """B3 (``ops.decode_attention``) of q (B, H, hd) over the cache k/v
-    (B, T, Hkv, hd) filled to ``lens`` -> (B, H, hd). On a placed cache, a
-    site over its batch rows and KV heads: each rank's query heads are
+    (B, T, Hkv, hd) filled to ``lens`` -> (B, H, hd). On a placed cache,
+    a site over its batch rows and KV heads: each rank's query heads are
     those of its KV heads. A cache sharded on hd (its KV heads do not
-    split over the model axis) is gathered over the model axis here, and
-    only here: B3 needs whole heads. On a sequence-sharded cache each rank
-    runs B3 over its block at lengths ``clamp(lens - offset, 0, T/N)`` with
-    the log-sum-exp, and ``spmd.merge_blocks`` merges the blocks."""
+    split over the model axis) decodes through B3's two halves, as GSPMD
+    partitions the reference's decode there: each rank runs B3-qk
+    (``ops.decode_scores``) over its head_dim slice of q and K, the
+    partial scores are all-reduced over the model axis, and each rank runs
+    B3-pv (``ops.decode_values``) over its V slice; the output stays
+    sharded on hd, and nothing gathers the cache. On a sequence-sharded
+    cache each rank runs over its block at lengths ``clamp(lens - offset,
+    0, T/N)`` with the log-sum-exp, and ``spmd.merge_blocks`` merges the
+    blocks."""
     if not spmd.is_placed(k, v):
         return ops.decode_attention(q, k, v, lens, cap)
     mesh = k.device_mesh
-    kpl = [Replicate() if p.is_shard(3) else p for p in k.placements]
-    k, v = (t.redistribute(mesh, kpl) for t in (k, v))
+    kpl = list(k.placements)
     qpl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
-           else Replicate() for p in kpl]
+           else Shard(2) if p.is_shard(3) else Replicate() for p in kpl]
     lpl = [Shard(0) if p.is_shard(0) else Replicate() for p in kpl]
     if not isinstance(lens, torch.Tensor):
         lens = torch.full((q.shape[0],), lens, dtype=torch.int32,
                           device=q.device)
-    ins = (qpl, kpl, kpl, lpl)
-    args = [spmd.on_mesh(t, mesh, p) for t, p in zip((q, k, v, lens), ins)]
-    if not any(p.is_shard(1) for p in kpl):
-        def local(q, k, v, lens):
-            return ops.decode_attention(q, k, v, lens, cap)
-        return local_map(local, qpl, in_placements=ins,
-                         device_mesh=mesh)(*args)
-    off = spmd.offset(k, 1)
+    q, lens = (spmd.on_mesh(t, mesh, p) for t, p in ((q, qpl), (lens, lpl)))
+    seq = any(p.is_shard(1) for p in kpl)
+    off = spmd.offset(k, 1) if seq else None
 
-    def block(q, k, v, lens):
-        n = torch.clamp(lens - off, 0, k.shape[1]).to(torch.int32)
-        out, lse = ops.decode_attention(q, k, v, n, cap, return_lse=True)
+    def block_lens(lens, T):
+        return (lens if off is None else
+                torch.clamp(lens - off, 0, T).to(torch.int32))
+
+    # each rank's (out, lse) of its sequence block stacked on a new dim 0
+    # that the sequence's mesh dims shard
+    # (the output's head_dim slices; lse is every slice's)
+    def stacked(p, lse: bool):
+        if p.is_shard(1):
+            return Shard(0)
+        if p.is_shard(0):
+            return Shard(1)
+        if p.is_shard(2) or (p.is_shard(3) and not lse):
+            return Shard(p.dim)
+        return Replicate()
+    opl, lsepl = ([stacked(p, lse) for p in kpl] for lse in (False, True))
+    if not any(p.is_shard(3) for p in kpl):
+        ins = (qpl, kpl, kpl, lpl)
+        if not seq:
+            def local(q, k, v, lens):
+                return ops.decode_attention(q, k, v, lens, cap)
+            return local_map(local, qpl, in_placements=ins,
+                             device_mesh=mesh)(q, k, v, lens)
+
+        def block(q, k, v, lens):
+            out, lse = ops.decode_attention(q, k, v, block_lens(lens,
+                                                                k.shape[1]),
+                                            cap, return_lse=True)
+            return out[None], lse[None]
+        out, lse = local_map(block, (opl, lsepl), in_placements=ins,
+                             device_mesh=mesh)(q, k, v, lens)
+        return spmd.merge_blocks(out, lse).to(q.dtype)
+    # partial scores (B, H, T) of each head_dim slice: rows as q's, the
+    # positions as the cache's sequence, a pending sum over hd's mesh dims
+    scale = q.shape[-1] ** -0.5
+    spl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(1)
+           else Partial() if p.is_shard(3) else Replicate() for p in kpl]
+
+    def qk(q, k, lens):
+        return ops.decode_scores(q.contiguous(), k,
+                                 block_lens(lens, k.shape[1]), scale)
+    scores = local_map(qk, spl, in_placements=(qpl, kpl, lpl),
+                       device_mesh=mesh)(q, k, lens)
+    scores = spmd.reduced(scores)               # all-reduce over the slices
+    ins = (list(scores.placements), kpl, lpl)
+    if not seq:
+        def pv(s, v, lens):
+            return ops.decode_values(s, v, lens, cap)
+        return local_map(pv, qpl, in_placements=ins,
+                         device_mesh=mesh)(scores, v, lens)
+
+    def pv_block(s, v, lens):
+        out, lse = ops.decode_values(s, v, block_lens(lens, v.shape[1]), cap,
+                                     return_lse=True)
         return out[None], lse[None]
-    # each rank's (out, lse) stacked on a new dim 0 that the sequence's
-    # mesh dims shard
-    opl = [Shard(0) if kp.is_shard(1) else Shard(qp.dim + 1)
-           if qp.is_shard() else Replicate() for kp, qp in zip(kpl, qpl)]
-    out, lse = local_map(block, (opl, opl), in_placements=ins,
-                         device_mesh=mesh)(*args)
+    out, lse = local_map(pv_block, (opl, lsepl), in_placements=ins,
+                         device_mesh=mesh)(scores, v, lens)
     return spmd.merge_blocks(out, lse).to(q.dtype)
 
 
@@ -332,6 +380,16 @@ def _heads(w, hd_dim: int):
     flatten (heads, head_dim) with head_dim sharded, as einsum and its
     backward do. Else as it is."""
     return spmd.gathered(w) if spmd.sharded_on(w, hd_dim) else w
+
+
+def _decode_out(p, out):
+    """w_o's projection of a decode step's attention output (B, 1, H, hd).
+    An output sharded on hd (a decode over a head_dim-sharded cache) meets
+    w_o as it is placed, in a row-parallel site over the local blocks
+    (``spmd.project``): no flatten of a sharded head_dim, so nothing is
+    gathered for it. Otherwise as every projection: ``_heads``."""
+    w = p.w_o if spmd.sharded_on(out, 3) else _heads(p.w_o, 1)
+    return spmd.project("bshk,hkd->bsd", out, w)
 
 
 def _project_qkv(p, cfg: ArchConfig, x, positions):
@@ -421,8 +479,7 @@ def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
         q = _project_q(p, cfg, x)
         out = _attend(q[:, 0].contiguous(), cache_k, cache_v, T,
                       a.logit_softcap)[:, None]
-        return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)),
-                cache_k, cache_v)
+        return _decode_out(p, out), cache_k, cache_v
     positions = pos[:, None]
     if a.mrope_sections:
         positions = positions.expand(3, *positions.shape)
@@ -433,8 +490,7 @@ def attn_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos, *,
     lens = torch.clamp(pos + 1, max=T) if ring else pos + 1
     out = _attend(q[:, 0].contiguous(), cache_k, cache_v, lens,
                   a.logit_softcap)[:, None]
-    return (spmd.project("bshk,hkd->bsd", out, _heads(p.w_o, 1)), cache_k,
-            cache_v)
+    return _decode_out(p, out), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

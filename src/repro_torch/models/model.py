@@ -625,9 +625,7 @@ class Model(nn.Module):
             pos = true_len.clone()
             idx = (true_len.long() - 1)[:, None, None].expand(B, 1,
                                                              x.shape[-1])
-            # on a placed model DTensor's gather may leave a masked
-            # partial, which may be reduced only once: reduce it here
-            x_last = spmd.reduced(torch.gather(x, 1, idx))
+            x_last = spmd.reduced(spmd.gather_positions(x, idx))
         cache["pos"] = spmd.replicate_like(pos, cache["pos"])
         logits = spmd.local(self._logits(self.final_norm(x_last))[:, 0])
         return logits, cache, {

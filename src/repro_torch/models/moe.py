@@ -264,23 +264,88 @@ def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
     its (E, C, d) blocks, as the reference ``vmap``s it. Returns (y, aux)
     as ``moe_ffn`` does.
 
-    The reference's ``set_dispatch_constraint`` (a sharding hint that
-    keeps the (B, E, C, d) blocks batch-sharded on a device mesh) has no
-    counterpart on one device."""
-    if spmd.is_placed(p.w_up):
-        raise NotImplementedError(
-            "grouped dispatch on a placed model: the sharded step takes "
-            "the global dispatch (moe_dispatch='global')")
+    On a placed model the blocks lie as the reference's
+    ``set_dispatch_constraint(P(batch, "model", None, None))`` lays them,
+    read from the placements of x and of the experts' weights: a site over
+    the local blocks (``_grouped``) in which each data rank dispatches its
+    own rows (groups), each model rank runs B1 over its own experts' blocks
+    at (E/m, (B/dp)·C, d) and gathers back only their contributions, so
+    the output is a partial sum over the model axis, reduced there (in the
+    accumulator dtype). The input's and the gates' gradients are partial
+    over the model axis, the experts' over the batch axes. A batch that
+    does not split over the data axis replicates its groups. ``expert_fn``
+    on a placed model raises, as the reference's expert-parallel runtime
+    refuses grouped dispatch."""
     m = cfg.moe
     B, S, d = x.shape
-    E, k = m.n_experts, m.top_k
-    dev = x.device
+    if expert_fn is not None and spmd.is_placed(p.w_up):
+        raise NotImplementedError(
+            "grouped dispatch with an expert_fn on a placed model: the "
+            "expert-parallel runtime requires global dispatch")
     if routing is None:
         gates, idx, probs = route(p, m, x.reshape(B * S, d))
     else:
         (gates, idx), probs = routing, None
     C = capacity(S, m, capacity_factor)
+    e0 = spmd.offset(p.w_up, 0)             # this rank's first expert
 
+    def fn(x, gates, idx, token_mask, w_gate, w_up, w_down):
+        return _grouped(m, cfg.act, C, capacity_factor, expert_fn, p, e0,
+                        x, gates, idx, token_mask, w_gate, w_up, w_down)
+    rows, experts = (None, 0), (0, None)
+    y = spmd.site(fn, (rows, rows, rows, rows, experts, experts, experts),
+                  (("partial", 0),), x, gates, idx, token_mask,
+                  getattr(p, "w_gate", None), p.w_up, p.w_down,
+                  grad_specs=(("partial", 0), ("partial", 0), rows, rows,
+                              (0, "partial"), (0, "partial"),
+                              (0, "partial")))
+    y = spmd.reduced(y).to(x.dtype)
+
+    if m.n_shared_experts:
+        y = y + apply_ffn(p.shared, x, cfg.act)
+
+    return y, _aux(m, spmd.local(idx).reshape(B, S * m.top_k), probs,
+                   token_mask)
+
+
+class _Take(torch.autograd.Function):
+    """x (B, S, d) at rows ``idx`` (B, n) -> (B, n, d): ``torch.gather``
+    along dim 1, whose backward sums each row's copies (a token's k routed
+    slots) in the accumulator dtype: fp32 sums of a few bf16 values are
+    exact, so CUDA's atomic scatter-add gives the same bits in whatever
+    order its adds land (``_acc_dtype``'s argument for the combine), and
+    the input's gradient is the same placed or not, run after run."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = x.shape, x.dtype
+        return torch.gather(x, 1, idx[..., None].expand(*idx.shape,
+                                                          x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=_acc_dtype(ctx.dtype),
+                          device=g.device)
+        acc.scatter_add_(1, idx[..., None].expand(*idx.shape, g.shape[-1]),
+                         g.to(acc.dtype))
+        return acc.to(ctx.dtype), None
+
+
+def _grouped(m: MoEConfig, act: str, C: int, capacity_factor, expert_fn, p,
+             e0: int, x, gates, idx, token_mask, w_gate, w_up, w_down):
+    """``moe_ffn_grouped`` over one rank's blocks: its rows x (B, S, d)
+    with their routing gates/idx (B·S, k) and ``token_mask`` (B, S) (or
+    None), and its experts e0 .. e0 + E_l - 1 (``w_up``'s E_l). Every
+    row's dispatch runs over all E experts; only the local experts' slots
+    are gathered, run through the grouped expert FFN as one (E_l, B·C, d)
+    call and combined. -> this rank's share of y (B, S, d) in the
+    accumulator dtype (all of it when the experts are all local)."""
+    B, S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    El = w_up.shape[0]
+    dev = x.device
     flat_e = idx.reshape(B, S * k)
     C_drop = C
     if token_mask is not None:
@@ -307,33 +372,29 @@ def moe_ffn_grouped(p, cfg: ArchConfig, x, *,
     slot_idx = row + torch.where(keep, slot, torch.full_like(slot, E * C))
     slot_token = torch.full((B, E * C + 1), S, dtype=torch.long, device=dev)
     slot_token.view(-1)[slot_idx.reshape(-1)] = token_of.reshape(-1)
-    slot_token = slot_token[:, :E * C]
+    # this rank's experts' slots
+    local = slice(e0 * C, (e0 + El) * C)
+    slot_token = slot_token[:, local]
     x_pad = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)
-    xg = torch.gather(x_pad, 1, slot_token[..., None].expand(B, E * C, d))
+    xg = _Take.apply(x_pad, slot_token)
 
     if expert_fn is not None:
-        yg = torch.stack([expert_fn(g, p) for g in xg.reshape(B, E, C, d)])
-        yg = yg.reshape(B, E * C, d)
+        yg = torch.stack([expert_fn(g, p) for g in xg.reshape(B, El, C, d)])
+        yg = yg.reshape(B, El * C, d)
     else:
-        # (B, E, C, d) -> (E, B·C, d): one grouped FFN over every row's
+        # (B, E_l, C, d) -> (E_l, B·C, d): one grouped FFN over every row's
         # blocks
-        xe = xg.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
-        ye = ops.moe_expert_ffn(xe, getattr(p, "w_gate", None), p.w_up,
-                                p.w_down, act=cfg.act)
-        yg = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+        xe = xg.reshape(B, El, C, d).transpose(0, 1).reshape(El, B * C, d)
+        ye = ops.moe_expert_ffn(xe, w_gate, w_up, w_down, act=act)
+        yg = ye.reshape(El, B, C, d).transpose(0, 1).reshape(B, El * C, d)
 
     gate_flat = torch.gather(gates.reshape(B, S * k), 1, order)
     slot_gate = torch.zeros(B * (E * C + 1), dtype=gates.dtype, device=dev)
     slot_gate[slot_idx.reshape(-1)] = gate_flat.reshape(-1)
-    slot_gate = slot_gate.reshape(B, E * C + 1)[:, :E * C]
+    slot_gate = slot_gate.reshape(B, E * C + 1)[:, local]
     contrib = yg * slot_gate[..., None].to(yg.dtype)
     acc = _acc_dtype(contrib.dtype)
     y = torch.zeros(B * (S + 1), d, dtype=acc, device=dev)
     dest = torch.arange(B, device=dev)[:, None] * (S + 1) + slot_token
-    y.index_add_(0, dest.reshape(-1), contrib.reshape(B * E * C, d).to(acc))
-    y = y.reshape(B, S + 1, d)[:, :S].to(x.dtype)
-
-    if m.n_shared_experts:
-        y = y + apply_ffn(p.shared, x, cfg.act)
-
-    return y, _aux(m, idx.reshape(B, S * k), probs, token_mask)
+    y.index_add_(0, dest.reshape(-1), contrib.reshape(B * El * C, d).to(acc))
+    return y.reshape(B, S + 1, d)[:, :S]

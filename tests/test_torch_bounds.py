@@ -20,6 +20,15 @@ BF16, FP32 = str(torch.bfloat16), str(torch.float32)
     # B3 over a 32768-position cache (lengths 32768, 16384, 8192, 1)
     ("B3 S 32768", lambda: bounds.flash_decode(
         4, 64, 4, 128, 32768 + 16384 + 8192 + 1, 2, BF16), 0.035097, "bytes"),
+    # B3's halves over one of 2 head_dim slices (hd_l 64) of that cache:
+    # B3-qk (q, K and the valid fp32 scores) and B3-pv (the scores, V and
+    # the output); B3-qk over one of 16 slices (hd_l 8)
+    ("B3-qk S 32768 / 2", lambda: bounds.decode_scores(
+        4, 64, 4, 64, 32768 + 16384 + 8192 + 1, 2, BF16), 0.013156, "bytes"),
+    ("B3-pv S 32768 / 2", lambda: bounds.decode_values(
+        4, 64, 4, 64, 32768 + 16384 + 8192 + 1, 2, BF16), 0.013156, "bytes"),
+    ("B3-qk S 32768 / 16", lambda: bounds.decode_scores(
+        4, 64, 4, 8, 32768 + 16384 + 8192 + 1, 2, BF16), 0.005479, "bytes"),
     # B4 at RWKV6's decode shape: 4 rows x 64 heads, r/k/v bf16, w fp32
     ("B4 decode", lambda: bounds.wkv6(256, 1, 64, 2, 4), 0.002582, "bytes"),
     # B5 at Jamba's decode shape: a pool of 4, d_in 16384, N 16, bf16
@@ -98,6 +107,9 @@ def test_backward_bounds_add_this_designs_own_work():
 def test_forward_bounds_grow_with_the_valid_work():
     assert bounds.flash_decode(4, 64, 4, 128, 100, 2, BF16)[0] < \
         bounds.flash_decode(4, 64, 4, 128, 200, 2, BF16)[0]
+    for half in (bounds.decode_scores, bounds.decode_values):
+        assert half(4, 64, 4, 64, 100, 2, BF16)[0] < \
+            half(4, 64, 4, 64, 200, 2, BF16)[0]
     assert bounds.wkv6(256, 2, 64, 2, 4)[0] > bounds.wkv6(256, 1, 64, 2, 4)[0]
     assert bounds.selective_scan(1, 2048, 16384, 16, 2)[0] > \
         bounds.selective_scan(1, 36, 16384, 16, 2)[0]

@@ -333,9 +333,11 @@ def test_main_writes_ok_and_skipped_records(tmp_path):
             "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
             "collective-permute"} and "collectives_reason" not in rec
         # its 2 KV heads do not split over the model axis's 16: the
-        # cache is sharded on head_dim and gathered at B3's site
-        assert rec["collectives_note"] == dryrun.KV_GATHER_NOTE
-        assert rec["collectives"]["all-gather"]["count"] > 0
+        # cache is sharded on head_dim, and decode all-reduces the partial
+        # scores (B3-qk, B3-pv) instead of gathering it; no record carries
+        # a note of a gathered cache
+        assert "collectives_note" not in rec
+        assert rec["collectives"]["all-reduce"]["count"] > 0
         coll = sum(v["bytes"] for v in rec["collectives"].values())
         r = roofline.analyze(rec, 1.0)
         assert coll > 0 and r.collective_s == coll / roofline.LINK_BW
@@ -357,10 +359,13 @@ def test_main_writes_ok_and_skipped_records(tmp_path):
     rec = json.loads((tmp_path / "qwen3-moe-235b-a22b__decode_32k__single"
                       "_var.json").read_text())
     assert rec["overrides"] == ["moe_dispatch=grouped", "attn_impl=blocked"]
-    # the port refuses grouped dispatch on a placed model: the record is
-    # ok, without collectives, and names the refusal
-    assert rec["status"] == "ok" and rec["collectives"] is None
-    assert "grouped dispatch on a placed model" in rec["collectives_reason"]
+    # grouped dispatch on a placed model: the record is ok, with its
+    # collectives (each rank's rows, B1 over its experts' blocks)
+    assert rec["status"] == "ok" and "collectives_reason" not in rec
+    assert set(rec["collectives"]) == {
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute"}
+    assert rec["collectives"]["all-reduce"]["count"] > 0
     assert rec["kernels"] == {"flash_decode": 94, "moe_ffn": 94}
     before = sorted(p.stat().st_mtime_ns for p in tmp_path.iterdir())
     assert _main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
@@ -395,10 +400,7 @@ def test_report_prints_a_row_per_record(tmp_path, capsys):
                                    f"{rec.get('mesh', '-')} |"))
         cell = row.rstrip(" |").rsplit("| ", 1)[1]
         if rec["status"] == "ok":
-            assert cell == report.collective_cell(
-                rec["collectives"], rec.get("collectives_note"))
-            assert cell.endswith(report.NOTE_MARK) == bool(
-                rec.get("collectives_note"))
+            assert cell == report.collective_cell(rec["collectives"])
             assert all(f"{k.replace('collective-', 'c-')}:"
                        f"{report.fmt_bytes(v['bytes'])}" in cell
                        for k, v in rec["collectives"].items() if v["count"])
@@ -406,8 +408,7 @@ def test_report_prints_a_row_per_record(tmp_path, capsys):
             assert "skipped" in row
     r = roofline.analyze(next(x for x in recs if x.get("mesh") == "16x16"),
                          1.0)
-    assert f"| {r.collective_s:.2e}{report.NOTE_MARK} |" in roof[0]
-    assert f"{report.NOTE_MARK.strip()} {dryrun.KV_GATHER_NOTE}" in text
+    assert f"| {r.collective_s:.2e} |" in roof[0]
     assert "report: 2 ok, 1 skipped, 0 error" in text
     assert dry[0] in md.read_text() and roof[0] in md.read_text()
 

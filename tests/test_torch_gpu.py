@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
+from repro_torch.kernels import decode_split as ds_mod
 from repro_torch.kernels import flash_decode as fd_mod
 from repro_torch.kernels import moe_ffn as moe_mod
 from repro_torch.kernels import ref
@@ -297,6 +298,113 @@ def test_flash_decode_softcap_zero_leaves_results_unchanged(cuda, hd, S,
     assert torch.equal(fd_mod.flash_decode(q, k, v, lens), y)
     assert not torch.equal(fd_mod.flash_decode(q, k, v, lens, softcap=5.0),
                            y)
+
+
+# B3-qk / B3-pv: (B, H, Hkv, hd, S, lengths, softcap) -- qwen3-moe's
+# 64/4 heads, MQA, Gemma-2's hd 256 with its softcap over a ragged ring,
+# Whisper's cross-attention (hd 64, rep 1), a long cache that B3-pv splits,
+# and rows with no valid position
+SPLIT_CASES = [(4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
+               (3, 16, 1, 128, 1000, [1000, 513, 1], 0.0),
+               (4, 8, 4, 256, 4096, [4096, 1, 2500, 17], 50.0),
+               (4, 12, 12, 64, 1500, [1500] * 4, 0.0),
+               (2, 16, 2, 128, 20000, [20000, 7001], 0.0),
+               (3, 16, 2, 128, 300, [0, 300, 0], 0.0)]
+
+
+def _split_inputs(case, dtype, dev, seed):
+    B, H, Hkv, hd, S, lens, cap = case
+    rng = np.random.default_rng(seed)
+    q = _rand(rng, (B, H, hd), 8.0 if cap else 1.0, dtype, dev)
+    k = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, dev)
+    v = _rand(rng, (B, S, Hkv, hd), 1.0, dtype, dev)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev), cap
+
+
+@pytest.mark.parametrize("n", [2, 4, 16])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_kernels_match_plain(cuda, case, n, dtype):
+    """B3-qk over each of ``n`` head_dim slices against
+    ``ref.decode_scores_ref`` (exactly 0 past each length), the scores
+    summed as the all-reduce sums them, then B3-pv over each V slice
+    against ``ref.decode_values_ref`` with and without lse (-inf and out 0
+    where a row has no position), and the slices side by side against
+    unsplit B3 where every row has a position."""
+    q, k, v, lens, cap = _split_inputs(SPLIT_CASES[case], dtype, cuda, case)
+    hd = q.shape[-1]
+    w = hd // n
+    sl = [slice(i * w, (i + 1) * w) for i in range(n)]
+    before = (ds_mod.scores_launches, ds_mod.values_launches)
+    parts = []
+    for s in sl:
+        qs, ks = q[..., s].contiguous(), k[..., s].contiguous()
+        got = ds_mod.decode_scores(qs, ks, lens, hd ** -0.5)
+        want = ref.decode_scores_ref(qs, ks, lens, hd ** -0.5)
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   **_tol("float32"))
+        past = torch.arange(k.shape[1], device=cuda) >= lens[:, None, None]
+        assert not bool(got[past.expand_as(got)].any())
+        parts.append(got)
+    scores = torch.stack(parts).sum(0)
+    outs = []
+    for s in sl:
+        vs = v[..., s].contiguous()
+        out, lse = ds_mod.decode_values(scores, vs, lens, cap,
+                                        return_lse=True)
+        wo, wl = ref.decode_values_ref(scores, vs, lens, cap,
+                                       return_lse=True)
+        np.testing.assert_allclose(_f32(out), _f32(wo), **_tol(dtype))
+        empty = wl == -torch.inf
+        assert torch.equal(lse == -torch.inf, empty)
+        assert not bool(out[empty].any())
+        np.testing.assert_allclose(_f32(lse[~empty]), _f32(wl[~empty]),
+                                   atol=1e-3, rtol=1e-4)
+        plain = ds_mod.decode_values(scores, vs, lens, cap)
+        assert torch.equal(plain, out)
+        outs.append(plain)
+    assert (ds_mod.scores_launches, ds_mod.values_launches) == (
+        before[0] + n, before[1] + 2 * n)
+    if int(lens.min()) >= 1:
+        np.testing.assert_allclose(
+            _f32(torch.cat(outs, -1)),
+            _f32(fd_mod.flash_decode(q, k, v, lens, cap)), **_tol(dtype))
+
+
+def test_decode_split_kernels_are_deterministic(cuda):
+    """Two launches of each half give the same bits (B3-pv's splits
+    combine in a fixed order)."""
+    q, k, v, lens, cap = _split_inputs(SPLIT_CASES[4], "bfloat16", cuda, 9)
+    s1 = ds_mod.decode_scores(q[..., :64].contiguous(),
+                              k[..., :64].contiguous(), lens, 0.1)
+    s2 = ds_mod.decode_scores(q[..., :64].contiguous(),
+                              k[..., :64].contiguous(), lens, 0.1)
+    assert torch.equal(s1, s2)
+    vs = v[..., :64].contiguous()
+    assert torch.equal(ds_mod.decode_values(s1, vs, lens),
+                       ds_mod.decode_values(s1, vs, lens))
+
+
+def test_decode_split_wrappers_validate_inputs(cuda):
+    q = torch.zeros(1, 4, 8, device=cuda)
+    kv = torch.zeros(1, 16, 2, 8, device=cuda)
+    s = torch.zeros(1, 4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        ds_mod.decode_scores(q.half(), kv.half(), 16, 0.1)
+    with pytest.raises(ValueError, match="on cpu"):
+        ds_mod.decode_scores(q, kv.cpu(), 16, 0.1)
+    with pytest.raises(ValueError, match="multiple"):
+        ds_mod.decode_scores(q[:, :3].contiguous(), kv, 16, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ds_mod.decode_values(s, kv.transpose(1, 2).contiguous()
+                             .transpose(1, 2), 16)
+    with pytest.raises(TypeError, match="float32"):
+        ds_mod.decode_values(s.bfloat16(), kv, 16)
+    with pytest.raises(ValueError, match="softcap"):
+        ds_mod.decode_values(s, kv, 16, softcap=-1.0)
+    qg = q.requires_grad_()
+    with pytest.raises(NotImplementedError):
+        ds_mod.decode_scores(qg, kv, 16, 0.1)
 
 
 def test_kernel_wrappers_validate_inputs(cuda):

@@ -73,13 +73,14 @@ def _inputs(cfg, B, S, seed):
 
 # what each rank runs; each rank writes <out>.<rank>.json
 _WORKER = r"""
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
 from torch.distributed.tensor import DTensor
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.launch import sharding, spmd
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import Model
@@ -116,9 +117,18 @@ def rel(got, want):
                                                  1e-6)
 
 
+# each attention kernel's calls (B3, B3-qk, B3-pv on the card) in the
+# placed decode steps of a case
+calls = {}
+for name in ("decode_attention", "decode_scores", "decode_values"):
+    def counted(*args, _name=name, _fn=getattr(ops, name), **kw):
+        calls[_name] = calls.get(_name, 0) + 1
+        return _fn(*args, **kw)
+    setattr(ops, name, counted)
 out = {"cases": [], "collectives": []}
 for case in a["cases"]:
-    cfg = get_config(case["arch"]).reduced()
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case.get("repl", {}))
     with np.load(case["npz"]) as f:
         tree = unflatten({k: f[k] for k in f.files})
     for k in ("prefix", "blocks"):      # empty stacks leave no file entry
@@ -144,10 +154,14 @@ for case in a["cases"]:
         with spmd.step_context(placed):
             l1, c1, x1 = placed.prefill(batch, c1, true_len=n)
         steps = [(l0, l1, x0, x1)]
+        rec["calls"] = {}
         for tok in inp["steps"]:
             l0, c0, x0 = plain.serve_step(c0, tok)
+            calls.clear()
             with spmd.step_context(placed):
                 l1, c1, x1 = placed.serve_step(c1, tok)
+            for k, v in calls.items():
+                rec["calls"][k] = rec["calls"].get(k, 0) + v
             steps.append((l0, l1, x0, x1))
     for l0, l1, x0, x1 in steps:
         assert not isinstance(l1, DTensor)
@@ -168,7 +182,8 @@ for case in a["cases"]:
         for layer in c1["layers"]]
     out["cases"].append(rec)
 for case in a["collectives"]:
-    cfg = get_config(case["arch"]).reduced()
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case.get("repl", {}))
     mesh = Mesh(("data", "model"), tuple(case["mesh"]))
     dm = spmd.device_mesh(mesh, "cpu")
     model = sharding.place(Model(cfg, device="cpu").init(0), dm, mesh)
@@ -186,16 +201,30 @@ spmd.stop()
 """
 
 # the dry run's decode records against the ranks' counter: a decode_32k
-# cell (batch rows over the data axis, heads over the model axis) and a
-# long_500k one (one row, Gemma-2's window rings sharded over the data
-# axis by sequence), both cut to reduced sizes
+# cell (batch rows over the data axis, heads over the model axis), the
+# same cell under grouped dispatch (the experts' blocks over the model
+# axis, each data rank's own rows) and with one KV head (the cache sharded
+# on head_dim: B3-qk, the scores' all-reduce, B3-pv), and a long_500k one
+# (one row, Gemma-2's window rings sharded over the data axis by
+# sequence), all cut to reduced sizes; the last entry overrides the config
+DECODE_32K = InputShape("decode_32k", 64, 4, "decode")
 COLLECTIVE_CASES = [
-    (QWEN3, (1, RANKS), InputShape("decode_32k", 64, 4, "decode")),
-    ("gemma2-2b", (RANKS, 1), InputShape("long_500k", 256, 1, "decode")),
+    (QWEN3, (1, RANKS), DECODE_32K, {}),
+    ("gemma2-2b", (RANKS, 1), InputShape("long_500k", 256, 1, "decode"), {}),
+    (QWEN3, (1, RANKS), DECODE_32K, {"moe_dispatch": "grouped"}),
+    (QWEN3, (RANKS, 1), DECODE_32K, {"moe_dispatch": "grouped"}),
+    (QWEN3, (1, RANKS), DECODE_32K, {"n_kv_heads": 1}),
 ]
 
 
-def _reference(arch, cases):
+def _collective_id(case):
+    arch, mesh, shape, repl = case
+    return "-".join([arch, shape.name]
+                    + ([f"{mesh[0]}x{mesh[1]}"] if repl else [])
+                    + [f"{k}={v}" for k, v in repl.items()])
+
+
+def _reference(arch, cases, repl=None):
     """The reference's logits (prefill, then each decode step) for each
     (B, S, T, inputs) of ``cases`` on its seed-0 weights: its ``prefill``
     and ``serve_step``, and for a step whose position is past a window
@@ -203,8 +232,10 @@ def _reference(arch, cases):
     the steps' tokens (its ``serve_step`` hides in-window keys once its
     ring wraps; the port follows ``forward``, as
     ``test_torch_families.test_ring_decode_past_the_window`` holds it).
+    ``repl``: overrides of the reduced config, as the ranks apply them.
     -> (params, [[logits per step] per case])."""
-    jm = JaxModel(get_config(arch).reduced())
+    jm = JaxModel(dataclasses.replace(get_config(arch).reduced(),
+                                      **(repl or {})))
     params = jm.init(jax.random.PRNGKey(0))
     prefill = jax.jit(lambda p, b, c, n: jm.prefill(p, b, c, true_len=n))
     step = jax.jit(jm.serve_step)
@@ -257,8 +288,9 @@ def served(tmp_path_factory):
     colls = [{"arch": a, "mesh": list(m), "B": s.global_batch,
               "T": s.seq_len, "window": (torch_get_config(a).reduced()
                                          .attn.sliding_window
-                                         if s.name == "long_500k" else 0)}
-             for a, m, s in COLLECTIVE_CASES]
+                                         if s.name == "long_500k" else 0),
+              "repl": repl}
+             for a, m, s, repl in COLLECTIVE_CASES]
     procs, out = _start_ranks("serve", {"cases": cases,
                                         "collectives": colls}, tmp,
                               worker=_WORKER)
@@ -318,16 +350,15 @@ def test_placed_serving_matches_reference(served, i):
 
 
 @pytest.mark.parametrize("j", range(len(COLLECTIVE_CASES)),
-                         ids=[f"{a}-{s.name}" for a, _, s in
-                              COLLECTIVE_CASES])
+                         ids=[_collective_id(c) for c in COLLECTIVE_CASES])
 def test_dry_run_serving_collectives_match_the_gloo_run(served, j):
     """The dry run's placed decode step (a meta model over a fake group)
     records the kinds, counts and bytes of the collectives the two gloo
     ranks issue in the same step; the roofline then has a collective
     term."""
     recs, _ = served
-    arch, mesh, shape = COLLECTIVE_CASES[j]
-    cfg = torch_get_config(arch).reduced()
+    arch, mesh, shape, repl = COLLECTIVE_CASES[j]
+    cfg = dataclasses.replace(torch_get_config(arch).reduced(), **repl)
     rec = dryrun.placed_collectives(cfg, shape, Mesh(("data", "model"),
                                                      mesh))
     assert recs[0]["collectives"][j] == recs[1]["collectives"][j] == rec
