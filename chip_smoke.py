@@ -236,8 +236,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      versions at 17a's shapes over 2, 4 and 16 head_dim slices, bf16 and
      fp32; then the split decode (each slice's scores summed, on one card
      the stand-in for the all-reduce over the model axis) against unsplit
-     B3, the launches counted; both timed at the 32768 cache beside their
-     bounds, their plain versions and ``torch.matmul`` (B3-qk);
+     B3, the launches counted; both timed at the 32768 cache, L2-warm and
+     L2-cold, beside their bounds (B3-qk's own bytes too), their plain
+     versions, ``torch.matmul`` (B3-qk) and unsplit B3;
 then one JSON line of per-kernel numbers, then the result line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -303,7 +304,10 @@ def sh(cmd):
                           text=True).stdout.strip()
 
 
-def time_ms(fn, iters, ahead=True):
+L2_FLUSH_BYTES = 100 * 2 ** 20    # twice the H100's 50 MB L2
+
+
+def time_ms(fn, iters, ahead=True, flush=False):
     """Mean ms per call between CUDA events, after two warm-up calls.
 
     ahead=True (kernels and library calls): a device sleep queued first lets
@@ -314,7 +318,11 @@ def time_ms(fn, iters, ahead=True):
     on the host, so the sleep is lengthened and the timing repeated, and
     after three tries it raises. ahead=False (the plain versions: chains of
     many small launches that would fill the launch queue): back-to-back
-    calls, the host's issue included."""
+    calls, the host's issue included. flush=True (L2-cold, with ahead):
+    before each call a read of an ``L2_FLUSH_BYTES`` buffer empties L2 (a
+    read, so that L2 holds no dirty lines whose write-back the timed call
+    would pay), and each call is timed between its own pair of events,
+    after the read."""
     import torch
     for _ in range(2):
         fn()
@@ -328,19 +336,33 @@ def time_ms(fn, iters, ahead=True):
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+    if flush:
+        buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+        sink = torch.empty((), device="cuda")
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     cycles = SLEEP_CYCLES
     for _ in range(3):
         t0 = time.perf_counter()
         sleep0.record()
         torch.cuda._sleep(cycles)
         start.record()
-        for _ in range(iters):
-            fn()
+        if flush:
+            for e0, e1 in evs:
+                torch.sum(buf, dim=0, out=sink)
+                e0.record()
+                fn()
+                e1.record()
+        else:
+            for _ in range(iters):
+                fn()
         end.record()
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
         sleep_ms = sleep0.elapsed_time(start)
         if enqueue_ms < sleep_ms:
+            if flush:
+                return sum(e0.elapsed_time(e1) for e0, e1 in evs) / iters
             return start.elapsed_time(end) / iters
         cycles = int(cycles * 2 * enqueue_ms / sleep_ms)
     raise SystemExit(f"time_ms: the host's enqueue ({enqueue_ms:.1f} ms) "
@@ -3773,6 +3795,27 @@ def grouped_mesh_train(card):
 # phase 18a's head_dim splits: the model axis's ranks a cache's head_dim
 # is cut into (16: hd 64 -> 4 columns a slice, Whisper's on 16 x 16)
 HD_SPLITS = (2, 4, 16)
+SPLIT_COLD_ITERS = 20      # launches each L2-cold time averages
+SPLIT_LENS = [32768, 16384, 8192, 1]    # the timed rows of LONG_CACHE
+
+
+def split_decode_inputs(gen, B, H, Hkv, hd, S, lens, cap, dtype):
+    """Phase 18a's q, K, V (q scaled by 8 under a softcap) and lengths,
+    drawn from ``gen`` on the card."""
+    import torch
+    q = (torch.randn((B, H, hd), generator=gen, device="cuda")
+         * (8.0 if cap else 1.0)).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in "kv")
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def split_cache_inputs(gen):
+    """Phase 18a's timed inputs: ``LONG_CACHE`` in bf16 at ``SPLIT_LENS``
+    (also ``scripts/kernel_ab.py``'s)."""
+    import torch
+    return split_decode_inputs(gen, *LONG_CACHE, SPLIT_LENS, 0.0,
+                               torch.bfloat16)
 
 
 def _split_decode(q, k, v, lens, cap, n):
@@ -3808,10 +3851,13 @@ def check_decode_split(gen, card):
     it (``_split_decode``) against unsplit B3 (the lse launch where a row
     has no position): the launches counted are that run's. Timed at the
     32768 cache over 2, 4 and 16 slices (one slice's launch, as one
-    rank's):
-    kernels, plain versions, ``torch.matmul`` over the GQA view for B3-qk
-    (B3-pv has no one-call library counterpart). -> (the split run's
-    launch counts, B3-qk's row, B3-pv's row)."""
+    rank's): kernels L2-warm and L2-cold (``time_ms`` with ``flush``: the
+    working set fits the 50 MB L2), plain versions, ``torch.matmul`` over
+    the GQA view for B3-qk (B3-pv has no one-call library counterpart), B3-qk
+    beside both its bounds (the function's, and its own bytes with the
+    zeros past each length), and unsplit B3 at the same cache as a
+    reference line. -> (the split run's launch counts, B3-qk's row, B3-pv's
+    row)."""
     import torch
     from repro_torch.kernels import decode_split as ds_mod
     from repro_torch.kernels import ref
@@ -3821,18 +3867,11 @@ def check_decode_split(gen, card):
           "split decode (scores summed as the all-reduce sums them) vs "
           "unsplit B3")
     errs = {"decode_scores": 0.0, "decode_values": 0.0}
-
-    def inputs(B, H, Hkv, hd, S, lens, cap, dtype):
-        q = (torch.randn((B, H, hd), generator=gen, device="cuda")
-             * (8.0 if cap else 1.0)).to(dtype)
-        k, v = (torch.randn((B, S, Hkv, hd), generator=gen,
-                            device="cuda").to(dtype) for _ in "kv")
-        return q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda")
-
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for what, B, H, Hkv, hd, S, lens, cap in B3_LSE_SHAPES:
-            q, k, v, cl = inputs(B, H, Hkv, hd, S, lens, cap, dtype)
+            q, k, v, cl = split_decode_inputs(gen, B, H, Hkv, hd, S, lens,
+                                              cap, dtype)
             for n in HD_SPLITS:
                 w = hd // n
                 qs, ks, vs = (t[..., :w].contiguous() for t in (q, k, v))
@@ -3890,9 +3929,18 @@ def check_decode_split(gen, card):
                          f"B3-pv {want} each")
     # times at the 32768 cache (bf16), one slice's launch as one rank's
     B, H, Hkv, hd, S = LONG_CACHE
-    q, k, v, cl = inputs(B, H, Hkv, hd, S, [32768, 16384, 8192, 1], 0.0,
-                         torch.bfloat16)
+    q, k, v, cl = split_cache_inputs(gen)
     n_valid = sum(min(int(n), S) for n in cl.tolist())
+    whole_ms = time_ms(lambda: flash_decode(q, k, v, cl), 100)
+    whole_cold = time_ms(lambda: flash_decode(q, k, v, cl),
+                         SPLIT_COLD_ITERS, flush=True)
+    whole_bound = bounds.flash_decode(B, H, Hkv, hd, n_valid, 2,
+                                      torch.bfloat16)[0]
+    print(f"  reference: unsplit B3 at the same cache (B={B} H={H} "
+          f"Hkv={Hkv} hd={hd} S={S}, bf16, all of hd): {whole_ms:.4f} ms, "
+          f"L2-cold {whole_cold:.4f}; "
+          f"bound {whole_bound:.6f} (roofline {whole_bound / whole_ms:.1%})"
+          f" [{card}]")
     times = {}
     for n in HD_SPLITS:
         w = hd // n
@@ -3911,24 +3959,37 @@ def check_decode_split(gen, card):
                           100),
             pv_plain_ms=time_ms(lambda: ref.decode_values_ref(
                 scores, vs, cl), 3, ahead=False))
+        t["qk_cold_ms"] = time_ms(
+            lambda: ds_mod.decode_scores(qs, ks, cl, hd ** -0.5),
+            SPLIT_COLD_ITERS, flush=True)
+        t["pv_cold_ms"] = time_ms(
+            lambda: ds_mod.decode_values(scores, vs, cl), SPLIT_COLD_ITERS,
+            flush=True)
         t["qk_bound_ms"], t["qk_bound_by"] = bounds.decode_scores(
             B, H, Hkv, w, n_valid, 2, torch.bfloat16)
+        t["qk_own_bound_ms"], _ = bounds.decode_scores_own(
+            B, H, Hkv, w, S, n_valid, 2, torch.bfloat16)
         t["pv_bound_ms"], t["pv_bound_by"] = bounds.decode_values(
             B, H, Hkv, w, n_valid, 2, torch.bfloat16)
         n_split, split_len = ds_mod.splits(
-            B, Hkv, S, torch.cuda.get_device_properties(0)
+            B, Hkv, H // Hkv, S, torch.cuda.get_device_properties(0)
             .multi_processor_count)
         print(f"  time B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens "
               f"{cl.tolist()} bf16, one of {n} slices (hd_l {w}): B3-qk "
               f"{t['qk_ms']:.4f} ms (plain {t['qk_plain_ms']:.4f}, library "
               f"torch.matmul over the GQA view {t['qk_library_ms']:.4f}, "
               f"bound {t['qk_bound_ms']:.6f} ({t['qk_bound_by']}), roofline "
-              f"{t['qk_bound_ms'] / t['qk_ms']:.1%}); B3-pv {n_split} splits "
-              f"of {split_len}: {t['pv_ms']:.4f} ms (plain "
+              f"{t['qk_bound_ms'] / t['qk_ms']:.1%}; its own bytes with the "
+              f"zeros past each length {t['qk_own_bound_ms']:.6f}, "
+              f"{t['qk_own_bound_ms'] / t['qk_ms']:.1%}); B3-pv {n_split} "
+              f"splits of {split_len}: {t['pv_ms']:.4f} ms (plain "
               f"{t['pv_plain_ms']:.4f}, library none: no one call takes the "
               f"scores to a masked, softcapped softmax times V; bound "
               f"{t['pv_bound_ms']:.6f} ({t['pv_bound_by']}), roofline "
-              f"{t['pv_bound_ms'] / t['pv_ms']:.1%}) [{card}]")
+              f"{t['pv_bound_ms'] / t['pv_ms']:.1%}); L2-cold (each launch "
+              f"alone after a {L2_FLUSH_BYTES >> 20} MiB read) B3-qk "
+              f"{t['qk_cold_ms']:.4f} ms, B3-pv {t['pv_cold_ms']:.4f} ms "
+              f"[{card}]")
         times[n] = t
         del scores
     shape = (f"B={B} H={H} Hkv={Hkv} hd={hd} S={S} lens={cl.tolist()} "

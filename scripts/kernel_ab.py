@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's B2, B4, B1, B5 and B3 kernels and the B4/B5 backward
-kernels of two trees of this repo on one GPU, in turns: the other tree,
-this one, this one, the other.
+"""Time the port's B2, B4, B1, B5, B3, B3-qk and B3-pv kernels and the
+B4/B5 backward kernels of two trees of this repo on one GPU, in turns: the
+other tree, this one, this one, the other.
 
     python3 scripts/kernel_ab.py --parent DIR [--paths] [--train]
     python3 scripts/kernel_ab.py --parent DIR --steps
@@ -30,6 +30,14 @@ built from its own sources; all runs take the same seeded inputs:
     cross-attention, Qwen2-VL, and Gemma-2's hd 256 with softcap 50 where
     the tree's kernel takes them).
 
+  - B3-qk ``decode_scores`` and B3-pv ``decode_values`` (B3's halves
+    over a head_dim-sharded cache) at ``chip_smoke.py`` phase 18a's shape:
+    the 32768-position cache (B = 4, H = 64, Hkv = 4, hd 128, lengths
+    32768 / 16384 / 8192 / 1), bf16, one of 2, 4 and 16 head_dim slices
+    (one rank's launch), L2-warm and L2-cold (``chip_smoke.time_ms`` with
+    ``flush``: the working set fits the 50 MB L2), B3-pv on the scores of
+    the tree's own B3-qk.
+
   - B4-bwd ``wkv6_backward`` at the training shape (BH = 256, T = 128, hd
     64, r/k/v bf16, w fp32) and at T = 512, and B5-bwd
     ``selective_scan_backward`` at Jamba's (B = 4, T = 128, d_in 16384, N
@@ -38,7 +46,10 @@ built from its own sources; all runs take the same seeded inputs:
 
 B3's hd 64/128 outputs without a softcap and every B4 and B5 output are
 hashed, and every run's hashes must be equal: the other tree's kernel
-and this one's give the same bits there.
+and this one's give the same bits there. B3-qk and B3-pv are held only
+against their tree's plain version, not hashed: a redesign that sums on
+the tensor cores adds the products in another order, so its bits may
+differ from the other tree's within the tolerance.
 
 Each result is held against the plain version first. With ``--paths`` each
 run also drives that tree's own ``chip_smoke.py`` phase 4b (streaming,
@@ -102,9 +113,9 @@ def _module(path: Path, name: str):
 
 def measure(tree: Path, paths: bool, train: bool = False,
             steps: bool = False) -> dict:
-    """One run: B2, B1, B4, B5, B3 and the backward kernels of ``tree`` on
-    this process's card; with ``steps``, only its unplaced serving steps
-    (``serve_steps``)."""
+    """One run: B2, B1, B4, B5, B3, B3-qk, B3-pv and the backward kernels
+    of ``tree`` on this process's card; with ``steps``, only its unplaced
+    serving steps (``serve_steps``)."""
     sys.path.insert(0, str(tree / "src"))
     import torch
     import repro_torch
@@ -121,10 +132,12 @@ def measure(tree: Path, paths: bool, train: bool = False,
     if steps:
         return {"tree": str(tree), "steps": serve_steps(cs)}
     build.build(["moe_ffn", "moe_ffn_quant", "wkv6", "selective_scan",
-                 "flash_decode", "wkv6_bwd", "selective_scan_bwd"])
+                 "flash_decode", "wkv6_bwd", "selective_scan_bwd",
+                 "decode_scores", "decode_values"])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"tree": str(tree), "b2": {}, "b4": {}, "b1": {}, "b5": {},
-           "b3": {}, "b4_bwd": {}, "b5_bwd": {}, "bits": {}}
+           "b3": {}, "b3_qk": {}, "b3_pv": {}, "b4_bwd": {}, "b5_bwd": {},
+           "bits": {}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     E, C, d, f = (cs.MAIN[k] for k in "ECdf")
     f32 = torch.float32
@@ -182,6 +195,7 @@ def measure(tree: Path, paths: bool, train: bool = False,
             lambda: selective_scan(*args), 200 if T < 1024 else 20)
         out["bits"][f"B5 B={B} T={T}"] = _sha(y, hT)
     measure_b3(cs, out)
+    measure_split(cs, out)
     measure_bwd(cs, out)
     if train:
         out["train"] = train_legs(cs)
@@ -309,6 +323,38 @@ def measure_b3(cs, out) -> None:
         if not cap:
             out["bits"][f"B3 {what}"] = _sha(y)
         del q, k, v, y
+    torch.cuda.empty_cache()
+
+
+def measure_split(cs, out) -> None:
+    """B3-qk and B3-pv of the tree on the path at phase 18a's timed cache
+    (``chip_smoke.split_cache_inputs``, bf16) over one of each of
+    ``chip_smoke.HD_SPLITS`` head_dim slices: each held against the tree's
+    plain version, then timed L2-warm and L2-cold, into ``out`` (no
+    hashes: see the module's docstring)."""
+    import torch
+    from repro_torch.kernels import decode_split as ds_mod
+    from repro_torch.kernels import ref
+    q, k, v, cl = cs.split_cache_inputs(
+        torch.Generator(device="cuda").manual_seed(18))
+    hd = q.shape[-1]
+    for n in cs.HD_SPLITS:
+        w = hd // n
+        qs, ks, vs = (t[..., :w].contiguous() for t in (q, k, v))
+        sc = ds_mod.decode_scores(qs, ks, cl, hd ** -0.5)
+        cs.compare(f"B3-qk 1/{n}", sc,
+                   ref.decode_scores_ref(qs, ks, cl, hd ** -0.5))
+        cs.compare(f"B3-pv 1/{n}", ds_mod.decode_values(sc, vs, cl),
+                   ref.decode_values_ref(sc, vs, cl))
+        for part, fn in (
+                ("b3_qk", lambda: ds_mod.decode_scores(qs, ks, cl,
+                                                       hd ** -0.5)),
+                ("b3_pv", lambda: ds_mod.decode_values(sc, vs, cl))):
+            out[part][f"1/{n} warm"] = cs.time_ms(fn, 100)
+            out[part][f"1/{n} L2-cold"] = cs.time_ms(
+                fn, cs.SPLIT_COLD_ITERS, flush=True)
+        del sc
+    del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -615,8 +661,8 @@ def main(argv=None) -> int:
         compare_steps(runs)
         return 0
     print(f"ms per launch, runs in order [{card.splitlines()[0]}]")
-    keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3", "b4_bwd",
-                                   "b5_bwd")
+    keys = [(part, k) for part in ("b2", "b4", "b1", "b5", "b3", "b3_qk",
+                                   "b3_pv", "b4_bwd", "b5_bwd")
             for k in dict.fromkeys(key for _, run in runs
                                    for key in run.get(part, {}))]
     print("kernel, shape | " + " | ".join(label for label, _ in runs))

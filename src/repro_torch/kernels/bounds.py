@@ -96,6 +96,14 @@ def decode_scores(B, H, Hkv, hd_l, n_valid, esz, dtype):
                  + 4 * H * n_valid, 2 * H * hd_l * n_valid, dtype)
 
 
+def decode_scores_own(B, H, Hkv, hd_l, S, n_valid, esz, dtype):
+    """B3-qk's own least work: ``decode_scores``' q and K, and every one
+    of the (B, H, S) fp32 scores written, the zeros past each length
+    included (the all-reduce that follows sums the whole buffer)."""
+    return bound(esz * (B * H * hd_l + n_valid * Hkv * hd_l)
+                 + 4 * B * H * S, 2 * H * hd_l * n_valid, dtype)
+
+
 def decode_values(B, H, Hkv, hd_l, n_valid, esz, dtype):
     """B3-pv, the softmax of the summed scores over one head_dim slice of
     V: the fp32 scores of the ``n_valid`` valid positions and the V slice

@@ -1,7 +1,8 @@
 // PTX building blocks shared by the tensor-core kernels (flash_decode.cu,
-// moe_ffn_tc.cuh): 16-byte asynchronous global -> shared copies, ldmatrix
-// fragment loads and the bf16 m16n8k16 tensor-core product with fp32
-// accumulation. All need sm_80 or later; the port builds for sm_90a.
+// moe_ffn_tc.cuh, decode_scores.cu, decode_values.cu): 16-byte asynchronous
+// global -> shared copies, ldmatrix fragment loads and the bf16 m16n8k16
+// tensor-core product with fp32 accumulation. All need sm_80 or later; the
+// port builds for sm_90a.
 #pragma once
 
 #include "common.cuh"
@@ -51,6 +52,11 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
                : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
 }
 
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)) : "memory");
+}
+
 // d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate. With
 // g = lane/4, t = lane%4: a = {(g, 2t..), (g+8, 2t..), (g, 2t+8..),
 // (g+8, 2t+8..)} as (row, k) pairs; b = {(k 2t.., n g), (k 2t+8.., n g)};
@@ -78,4 +84,17 @@ template <typename T>
 __device__ __forceinline__ int swizzle(int r, int ch, int chunks) {
   constexpr int kVec = 16 / sizeof(T);
   return (r * chunks + (ch ^ (r & 7))) * kVec;
+}
+
+// Index, in 16-byte chunks, of chunk ch of row r in a tile whose rows hold
+// kChunks (a power of two) such chunks, XOR-swizzled so that the eight rows
+// an ldmatrix reads at one logical chunk land in eight different bank
+// groups. Rows of 128 bytes or more XOR with r % 8, as swizzle() does; rows
+// narrower than that share a 128-byte line (8 / kChunks rows each), so they
+// XOR with the line's index instead. Rows of one chunk need no swizzle.
+template <int kChunks>
+__device__ __forceinline__ int swizzle_chunk(int r, int ch) {
+  static_assert(kChunks > 0 && (kChunks & (kChunks - 1)) == 0, "a power of two");
+  if constexpr (kChunks >= 8) return r * kChunks + (ch ^ (r & 7));
+  else return r * kChunks + (ch ^ ((r / (8 / kChunks)) & (kChunks - 1)));
 }

@@ -28,26 +28,42 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import lengths
 
-TILE = 64            # positions a B3-pv block stages at a time
-BLOCKS_PER_SM = 4    # blocks of work per SM that a split aims for
+# B3-pv's tile, as csrc/decode_values.cu states it: TILE is kWarps * kStep
+# there (the launch refuses a split_len that is not a multiple of it) and
+# HEADS is kHeads
+TILE = 128           # positions a B3-pv block takes per step (4 warps x 32)
+HEADS = 16           # query heads per B3-pv block (the tensor-core tile's M)
+BLOCKS_PER_SM = 8    # blocks of work per SM that a split aims for
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # head_dim slices the kernels take
 
 scores_launches = 0
 values_launches = 0
 
 
-def splits(B: int, Hkv: int, S: int, n_sm: int):
-    """How B3-pv cuts S across blocks: -> (splits, split_len). A block
-    takes one KV head's query heads; a full cache of B * Hkv blocks is cut
-    into runs of whole tiles until there are about ``BLOCKS_PER_SM``
-    blocks of work per SM (``flash_decode.splits``' rule)."""
+def splits(B: int, Hkv: int, rep: int, S: int, n_sm: int):
+    """How B3-pv cuts S across blocks: -> (splits, split_len).
+
+    The lengths live on the device, so the split follows from S and the
+    grid alone: a full cache of B * Hkv * ceil(rep / HEADS) blocks is cut
+    into runs of whole tiles until there are about ``BLOCKS_PER_SM`` blocks
+    of work per SM (so at most ``BLOCKS_PER_SM * n_sm`` splits, within
+    what the combine takes); with half the rows short, about half of them
+    hold positions. One split covers all of S."""
+    blocks = B * Hkv * math.ceil(rep / HEADS)
     tiles = math.ceil(S / TILE)
-    per = max(1, math.ceil(tiles * B * Hkv / (BLOCKS_PER_SM * n_sm)))
+    per = math.ceil(tiles * blocks / (BLOCKS_PER_SM * n_sm))
     return math.ceil(tiles / per), per * TILE
 
 
 def _check_heads(H: int, Hkv: int):
     if H % Hkv:
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
+
+
+def _check_hd(name: str, hd: int):
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes a head_dim slice in "
+                         f"{HEAD_DIMS}, got {hd}")
 
 
 def decode_scores(q, k, cache_len, scale: float):
@@ -65,9 +81,11 @@ def decode_scores(q, k, cache_len, scale: float):
     B, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     _check_heads(H, Hkv)
+    _check_hd("decode_scores", hd)
     dev, dt = q.device, q.dtype
     build.check_tensor("q", q, (B, H, hd), dt, dev)
     build.check_tensor("k", k, (B, S, Hkv, hd), dt, dev)
+    q, k = build.aligned16(q), build.aligned16(k)
     lens = lengths(cache_len, B, dev)
     scores = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     fn = build.load("decode_scores")
@@ -99,15 +117,17 @@ def decode_values(scores, v, cache_len, softcap: float = 0.0, *,
     B, H, S = scores.shape
     Hkv, hd = v.shape[2], v.shape[3]
     _check_heads(H, Hkv)
+    _check_hd("decode_values", hd)
     dev, dt = v.device, v.dtype
     build.check_tensor("scores", scores, (B, H, S), torch.float32, dev)
     build.check_tensor("v", v, (B, S, Hkv, hd), dt, dev)
+    scores, v = build.aligned16(scores), build.aligned16(v)
     softcap = float(softcap)
     if not softcap >= 0.0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
     lens = lengths(cache_len, B, dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, split_len = splits(B, Hkv, S, n_sm)
+    n_split, split_len = splits(B, Hkv, H // Hkv, S, n_sm)
     part = (torch.empty((B * H * n_split * (hd + 2),), dtype=torch.float32,
                         device=dev) if n_split > 1 else None)
     out = torch.empty((B, H, hd), dtype=dt, device=dev)

@@ -29,6 +29,14 @@ BF16, FP32 = str(torch.bfloat16), str(torch.float32)
         4, 64, 4, 64, 32768 + 16384 + 8192 + 1, 2, BF16), 0.013156, "bytes"),
     ("B3-qk S 32768 / 16", lambda: bounds.decode_scores(
         4, 64, 4, 8, 32768 + 16384 + 8192 + 1, 2, BF16), 0.005479, "bytes"),
+    # B3-qk's own bytes, the zeros past each length written too: 62,947,840
+    # B at one of 2 slices, 37,228,608 B at one of 16
+    ("B3-qk own S 32768 / 2", lambda: bounds.decode_scores_own(
+        4, 64, 4, 64, 32768, 32768 + 16384 + 8192 + 1, 2, BF16), 0.018790,
+     "bytes"),
+    ("B3-qk own S 32768 / 16", lambda: bounds.decode_scores_own(
+        4, 64, 4, 8, 32768, 32768 + 16384 + 8192 + 1, 2, BF16), 0.011113,
+     "bytes"),
     # B4 at RWKV6's decode shape: 4 rows x 64 heads, r/k/v bf16, w fp32
     ("B4 decode", lambda: bounds.wkv6(256, 1, 64, 2, 4), 0.002582, "bytes"),
     # B5 at Jamba's decode shape: a pool of 4, d_in 16384, N 16, bf16
@@ -110,6 +118,14 @@ def test_forward_bounds_grow_with_the_valid_work():
     for half in (bounds.decode_scores, bounds.decode_values):
         assert half(4, 64, 4, 64, 100, 2, BF16)[0] < \
             half(4, 64, 4, 64, 200, 2, BF16)[0]
+    # the zeros past the lengths: B3-qk's own bytes exceed the function's
+    # by the invalid scores, and not at all when every row is full
+    own = bounds.decode_scores_own(4, 64, 4, 64, 300, 1000, 2, BF16)[0]
+    assert own - bounds.decode_scores(4, 64, 4, 64, 1000, 2, BF16)[0] == \
+        pytest.approx(4 * 64 * (4 * 300 - 1000) / bounds.HBM_BYTES_PER_S
+                      * 1e3)
+    assert bounds.decode_scores_own(4, 64, 4, 64, 300, 1200, 2, BF16)[0] \
+        == pytest.approx(bounds.decode_scores(4, 64, 4, 64, 1200, 2, BF16)[0])
     assert bounds.wkv6(256, 2, 64, 2, 4)[0] > bounds.wkv6(256, 1, 64, 2, 4)[0]
     assert bounds.selective_scan(1, 2048, 16384, 16, 2)[0] > \
         bounds.selective_scan(1, 36, 16384, 16, 2)[0]

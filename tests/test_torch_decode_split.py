@@ -146,16 +146,28 @@ def test_wrappers_take_cuda_tensors_only():
             decode_split.values_launches) == n
 
 
-@pytest.mark.parametrize("B,Hkv,S,want", [(4, 4, 64, (1, 64)),
-                                          (4, 4, 32768, (32, 1024)),
-                                          (1, 1, 32768, (512, 64))])
-def test_splits_cut_whole_tiles(B, Hkv, S, want):
-    """B3-pv's split over S (132 SMs): whole tiles, covering S, about
+@pytest.mark.parametrize("B,Hkv,rep,S,want", [
+    (4, 4, 16, 64, (1, 128)),
+    # phase 18a's cache, qwen3-moe's 64 / 4 heads: half its rows are short
+    (4, 4, 16, 32768, (64, 512)),
+    # B = 1: a row alone, with one KV head and with qwen3-moe's four
+    (1, 1, 16, 32768, (256, 128)),
+    (1, 4, 16, 32768, (256, 128)),
+    # more than 16 heads a group take a second M tile: twice the blocks
+    (4, 4, 32, 32768, (32, 1024)),
+    # a million positions: whole tiles of 1024
+    (1, 1, 8, 2 ** 20, (1024, 1024))])
+def test_splits_cut_whole_tiles(B, Hkv, rep, S, want):
+    """B3-pv's split over S (132 SMs): whole tiles covering S, about
     ``BLOCKS_PER_SM`` blocks of work an SM when one split a row is too
     few."""
-    n, L = decode_split.splits(B, Hkv, S, 132)
+    n, L = decode_split.splits(B, Hkv, rep, S, 132)
     assert (n, L) == want
     assert L % decode_split.TILE == 0 and n * L >= S > (n - 1) * L
+    blocks = B * Hkv * -(-rep // decode_split.HEADS)
+    if L > decode_split.TILE:
+        assert n * blocks <= decode_split.BLOCKS_PER_SM * 132 < \
+            2 * n * blocks
 
 
 def test_meta_stand_ins_count_a_launch_each():

@@ -303,13 +303,20 @@ def test_flash_decode_softcap_zero_leaves_results_unchanged(cuda, hd, S,
 # B3-qk / B3-pv: (B, H, Hkv, hd, S, lengths, softcap) -- qwen3-moe's
 # 64/4 heads, MQA, Gemma-2's hd 256 with its softcap over a ragged ring,
 # Whisper's cross-attention (hd 64, rep 1), a long cache that B3-pv splits,
-# and rows with no valid position
+# rows with no valid position, qwen2-1.5b's 12/2 heads (rep 6: the
+# tensor-core tile's M padded from 6 to 16), lengths that end inside a
+# 16-position chunk and on either side of B3-pv's splits (of 128 here), and
+# an S that is no multiple of 4 (both halves on their CUDA-core paths in
+# bf16 too)
 SPLIT_CASES = [(4, 64, 4, 128, 64, [1, 17, 40, 64], 0.0),
                (3, 16, 1, 128, 1000, [1000, 513, 1], 0.0),
                (4, 8, 4, 256, 4096, [4096, 1, 2500, 17], 50.0),
                (4, 12, 12, 64, 1500, [1500] * 4, 0.0),
                (2, 16, 2, 128, 20000, [20000, 7001], 0.0),
-               (3, 16, 2, 128, 300, [0, 300, 0], 0.0)]
+               (3, 16, 2, 128, 300, [0, 300, 0], 0.0),
+               (2, 12, 2, 128, 2000, [2000, 77], 0.0),
+               (5, 16, 2, 128, 2048, [1, 15, 17, 1023, 1025], 0.0),
+               (2, 16, 2, 128, 1001, [1001, 500], 0.0)]
 
 
 def _split_inputs(case, dtype, dev, seed):
@@ -373,16 +380,17 @@ def test_decode_split_kernels_match_plain(cuda, case, n, dtype):
 
 def test_decode_split_kernels_are_deterministic(cuda):
     """Two launches of each half give the same bits (B3-pv's splits
-    combine in a fixed order)."""
-    q, k, v, lens, cap = _split_inputs(SPLIT_CASES[4], "bfloat16", cuda, 9)
-    s1 = ds_mod.decode_scores(q[..., :64].contiguous(),
-                              k[..., :64].contiguous(), lens, 0.1)
-    s2 = ds_mod.decode_scores(q[..., :64].contiguous(),
-                              k[..., :64].contiguous(), lens, 0.1)
-    assert torch.equal(s1, s2)
-    vs = v[..., :64].contiguous()
-    assert torch.equal(ds_mod.decode_values(s1, vs, lens),
-                       ds_mod.decode_values(s1, vs, lens))
+    combine in a fixed order), in bf16 (tensor cores) and fp32 (CUDA
+    cores), over one of 2 and one of 16 head_dim slices."""
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, lens, cap = _split_inputs(SPLIT_CASES[4], dtype, cuda, 9)
+        for w in (64, 8):
+            qs, ks, vs = (t[..., :w].contiguous() for t in (q, k, v))
+            s1 = ds_mod.decode_scores(qs, ks, lens, 0.1)
+            s2 = ds_mod.decode_scores(qs, ks, lens, 0.1)
+            assert torch.equal(s1, s2), (dtype, w)
+            assert torch.equal(ds_mod.decode_values(s1, vs, lens),
+                               ds_mod.decode_values(s1, vs, lens)), (dtype, w)
 
 
 def test_decode_split_wrappers_validate_inputs(cuda):
@@ -402,9 +410,39 @@ def test_decode_split_wrappers_validate_inputs(cuda):
         ds_mod.decode_values(s.bfloat16(), kv, 16)
     with pytest.raises(ValueError, match="softcap"):
         ds_mod.decode_values(s, kv, 16, softcap=-1.0)
+    with pytest.raises(ValueError, match="head_dim slice"):
+        ds_mod.decode_scores(torch.zeros(1, 4, 12, device=cuda),
+                             torch.zeros(1, 16, 2, 12, device=cuda), 16, 0.1)
+    with pytest.raises(ValueError, match="head_dim slice"):
+        ds_mod.decode_values(s, torch.zeros(1, 16, 2, 256, device=cuda), 16)
     qg = q.requires_grad_()
     with pytest.raises(NotImplementedError):
         ds_mod.decode_scores(qg, kv, 16, 0.1)
+
+
+def test_decode_values_launch_takes_splits_of_whole_tiles(cuda):
+    """The C entry point takes a split of whole ``decode_split.TILE``
+    positions (its warps' cp.async steps) and refuses any other when it
+    splits: the split rule and the kernel's tile cannot drift apart."""
+    from repro_torch.kernels import build
+    B, H, Hkv, hd, S, tile = 1, 16, 1, 64, 512, ds_mod.TILE
+    scores = torch.zeros(B, H, S, device=cuda)
+    v = torch.zeros(B, S, Hkv, hd, device=cuda, dtype=torch.bfloat16)
+    lens = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    out = torch.empty(B, H, hd, device=cuda, dtype=torch.bfloat16)
+    part = torch.empty(B * H * (S // 32) * (hd + 2), device=cuda)
+    fn = build.load("decode_values")
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(split_len):
+        return fn(scores.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                  out.data_ptr(), part.data_ptr(), None, B, S, Hkv, H // Hkv,
+                  hd, -(-S // split_len), split_len, 0.0,
+                  build.DTYPES[torch.bfloat16], stream)
+    assert launch(tile) == 0
+    torch.cuda.synchronize()
+    assert launch(tile // 2) != 0
+    assert launch(tile + 32) != 0
 
 
 def test_kernel_wrappers_validate_inputs(cuda):
