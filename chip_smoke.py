@@ -215,17 +215,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      and jamba (1 layer, B5 and B5-bwd) cuts, 3 steps of seed 0 at every
      published width, each beside the unsharded run of the same cut: a
      (1, 1) (data, model) mesh of one NCCL rank, every parameter a
-     DTensor, the kernels through their ``local_map`` sites; the step
-     lines equal to every printed digit, the same launch counts, the
-     largest |delta| over the parameters, both runs' step ms, one more
-     placed step's collectives and an NCCL all-reduce;
+     DTensor, the kernels through their ``local_map`` sites (qwen3-moe's
+     global MoE dispatch one site over this rank's experts' blocks,
+     ``moe._global``); the step lines equal to every printed digit, the
+     same launch counts and B1 inputs (printed: this rank's (E_l, C, d)),
+     the largest |delta| over the parameters, both runs' step ms, one
+     more placed step's collectives and an NCCL all-reduce;
  17a B3's log-sum-exp output against the plain version, and its merge of
      2, 4 and 16 blocks of a 32768-position cache against the unsplit
      kernel;
  17. the placed serving steps: prefill of 4 prompts of 32 and 8 greedy
      decode steps at full width (qwen3-moe 4 layers, rwkv6-7b 4, jamba 5),
      unplaced, then placed on a (1, 1) NCCL mesh with the cache placed:
-     tokens equal, logits bit-equal, the same launches;
+     tokens equal, logits bit-equal, the same launches and B1 inputs
+     (printed, with one more placed step's collectives);
  18. grouped MoE dispatch on a placed model: phase 10's qwen3-moe cut
      under ``moe_dispatch="grouped"``, ``Model.loss`` and its backward
      unplaced, then placed on a (1, 1) NCCL mesh (B1 through the grouped
@@ -1219,6 +1222,24 @@ def _counts():
 def _want(**counts):
     """Expected launch counts: ``counts``, every other kernel 0."""
     return {k: counts.get(k, 0) for k in _counts()}
+
+
+@contextlib.contextmanager
+def b1_inputs():
+    """B1's input shapes while the block runs: ``ops.moe_expert_ffn``
+    wrapped to record each call's (E_l, C, d) on this rank (its launch
+    counted as before). -> the list of shapes."""
+    from repro_torch.kernels import ops
+    shapes, ffn = [], ops.moe_expert_ffn
+
+    def recording(xg, *args, **kw):
+        shapes.append(tuple(xg.shape))
+        return ffn(xg, *args, **kw)
+    ops.moe_expert_ffn = recording
+    try:
+        yield shapes
+    finally:
+        ops.moe_expert_ffn = ffn
 
 
 def _b3_per_step(cfg):
@@ -3393,12 +3414,12 @@ def mesh_train_path(card, leg, arch, depth, kernels):
             spmd.start("cuda")      # kept up past train() for the checks
         _reset_counts()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), b1_inputs() as shapes:
             out = train_mod.train(args, cfg, model)
         torch.cuda.synchronize()
         runs[mesh] = dict(lines=_step_lines(buf.getvalue()),
                           counts=_counts(), step_s=out["step_s"],
-                          model=model)
+                          model=model, b1=sorted(set(shapes)))
         for p in model.parameters():
             p.grad = None
     placed, plain = runs["debug"]["model"], runs["none"]["model"]
@@ -3440,12 +3461,17 @@ def mesh_train_path(card, leg, arch, depth, kernels):
           f"{({k: v for k, v in b['counts'].items() if v})}; step ms (median"
           f" of steps 1-{MESH_STEPS - 1}) {ms['none']:.3f} | "
           f"{ms['debug']:.3f}, first step {a['step_s'][0] * 1e3:.1f} | "
-          f"{b['step_s'][0] * 1e3:.1f} [{card}]; one more placed step's "
+          f"{b['step_s'][0] * 1e3:.1f} [{card}]; B1 inputs {a['b1']} | "
+          f"{b['b1']} (this rank's experts); one more placed step's "
           f"collectives {counter.record()}; an NCCL all-reduce over the "
           f"group {'gives' if nccl_ok else 'does NOT give'} the sum")
     if a["lines"] != b["lines"] or len(a["lines"]) != MESH_STEPS:
         raise SystemExit(f"phase 16 {leg}: the placed run's step lines "
                          "differ from the unsharded run's")
+    if a["b1"] != b["b1"]:
+        raise SystemExit(f"phase 16 {leg}: the placed run's B1 inputs "
+                         f"{b['b1']} differ from the unsharded run's "
+                         f"{a['b1']} on a (1, 1) mesh")
     if a["counts"] != b["counts"] or not all(b["counts"][k] > 0
                                              for k in kernels):
         raise SystemExit(f"phase 16 {leg}: the placed run's launches differ"
@@ -3457,7 +3483,9 @@ def mesh_train_path(card, leg, arch, depth, kernels):
                          "or NCCL's all-reduce is wrong")
     return b["counts"], dict(step_ms=ms, max_abs_delta=worst,
                              first_step_ms=[a["step_s"][0] * 1e3,
-                                            b["step_s"][0] * 1e3])
+                                            b["step_s"][0] * 1e3],
+                             b1_inputs=b["b1"],
+                             collectives=counter.record())
 
 
 # ---------------------------------------------------------------------------
@@ -3625,7 +3653,8 @@ def placed_serve_path(card, leg, arch, depth, kernels, phase="17",
     def run(cache):
         _reset_counts()
         logits, toks, ms = [], [], []
-        with torch.no_grad(), spmd.step_context(model):
+        with torch.no_grad(), spmd.step_context(model), \
+                b1_inputs() as shapes:
             lg, cache, _ = model.prefill({"tokens": prompts}, cache)
             logits.append(lg)
             for _ in range(SERVE_MESH_STEPS):
@@ -3638,7 +3667,8 @@ def placed_serve_path(card, leg, arch, depth, kernels, phase="17",
                 ms.append((time.perf_counter() - t0) * 1e3)
                 logits.append(lg)
         return dict(logits=logits, tokens=torch.stack(toks, 1).tolist(),
-                    ms=ms, counts=_counts(), cache=cache)
+                    ms=ms, counts=_counts(), cache=cache,
+                    b1=sorted(set(shapes)))
 
     plain = run(model.init_cache(B, T))
     del plain["cache"]
@@ -3666,22 +3696,25 @@ def placed_serve_path(card, leg, arch, depth, kernels, phase="17",
           f"{({k: v for k, v in placed['counts'].items() if v})}; decode-"
           f"step ms (median of steps 2-{SERVE_MESH_STEPS}) "
           f"{med['unplaced']:.3f} | {med['placed']:.3f}, first step "
-          f"{plain['ms'][0]:.1f} | {placed['ms'][0]:.1f} [{card}]; one more "
+          f"{plain['ms'][0]:.1f} | {placed['ms'][0]:.1f} [{card}]; B1 inputs "
+          f"{plain['b1']} | {placed['b1']} (this rank's experts); one more "
           f"placed step's collectives {counter.record()}")
     bad = []
     if plain["tokens"] != placed["tokens"] or delta != 0 or not finite:
         bad.append("tokens or logits differ (or are not finite)")
+    if plain["b1"] != placed["b1"]:
+        bad.append("B1's inputs differ")
     if plain["counts"] != placed["counts"] or not all(
             placed["counts"][k] > 0 for k in kernels):
         bad.append(f"launches differ or miss one of {kernels}")
-    counts = placed["counts"]
+    counts, b1 = placed["counts"], placed["b1"]
     del model, plain, placed
     gc.collect()
     torch.cuda.empty_cache()
     if bad:
         raise SystemExit(f"phase {phase} {leg}: " + "; ".join(bad))
     return counts, dict(decode_step_ms=med, max_abs_delta=delta,
-                        collectives=counter.record())
+                        collectives=counter.record(), b1_inputs=b1)
 
 
 # ---------------------------------------------------------------------------
@@ -3704,7 +3737,6 @@ def grouped_mesh_train(card):
     -> (the placed run's launch counts, a dict for B1's row)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.launch import sharding, spmd
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import DATA_VOCAB
@@ -3722,43 +3754,34 @@ def grouped_mesh_train(card):
     data = TokenStream(DataConfig(vocab=min(cfg.vocab, DATA_VOCAB),
                                   seq_len=TRAIN_SEQ, batch=TRAIN_BATCH))
     batch = to_batch(next(iter(data.batches(1, seed=18))), "cuda")
-    shapes = []
-    ffn = ops.moe_expert_ffn
-
-    def recording(xg, *args, **kw):
-        shapes.append(tuple(xg.shape))
-        return ffn(xg, *args, **kw)
 
     def run(b):
         _reset_counts()
         ms = []
-        for _ in range(GROUPED_MESH_STEPS):
-            for p in model.parameters():
-                p.grad = None
-            shapes.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with spmd.step_context(model):
-                loss = model.loss(b, remat=True)
-                loss.backward()
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
+        with b1_inputs() as shapes:
+            for _ in range(GROUPED_MESH_STEPS):
+                for p in model.parameters():
+                    p.grad = None
+                shapes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with spmd.step_context(model):
+                    loss = model.loss(b, remat=True)
+                    loss.backward()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
         grads = {n: p.grad.to_local() if spmd.is_placed(p.grad) else p.grad
                  for n, p in model.named_parameters()}
         return dict(loss=spmd.local(loss.detach()), grads=grads, ms=ms,
                     counts=_counts(), shapes=list(shapes))
 
-    ops.moe_expert_ffn = recording
-    try:
-        plain = run(batch)
-        spmd.start("cuda")
-        mesh = Mesh(("data", "model"), (1, 1))
-        dm = spmd.device_mesh(mesh, "cuda")
-        sharding.place(model, dm, mesh)
-        placed = run(sharding.place_batch(batch, dm))
-        spmd.stop()
-    finally:
-        ops.moe_expert_ffn = ffn
+    plain = run(batch)
+    spmd.start("cuda")
+    mesh = Mesh(("data", "model"), (1, 1))
+    dm = spmd.device_mesh(mesh, "cuda")
+    sharding.place(model, dm, mesh)
+    placed = run(sharding.place_batch(batch, dm))
+    spmd.stop()
     same_loss = bool(torch.equal(plain["loss"], placed["loss"]))
     differ = [n for n, g in plain["grads"].items()
               if not torch.equal(g, placed["grads"][n])]

@@ -65,8 +65,9 @@ the host's enqueue ahead of the card). Prints each run's JSON line (``AB
 ``--steps`` times, instead of the kernels, each tree's unplaced serving
 steps (``Model.prefill`` and ``Model.serve_step``) at ``chip_smoke.py``
 phase 17's legs: the decode step's wall and host enqueue ms, its
-top-level aten ops and device kernels, and the greedy tokens, which must
-be equal in every run (``serve_steps``).
+top-level aten ops and device kernels, the same but the wall for one
+more prefill, and the greedy tokens, which must be equal in every run
+(``serve_steps``).
 
 ``--lanes`` times this tree's B5 alone at the same shapes for each lane
 group size G (lanes a channel's states are split over) and ring-stage
@@ -219,8 +220,9 @@ def serve_steps(cs) -> dict:
     wall ms and its host enqueue ms (``perf_counter`` around the call, no
     sync inside), medians of steps 2 on, and one more step under
     ``torch.profiler`` (``chip_smoke.profile_step``: top-level aten ops,
-    device kernels and copies, busy ms). -> {leg: {...}, with the greedy
-    tokens}."""
+    device kernels and copies, busy ms); then one more prefill of the same
+    prompts into a new cache: its host enqueue ms, and profiled, its aten
+    ops and device kernels. -> {leg: {...}, with the greedy tokens}."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import DATA_VOCAB
@@ -250,11 +252,24 @@ def serve_steps(cs) -> dict:
                 enqueue.append((t1 - t0) * 1e3)
             busy, kernels, ops, _, _ = cs.profile_step(
                 lambda: model.serve_step(cache, lg.argmax(-1)))
+            # one more prefill of the same prompts: its host enqueue (no
+            # sync inside), then its aten ops under the profiler
+            fresh = model.init_cache(B, S + STEP_AB_STEPS + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill({"tokens": prompts}, fresh)
+            pre_enqueue = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            _, pre_kernels, pre_ops, _, _ = cs.profile_step(
+                lambda: model.prefill({"tokens": prompts}, fresh))
         out[leg] = {"step_ms": float(np.median(wall[1:])),
                     "enqueue_ms": float(np.median(enqueue[1:])),
                     "aten_ops": ops, "kernels": kernels, "busy_ms": busy,
+                    "prefill_enqueue_ms": pre_enqueue,
+                    "prefill_aten_ops": pre_ops,
+                    "prefill_kernels": pre_kernels,
                     "tokens": torch.stack(toks, 1).tolist()}
-        del model, cache, lg
+        del model, cache, lg, fresh
         torch.cuda.empty_cache()
     return out
 
@@ -264,11 +279,13 @@ def compare_steps(runs) -> None:
     tokens must be equal."""
     print("unplaced decode step, runs in order: step ms (synchronised "
           "wall) | host enqueue ms | top-level aten ops | device kernels "
-          "and copies | busy ms")
+          "and copies | busy ms; then one more prefill's host enqueue ms, "
+          "top-level aten ops and device kernels and copies")
     for leg in runs[0][1]["steps"]:
         rs = [run["steps"][leg] for _, run in runs]
         for key in ("step_ms", "enqueue_ms", "aten_ops", "kernels",
-                    "busy_ms"):
+                    "busy_ms", "prefill_enqueue_ms", "prefill_aten_ops",
+                    "prefill_kernels"):
             print(f"{leg} {key} | " + " | ".join(
                 f"{r[key]:.3f}" if isinstance(r[key], float)
                 else str(r[key]) for r in rs))

@@ -20,15 +20,20 @@ launch: its products (``wkv6_bwd.cu``, ``selective_scan_bwd.cu``), the
 inputs, checkpoints and output gradients it reads, the input gradients it
 writes, and B5's per-block partials (written, then read by its second
 pass). Any other stand-in raises under a gradient, as its kernel does.
+A stand-in refuses the head dims its kernel refuses (the wrappers'
+``HEAD_DIMS``), so a dry-run record is ok only where the card would run.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_split import HEAD_DIMS as SPLIT_HEAD_DIMS
+from repro_torch.kernels.flash_decode import HEAD_DIMS as B3_HEAD_DIMS
 from repro_torch.kernels.selective_scan import \
     checkpoints_shape as scan_checkpoints
 from repro_torch.kernels.selective_scan import partials_shape
+from repro_torch.kernels.wkv6 import HEAD_DIMS as B4_HEAD_DIMS
 from repro_torch.kernels.wkv6 import checkpoints_shape as wkv_checkpoints
 
 # the active counters: objects with ``kernel(name, inputs, outputs, flops)``
@@ -40,6 +45,12 @@ def _report(name, inputs, outputs, flops) -> None:
     outs = [t for t in outputs if isinstance(t, torch.Tensor)]
     for c in COUNTERS:
         c.kernel(name, ins, outs, float(flops))
+
+
+def _check_hd(name, hd, head_dims, what="hd"):
+    if hd not in head_dims:
+        raise ValueError(f"{name} kernel takes {what} in {head_dims}, got "
+                         f"{hd}")
 
 
 def _empty(shape, dtype):
@@ -104,6 +115,7 @@ def flash_decode(q, k, v, return_lse: bool = False):
     ``return_lse`` each row's fp32 log-sum-exp (B, H). Products: q·Kᵀ and
     p·V over every cache position."""
     B, H, hd = q.shape
+    _check_hd("flash_decode", hd, B3_HEAD_DIMS)
     S = k.shape[1]
     specs = [(q.shape, q.dtype)]
     if return_lse:
@@ -117,6 +129,8 @@ def decode_scores(q, k):
     """B3-qk: q (B, H, hd_l) against k (B, S, Hkv, hd_l) -> the partial
     scores (B, H, S) fp32. Product: q·Kᵀ over every cache position."""
     B, H, hd = q.shape
+    _check_hd("decode_scores", hd, SPLIT_HEAD_DIMS,
+              "a head_dim slice")
     S = k.shape[1]
     (scores,) = stand_in("decode_scores", (q, k),
                          [((B, H, S), torch.float32)], 2.0 * B * H * S * hd)
@@ -129,6 +143,8 @@ def decode_values(scores, v, return_lse: bool = False):
     (B, H). Product: p·V over every cache position."""
     B, H, S = scores.shape
     hd = v.shape[3]
+    _check_hd("decode_values", hd, SPLIT_HEAD_DIMS,
+              "a head_dim slice")
     specs = [((B, H, hd), v.dtype)]
     if return_lse:
         specs.append(((B, H), torch.float32))
@@ -144,6 +160,7 @@ def wkv6(r, k, v, w, u, s0):
     Aᵀ·k and G ⊙ S's row sums), reading r/k/v/w/u, the checkpoints and
     the output gradients."""
     BH, T, hd = r.shape
+    _check_hd("wkv6", hd, B4_HEAD_DIMS)
     inputs = (r, k, v, w, u, s0)
     bwd = None
     if build.needs_grad(*inputs):

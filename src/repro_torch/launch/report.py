@@ -2,7 +2,7 @@
 ``scripts/make_report.py``, over the port's records (``launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.report \\
-        [--dir experiments/dryrun_torch] [--md FILE]
+        [--dir experiments/dryrun_torch] [--md FILE] [--goldens DIR]
 
 Prints the §Dry-run table (one row per record: status, trace seconds,
 dot TFLOPs of the whole step, argument and temporary bytes per device,
@@ -10,15 +10,23 @@ and each collective kind's bytes per device as the record holds them)
 and the §Roofline table (the 16x16 records through ``roofline.analyze``:
 compute, memory and collective seconds on H100 datasheet rates). With
 ``--md`` it also writes them between the file's ``<!-- DRYRUN_TABLE -->``
-and ``<!-- ROOFLINE_TABLE -->`` markers, as the reference does.
+and ``<!-- ROOFLINE_TABLE -->`` markers, as the reference does. With
+``--goldens`` (the reference's records, ``experiments/dryrun_ci``) it
+also prints, for each golden with a port record of the same file name in
+``--dir``, each collective kind's count and bytes per device beside the
+golden's ``cost_corrected`` ones: a report, not a bound, since the two
+partitioners need not agree.
 """
 from __future__ import annotations
 
 import argparse
+import json
+from pathlib import Path
 
 from repro_torch.config import INPUT_SHAPES
 from repro_torch.configs import get_config
 from repro_torch.launch import roofline
+from repro_torch.launch.spmd import COLLECTIVES
 
 NOTES = {"compute": "scale batch/seq or quantize to move",
          "memory": "weight/KV streaming bound; fuse or shrink dtype",
@@ -91,6 +99,36 @@ def roofline_table(recs) -> str:
     return "\n".join(lines)
 
 
+def goldens_table(golden_dir, port_dir) -> str:
+    """The port's collectives beside the reference's goldens: a row per
+    collective kind that either counts, for each record of ``golden_dir``
+    with a port record of the same file name in ``port_dir`` (one
+    device's count and bytes; the golden's from ``cost_corrected``)."""
+    lines = ["| record | kind | port count | port bytes | golden count | "
+             "golden bytes |", "|---|---|---|---|---|---|"]
+    for path in sorted(Path(golden_dir).glob("*.json")):
+        mine = Path(port_dir) / path.name
+        if not mine.exists():
+            continue
+        gold, port = (json.loads(f.read_text()) for f in (path, mine))
+        if gold["status"] != "ok" or port["status"] != "ok" \
+                or port["collectives"] is None:
+            lines.append(f"| {path.stem} | - | {port['status']} | - | "
+                         f"{gold['status']} | - |")
+            continue
+        cc = gold["cost_corrected"]
+        counts = cc.get("collective_counts", {})
+        nbytes = cc.get("collective_bytes", {})
+        for kind in COLLECTIVES:
+            p = port["collectives"][kind]
+            if p["count"] or counts.get(kind):
+                lines.append(
+                    f"| {path.stem} | {kind} | {p['count']} | "
+                    f"{p['bytes']:.4e} | {int(counts.get(kind, 0))} | "
+                    f"{nbytes.get(kind, 0):.4e} |")
+    return "\n".join(lines)
+
+
 def _replace(text, marker, content):
     begin, end = f"<!-- {marker} -->", f"<!-- /{marker} -->"
     block = f"{begin}\n{content}\n{end}"
@@ -105,10 +143,16 @@ def main(argv=None):
     ap.add_argument("--md", default=None,
                     help="also write the tables between this file's "
                          "DRYRUN_TABLE / ROOFLINE_TABLE markers")
+    ap.add_argument("--goldens", default=None,
+                    help="also print the collectives of each record beside "
+                         "this directory's reference record of its name")
     args = ap.parse_args(argv)
     recs = roofline.load_records(args.dir)
     dt, rt = dryrun_table(recs), roofline_table(recs)
     print("## Dry-run\n\n" + dt + "\n\n## Roofline\n\n" + rt)
+    if args.goldens:
+        print("\n## Collectives beside the reference's goldens\n\n"
+              + goldens_table(args.goldens, args.dir))
     if args.md:
         with open(args.md) as f:
             text = f.read()

@@ -13,10 +13,11 @@ collectives, as GSPMD does.
 A hand-written kernel takes local tensors. ``site`` runs a function over
 the local blocks of its DTensor arguments through ``local_map``: the
 kernels run at local shapes (B1 over the expert dim, B4 over heads, B5
-over channels). ``replicated`` runs a function on every rank over
-replicated inputs: the MoE dispatch's sort, scatter and ``index_add_``,
-for which DTensor has no sharding rule. Both call the function directly
-when no argument is a DTensor, so an unplaced model runs the same ops.
+over channels), and so do the ops around them that DTensor has no
+sharding rule for (the MoE dispatch's sort, scatter and ``index_add_``,
+each model rank over its own experts' slots). It calls the function
+directly when no argument is a DTensor, so an unplaced model runs the
+same ops.
 
 The serving steps write a decode cache placed by ``cache_shardings``:
 ``block_site`` runs each write over this rank's block of a cache entry
@@ -364,13 +365,6 @@ def project(eq: str, x, w):
     xspec = (xs.index(axis), 0)
     return site(fn, (xspec, wspec), (("partial", 0),), x, w,
                 grad_specs=(xspec, (wdim, "partial")))
-
-
-def replicated(fn, n_out: int, *args):
-    """``fn(*args)`` on every rank over replicated copies of its DTensor
-    arguments (``n_out`` tensor outputs, replicated): for ops DTensor has
-    no sharding rule for. ``fn(*args)`` when nothing is placed."""
-    return site(fn, [None] * len(args), [None] * n_out, *args)
 
 
 def gathered(t):

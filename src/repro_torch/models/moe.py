@@ -119,8 +119,9 @@ def _slots(m: MoEConfig, idx, T: int, C: int, token_mask, capacity_factor):
     """Capacity dispatch of the (T, k) routed experts ``idx``: -> (order,
     the stable sort of the (token, expert) pairs by expert; slot_idx, each
     sorted pair's slot in ``E*C`` (over-capacity pairs at the extra slot
-    E*C); slot_token, the token feeding each of the E*C slots, T for
-    none)."""
+    E*C); slot_token, the token feeding each of the E*C + 1 slots, T for
+    none: the last slot is the over-capacity row, which callers slice
+    off)."""
     E, k = m.n_experts, m.top_k
     dev = idx.device
     flat_e = idx.reshape(T * k)
@@ -144,44 +145,38 @@ def _slots(m: MoEConfig, idx, T: int, C: int, token_mask, capacity_factor):
     slot = e_clip * C + torch.clamp(pos_in_e, max=C - 1)
 
     # token feeding each of the E*C slots (T = "no token"); over-capacity
-    # entries scatter to the extra row E*C, which is sliced off
+    # entries scatter to the extra row E*C
     slot_idx = torch.where(keep, slot, torch.full_like(slot, E * C))
     slot_token = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
     slot_token[slot_idx] = token_of
-    return order, slot_idx, slot_token[:E * C]
+    return order, slot_idx, slot_token
 
 
-def _gather(xf, slot_token, E: int, C: int):
-    """xf (T, d) -> the (E, C, d) blocks of ``slot_token`` (zeros where no
-    token)."""
-    x_pad = torch.cat([xf, xf.new_zeros(1, xf.shape[1])], dim=0)
-    return x_pad[slot_token].reshape(E, C, xf.shape[1])
-
-
-def _combine(yg, gates, order, slot_idx, slot_token, T: int):
-    """The experts' (E, C, d) outputs, gate-weighted, summed back to their
-    tokens -> (T, d) in the accumulator dtype."""
-    E, C, d = yg.shape
-    yg = yg.reshape(E * C, d)
+def _global(m: MoEConfig, C: int, capacity_factor, e0: int, El: int, ffn,
+            xf, gates, idx, token_mask):
+    """The global dispatch over experts e0 .. e0 + El - 1: xf (T, d) with
+    its routing gates/idx (T, k) and ``token_mask`` (B, S) (or None). The
+    dispatch runs over all T tokens and all E experts (the capacity is
+    global); only the local experts' slots are gathered into (El, C, d)
+    blocks, run through ``ffn`` (-> (El, C, d)), gate-weighted and summed
+    back to their tokens. -> (T, d) in the accumulator dtype: this rank's
+    share of y (all of it when every expert is local)."""
+    T, d = xf.shape
+    E = m.n_experts
+    order, slot_idx, slot_token = _slots(m, idx, T, C, token_mask,
+                                         capacity_factor)
+    local = slice(e0 * C, (e0 + El) * C)
+    slot_token = slot_token[local]
+    x_pad = torch.cat([xf, xf.new_zeros(1, d)], dim=0)
+    yg = ffn(x_pad[slot_token].reshape(El, C, d)).reshape(El * C, d)
     gate_flat = gates.reshape(-1)[order]
-    slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=yg.device)
+    slot_gate = torch.zeros(E * C + 1, dtype=gates.dtype, device=xf.device)
     slot_gate[slot_idx] = gate_flat
-    contrib = yg * slot_gate[:E * C, None].to(yg.dtype)
+    contrib = yg * slot_gate[local, None].to(yg.dtype)
     acc = _acc_dtype(contrib.dtype)
-    y = torch.zeros(T + 1, d, dtype=acc, device=yg.device)
+    y = torch.zeros(T + 1, d, dtype=acc, device=xf.device)
     y.index_add_(0, slot_token, contrib.to(acc))
     return y[:T]
-
-
-def expert_ffn(p, xg, act: str):
-    """The grouped expert FFN of ``p``'s experts over (E, C, d) blocks: B1
-    on CUDA. On a placed model each rank runs it over its experts' blocks
-    (``local_map`` over the expert dim: expert parallelism)."""
-    w_gate = getattr(p, "w_gate", None)
-
-    def ffn(xg, w_gate, w_up, w_down):
-        return ops.moe_expert_ffn(xg, w_gate, w_up, w_down, act=act)
-    return spmd.site(ffn, (0, 0, 0, 0), (0,), xg, w_gate, p.w_up, p.w_down)
 
 
 def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
@@ -202,7 +197,19 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     device slot cache's buffers and (E,) int32 expert -> slot table
     (``ops.moe_expert_ffn_slots``) instead of ``p``'s. Under
     ``cfg.moe_dispatch == "grouped"`` a batch of more than one sequence
-    takes ``moe_ffn_grouped``."""
+    takes ``moe_ffn_grouped``.
+
+    Over ``p``'s own experts the dispatch is one site over the local
+    blocks (``_global``), as GSPMD partitions the reference's: on a placed
+    model every rank sorts all T tokens (replicated over every mesh axis),
+    each model rank runs B1 over its own experts' blocks, (E/m, C, d), and
+    combines only their slots, so the output is a partial sum over the
+    model axis, reduced there in the accumulator dtype; nothing of size
+    E·C·d crosses a link. The input's and the gates' gradients are partial
+    over the model axis; the experts' are whole on every data rank, which
+    sees every row. ``expert_fn`` and ``slot_weights`` run unplaced (the
+    expert-parallel and streaming runtimes): on a placed model they
+    raise."""
     if cfg.moe_dispatch == "grouped" and x.shape[0] > 1:
         if slot_weights is not None:
             raise NotImplementedError(
@@ -220,28 +227,44 @@ def moe_ffn(p, cfg: ArchConfig, x, *, capacity_factor: float | None = None,
     else:
         (gates, idx), probs = routing, None
     C = capacity(T, m, capacity_factor)
-    E = m.n_experts
     # the routing decisions are integers off the autograd graph: on a
     # placed model each rank sorts its replicated copy (DTensor has no rule
     # for argsort or searchsorted)
     idx = spmd.local(idx)
-    order, slot_idx, slot_token = _slots(m, idx, T, C, token_mask,
-                                         capacity_factor)
-    # gather into (E, C, d) blocks; replicated on a placed model
-    xg = spmd.replicated(_gather, 1, xf, slot_token, E, C)
+    if expert_fn is None and slot_weights is None:
+        e0 = spmd.offset(p.w_up, 0)             # this rank's first expert
 
-    if expert_fn is not None:
-        yg = expert_fn(xg, p)
-    elif slot_weights is None:
-        yg = expert_ffn(p, xg, cfg.act)
+        def fn(xf, gates, idx, token_mask, w_gate, w_up, w_down):
+            def ffn(xg):
+                return ops.moe_expert_ffn(xg, w_gate, w_up, w_down,
+                                          act=cfg.act)
+            return _global(m, C, capacity_factor, e0, w_up.shape[0], ffn,
+                           xf, gates, idx, token_mask)
+        experts = (0, None)
+        y = spmd.site(fn, (None, None, None, None, experts, experts,
+                           experts), (("partial", None),), xf, gates, idx,
+                      token_mask, getattr(p, "w_gate", None), p.w_up,
+                      p.w_down,
+                      grad_specs=(("partial", None), ("partial", None),
+                                  None, None, experts, experts, experts))
+        y = spmd.reduced(y)
     else:
-        yg = ops.moe_expert_ffn_slots(
-            xg, slot_weights, slot_ids, act=cfg.act,
-            out_dtype=slot_out_dtype(x.dtype, slot_weights))
-    # combine: on a placed model B1's blocks are gathered from every rank
-    # and each rank runs the scatter and index_add_ (no DTensor rule)
-    y = spmd.replicated(_combine, 1, yg, gates, order, slot_idx,
-                        slot_token, T)
+        if spmd.is_placed(x, getattr(p, "w_up", None)):
+            what = ("an expert_fn" if expert_fn is not None
+                    else "slot-cache weights")
+            raise NotImplementedError(
+                f"global dispatch with {what} on a placed model: the "
+                "expert-parallel and streaming runtimes run unplaced")
+        if expert_fn is not None:
+            def ffn(xg):
+                return expert_fn(xg, p)
+        else:
+            def ffn(xg):
+                return ops.moe_expert_ffn_slots(
+                    xg, slot_weights, slot_ids, act=cfg.act,
+                    out_dtype=slot_out_dtype(x.dtype, slot_weights))
+        y = _global(m, C, capacity_factor, 0, m.n_experts, ffn, xf, gates,
+                    idx, token_mask)
     y = y.reshape(B, S, d).to(x.dtype)
 
     if m.n_shared_experts:

@@ -275,6 +275,43 @@ def test_cost_mode_counts_bytes_kernels_and_peak():
     assert rec["output_bytes"] == 2 * cfg.vocab * 4 + 2 * 4
 
 
+def _on_meta(*shape):
+    return torch.empty(shape, device="meta")
+
+
+# each stand-in that checks its kernel's head dims: (the module of the
+# wrapper's HEAD_DIMS, a call at head dim hd)
+STAND_INS = {
+    "flash_decode": ("flash_decode", lambda meta, hd: meta.flash_decode(
+        _on_meta(2, 8, hd), _on_meta(2, 16, 2, hd), _on_meta(2, 16, 2, hd))),
+    "decode_scores": ("decode_split", lambda meta, hd: meta.decode_scores(
+        _on_meta(2, 8, hd), _on_meta(2, 16, 2, hd))),
+    "decode_values": ("decode_split", lambda meta, hd: meta.decode_values(
+        _on_meta(2, 8, 16), _on_meta(2, 16, 2, hd))),
+    "wkv6": ("wkv6", lambda meta, hd: meta.wkv6(
+        *(_on_meta(4, 3, hd) for _ in "rkvw"), _on_meta(4, hd),
+        _on_meta(4, hd, hd))),
+}
+
+
+@pytest.mark.parametrize("name", list(STAND_INS))
+def test_meta_stand_in_refuses_what_its_kernel_refuses(name):
+    """A kernel's meta stand-in (the dry run's) takes every head dim of
+    its wrapper's ``HEAD_DIMS`` and raises the wrapper's ``ValueError``
+    outside it (one below the smallest, one between, one past the
+    largest), with no kernel library built or loaded."""
+    import importlib
+    from repro_torch.kernels import build, meta
+    module, call = STAND_INS[name]
+    dims = importlib.import_module(f"repro_torch.kernels.{module}").HEAD_DIMS
+    for hd in dims:
+        call(meta, hd)
+    for hd in (dims[0] // 2, dims[0] + 1, dims[-1] * 2):
+        with pytest.raises(ValueError, match=f"{name} kernel takes"):
+            call(meta, hd)
+    assert not build._libs
+
+
 # ---------------------------------------------------------------------------
 # roofline and the CLI
 # ---------------------------------------------------------------------------

@@ -143,7 +143,12 @@ elif mode == "grads":
               for n in ("w_gate", "w_up", "w_down")}
         want = moe.ops.moe_expert_ffn(xg, ws["w_gate"], ws["w_up"],
                                       ws["w_down"], act=cfg.act)
-        got = moe.expert_ffn(layer.moe, xg, cfg.act)
+
+        def ffn(xg, w_gate, w_up, w_down):
+            return moe.ops.moe_expert_ffn(xg, w_gate, w_up, w_down,
+                                          act=cfg.act)
+        got = spmd.site(ffn, (0, 0, 0, 0), (0,), xg, layer.moe.w_gate,
+                        layer.moe.w_up, layer.moe.w_down)
         full["B1"] = bool(torch.equal(got.full_tensor(), want))
         out["B1_local_experts"] = int(got.to_local().shape[0])
     layer = first("rwkv")
@@ -174,7 +179,7 @@ elif mode == "grads":
     out["sites"] = full
 elif mode == "collectives":
     cfg = get_config(a["arch"]).reduced()
-    model = placed(Model(cfg, device="cpu").init(0))
+    model = placed(Model(cfg, device="cpu").init(0), a.get("mesh"))
     step = make_train_step(model, OptConfig(), remat=True)
     opt = adamw_init(dict(model.named_parameters()))
     B, S = a["batch"]
@@ -351,6 +356,23 @@ def test_dry_run_collectives_match_the_gloo_run(tmp_path):
     recs = _finish(procs, out)
     assert recs[0]["collectives"] == recs[1]["collectives"] == rec
     assert sum(v["count"] for v in rec.values()) > 0
+
+
+def test_dry_run_collectives_match_the_gloo_run_over_the_data_axis(
+        tmp_path):
+    """The same on a (2, 1) mesh (the batch's rows over the data axis):
+    the global MoE dispatch gathers the rows and the gates to every rank,
+    and the experts' gradients are whole on each; the dry run's kinds,
+    counts and bytes equal the two gloo ranks'."""
+    B, S = 2, 16
+    procs, out = _start_ranks("collectives", {"arch": QWEN3, "batch": [B, S],
+                                              "mesh": [RANKS, 1]}, tmp_path)
+    cfg = torch_get_config(QWEN3).reduced()
+    rec = dryrun.placed_collectives(cfg, InputShape("t", S, B, "train"),
+                                    Mesh(("data", "model"), (RANKS, 1)))
+    recs = _finish(procs, out)
+    assert recs[0]["collectives"] == recs[1]["collectives"] == rec
+    assert rec["all-gather"]["count"] > 0 and rec["all-reduce"]["count"] > 0
 
 
 def test_dry_run_extrapolates_period_groups_exactly():

@@ -206,7 +206,9 @@ spmd.stop()
 # axis, each data rank's own rows) and with one KV head (the cache sharded
 # on head_dim: B3-qk, the scores' all-reduce, B3-pv), and a long_500k one
 # (one row, Gemma-2's window rings sharded over the data axis by
-# sequence), all cut to reduced sizes; the last entry overrides the config
+# sequence), all cut to reduced sizes; the last entry overrides the config.
+# Last, the decode_32k cell with its rows over the data axis: global
+# dispatch gathers the rows (every rank sorts all tokens), not the blocks
 DECODE_32K = InputShape("decode_32k", 64, 4, "decode")
 COLLECTIVE_CASES = [
     (QWEN3, (1, RANKS), DECODE_32K, {}),
@@ -214,13 +216,18 @@ COLLECTIVE_CASES = [
     (QWEN3, (1, RANKS), DECODE_32K, {"moe_dispatch": "grouped"}),
     (QWEN3, (RANKS, 1), DECODE_32K, {"moe_dispatch": "grouped"}),
     (QWEN3, (1, RANKS), DECODE_32K, {"n_kv_heads": 1}),
+    (QWEN3, (RANKS, 1), DECODE_32K, {}),
 ]
 
 
 def _collective_id(case):
+    """arch-shape, then the mesh where overrides follow or an earlier
+    case has the same arch and shape, then the overrides."""
     arch, mesh, shape, repl = case
+    again = any(c[0] == arch and c[2] == shape
+                for c in COLLECTIVE_CASES[:COLLECTIVE_CASES.index(case)])
     return "-".join([arch, shape.name]
-                    + ([f"{mesh[0]}x{mesh[1]}"] if repl else [])
+                    + ([f"{mesh[0]}x{mesh[1]}"] if repl or again else [])
                     + [f"{k}={v}" for k, v in repl.items()])
 
 
