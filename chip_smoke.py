@@ -1697,10 +1697,10 @@ def streaming_path(card, arch=QWEN3,
     if resident_bytes + kv_bytes - stream_bytes < expert_total - slot_bytes:
         raise SystemExit("the card still holds experts beyond its slots")
     steps = _steps(srv, f"streaming rf 0.5 {wire}", card)
-    ups = np.asarray(srv.decode_uploads, dtype=float)
-    print("  uploads issued inside each decode step (demand + planned) : "
-          "its ms: " + ", ".join(f"{int(n)}: {ms:.1f}"
-                                 for n, ms in zip(ups, steps)))
+    ups = np.asarray(decode_iteration_uploads(t0), dtype=float)
+    print("  uploads issued in each iteration with a decode step (demand + "
+          "planned, its residency sync's included) : its decode step's ms: "
+          + ", ".join(f"{int(n)}: {ms:.1f}" for n, ms in zip(ups, steps)))
     if ups.std() > 0:
         slope, icpt = np.polyfit(ups, steps, 1)
         print(f"  least squares over {len(steps)} steps: step ms = "
@@ -1747,6 +1747,23 @@ def streaming_path(card, arch=QWEN3,
     return launches, tokens, readings
 
 
+def decode_iteration_uploads(since):
+    """Slot uploads (demand and planned) of each server iteration since
+    ``since`` (``time.perf_counter``) that ran a decode step, in order:
+    the counters of its ``serve.step`` span."""
+    from repro_torch.serving import telemetry
+    spans = [s for s in telemetry.spans() if s.t0 >= since]
+    decoding = {s.parent for s in spans if s.name == "serve.decode"}
+    return [s.counters["demand_uploads"] + s.counters["prefetch_uploads"]
+            for s in spans if s.name == "serve.step" and s.id in decoding]
+
+
+def _uploads(srv):
+    """Slot uploads issued so far (demand and prefetch, every shard)."""
+    st = srv.slot_runtime.slot_cache.stats()
+    return st["demand_uploads"] + st["prefetch_uploads"]
+
+
 def stream_step_readings(srv, steps, what, card):
     """Three more steps of the streaming runtime, every row active: one to
     upload what the new routes miss, one for the host's time (the runtime
@@ -1760,13 +1777,13 @@ def stream_step_readings(srv, steps, what, card):
     tok = srv._tok.copy()
     active = np.ones(srv.n_slots, bool)
     rt.decode(tok, active)
-    n0 = srv._uploads()
+    n0 = _uploads(srv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rt.decode(tok, active)
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    n1 = srv._uploads()
+    n1 = _uploads(srv)
     busy_ms, n_kernels, n_ops, _, copy_ms = profile_step(
         lambda: rt.decode(tok, active))
     median = float(np.median(steps))
@@ -1776,7 +1793,7 @@ def stream_step_readings(srv, steps, what, card):
           f"waits on the routing once a MoE layer), then torch.profiler: "
           f"{n_ops} top-level aten ops, {n_kernels} device kernels/copies, "
           f"device busy {busy_ms:.3f} ms ({copy_ms:.3f} of it copies, "
-          f"{srv._uploads() - n1} uploads among them) [{card}]")
+          f"{_uploads(srv) - n1} uploads among them) [{card}]")
     return {"median_ms": median, "host_ms": host_ms, "busy_ms": busy_ms,
             "copy_ms": copy_ms}
 

@@ -30,7 +30,6 @@ copy stream on every demand miss (the reference's fenced schedule).
 """
 from __future__ import annotations
 
-import time
 import weakref
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -38,11 +37,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant
+from repro_torch.serving import telemetry
 
 Key = Tuple[int, int]          # (moe_layer_idx, expert_idx)
 
 EXPERT_WEIGHT_NAMES = ("w_gate", "w_up", "w_down")
 _WIRE_TORCH = {"fp16": torch.float16, "int8": torch.int8}
+# commits timed between two readings of ``ExpertSlotCache.commit_ms`` (a
+# step commits once a MoE layer)
+TIMED_COMMITS = 256
 
 
 def quantize_weight(w: torch.Tensor, transfer_dtype: str):
@@ -198,6 +201,11 @@ class ExpertSlotCache:
     treat staged experts as resident; the math sees them only once the
     consuming step's ``commit`` runs. On the CPU there is no copy stream:
     staging keeps the host images and ``commit`` copies them.
+
+    Attributes outside :meth:`stats`: ``prefetch_used`` counts the
+    prefetch-staged experts a later ``ensure`` routed to,
+    ``prefetch_unused_evicted`` those evicted first (prefetch precision);
+    :meth:`commit_ms` the compute stream's device time in the commits.
     """
 
     def __init__(self, store: HostExpertStore, n_slots: int, *,
@@ -234,6 +242,15 @@ class ExpertSlotCache:
         self.evictions = 0
         self.upload_bytes = 0
         self.demand_stall_s = 0.0
+        # keys staged by ``prefetch`` and not routed to since
+        self._prefetched: set = set()
+        self.prefetch_used = 0
+        self.prefetch_unused_evicted = 0
+        # a reused pair of timing events a commit since the last
+        # ``commit_ms``, for the first ``TIMED_COMMITS`` (CUDA only)
+        self._commit_events: List[Tuple[torch.cuda.Event,
+                                        torch.cuda.Event]] = []
+        self._n_commits = 0
 
     # -- residency ----------------------------------------------------------
     def __contains__(self, key: Key) -> bool:
@@ -278,6 +295,9 @@ class ExpertSlotCache:
         if self._staged:
             compute = (torch.cuda.current_stream(self.device)
                        if self._copy_stream is not None else None)
+            pair = self._commit_pair() if compute is not None else None
+            if pair is not None:
+                pair[0].record(compute)
             for slot, (rows, done) in self._staged.items():
                 if done is not None:
                     compute.wait_event(done)
@@ -286,8 +306,36 @@ class ExpertSlotCache:
                     if done is not None:
                         # the staging memory is read on the compute stream
                         arr.record_stream(compute)
+            if pair is not None:
+                pair[1].record(compute)
             self._staged.clear()
         return self.bufs
+
+    def _commit_pair(self):
+        """This commit's timing events; None past ``TIMED_COMMITS`` commits
+        since the last ``commit_ms``."""
+        self._n_commits += 1
+        if self._n_commits > TIMED_COMMITS:
+            return None
+        if self._n_commits > len(self._commit_events):
+            self._commit_events.append(tuple(
+                torch.cuda.Event(enable_timing=True) for _ in range(2)))
+        return self._commit_events[self._n_commits - 1]
+
+    def commit_ms(self) -> Optional[float]:
+        """Device ms the compute stream spent in the commits since the last
+        call, from before its first wait for a staged copy to after its last
+        landing copy, each commit's pair of events. Read it once the caller
+        has waited for the compute stream (a step's read-back): it waits for
+        nothing itself. None on the CPU, past ``TIMED_COMMITS`` commits, or
+        while a commit is still on the device."""
+        if self._copy_stream is None:
+            return None
+        n, self._n_commits = self._n_commits, 0
+        pairs = self._commit_events[:n]
+        if n > TIMED_COMMITS or not all(b.query() for _, b in pairs):
+            return None
+        return sum(a.elapsed_time(b) for a, b in pairs)
 
     def evict(self, key: Key) -> None:
         slot = int(self.slot_of[key[0], key[1]])
@@ -298,6 +346,9 @@ class ExpertSlotCache:
         self._free.append(slot)
         self._staged.pop(slot, None)   # staged-then-evicted: drop the copy
         self.evictions += 1
+        if key in self._prefetched:
+            self._prefetched.discard(key)
+            self.prefetch_unused_evicted += 1
 
     def fence(self) -> None:
         """Commit and block until every in-flight slot upload has landed
@@ -325,6 +376,7 @@ class ExpertSlotCache:
         for key in keys:
             if key not in self and self._free:
                 self._stage(key)
+                self._prefetched.add(key)
                 self.prefetch_uploads += 1
                 n += 1
         return n
@@ -339,29 +391,35 @@ class ExpertSlotCache:
         default overlap mode the issue cost (a first-use quantization
         included), the transfer itself being waited for on the device by
         the consuming kernel; with ``fenced=True`` the full wall time until
-        the copy stream has drained."""
+        the copy stream has drained. The same clock reads time the span
+        ``slot.ensure``."""
         missing = [k for k in keys if k not in self]
         self.hits += len(keys) - len(missing)
         self.misses += len(missing)
+        if self._prefetched:
+            used = self._prefetched.intersection(keys)
+            self.prefetch_used += len(used)
+            self._prefetched -= used
         if not missing:
             return 0
-        t0 = time.perf_counter()
         protected = frozenset(keys)
-        for key in missing:
-            if not self._free:
-                victim = victim_fn(self.resident, protected) \
-                    if victim_fn else next(
-                        k for k in self.key_of if k not in protected)
-                if victim is None or victim in protected:
-                    raise RuntimeError(
-                        f"expert slot cache too small: {self.n_slots} slots "
-                        f"cannot hold one layer's {len(keys)} routed experts")
-                self.evict(victim)
-            self._stage(key)
-            self.demand_uploads += 1
-        if self.fenced:
-            self.fence()
-        self.demand_stall_s += time.perf_counter() - t0
+        with telemetry.Span("slot.ensure") as sp:
+            for key in missing:
+                if not self._free:
+                    victim = victim_fn(self.resident, protected) \
+                        if victim_fn else next(
+                            k for k in self.key_of if k not in protected)
+                    if victim is None or victim in protected:
+                        raise RuntimeError(
+                            f"expert slot cache too small: {self.n_slots} "
+                            f"slots cannot hold one layer's {len(keys)} "
+                            "routed experts")
+                    self.evict(victim)
+                self._stage(key)
+                self.demand_uploads += 1
+            if self.fenced:
+                self.fence()
+        self.demand_stall_s += sp.t1 - sp.t0
         return len(missing)
 
     def stats(self) -> dict:

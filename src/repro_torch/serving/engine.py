@@ -34,6 +34,7 @@ from repro_torch.serving.perf_model import (expert_bytes, layer_cost,
 from repro_torch.serving.request import DECODE, DONE, PREFILL, Request
 from repro_torch.serving.scheduler import (ContinuousScheduler,
                                            SchedulerConfig, make_scheduler)
+from repro_torch.serving import telemetry
 
 
 # ---------------------------------------------------------------------------
@@ -438,9 +439,11 @@ class TorchModelServer(StepEngine):
     each expert streamed through the slot cache of the shard the
     placement policy homes it on. Eager PyTorch traces nothing, so
     ``compile_counts`` stays empty. On CUDA, ``decode_ms`` records each
-    pooled decode step's time between CUDA events; when streaming,
-    ``decode_uploads`` records the slot uploads (demand and planned) each
-    step issued.
+    pooled decode step's time between CUDA events. Each iteration records
+    its spans (``serving.telemetry``): a ``serve.step`` root carrying the
+    deltas of the slot caches' upload counters, and under it the residency
+    sync, the prefills and the decode step, the policy walk and the
+    retirements.
     """
 
     def __init__(self, cfg: EngineConfig, model, *,
@@ -466,7 +469,6 @@ class TorchModelServer(StepEngine):
         self.n_prefills = 0
         self.n_decode_steps = 0
         self.decode_ms: List[float] = []
-        self.decode_uploads: List[int] = []
         self._cache = None                     # the slot-pool decode cache
         self._tok: Optional[np.ndarray] = None
         self._free: List[int] = []
@@ -581,40 +583,47 @@ class TorchModelServer(StepEngine):
         logits, one, aux = self.model.prefill({"tokens": toks}, one,
                                               true_len=true_len)
         self.model.write_slot(self._cache, one, slot)
-        return (int(torch.argmax(logits[0])),
-                aux["counts"][:, 0, :].cpu().numpy())
+        with telemetry.Span("step.readback"):
+            return (int(torch.argmax(logits[0])),
+                    aux["counts"][:, 0, :].cpu().numpy())
 
     @torch.inference_mode()
     def _decode(self, active: np.ndarray):
         """One pooled decode step. -> (tokens (n_slots,), counts
         (n_moe, n_slots, E))."""
-        dev = self.device
-        timed = dev.type == "cuda"
-        if timed:
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-        if self.slot_runtime is not None:
-            n0 = self._uploads()
-            tok_new, counts = self.slot_runtime.decode(self._tok, active)
-            self.decode_uploads.append(self._uploads() - n0)
-        else:
-            tok = torch.from_numpy(self._tok).to(dev, torch.long)
-            act = torch.from_numpy(active).to(dev)
-            logits, self._cache, aux = self.model.serve_step(
-                self._cache, tok, active=act)
-            tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
-            counts = aux["counts"].cpu().numpy()
-        if timed:
-            t1.record()
-            t1.synchronize()
-            self.decode_ms.append(t0.elapsed_time(t1))
-        self.n_decode_steps += 1
-        return tok_new, counts
+        with telemetry.Span("serve.decode"):
+            dev = self.device
+            timed = dev.type == "cuda"
+            if timed:
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record()
+            if self.slot_runtime is not None:
+                tok_new, counts = self.slot_runtime.decode(self._tok, active)
+            else:
+                tok = torch.from_numpy(self._tok).to(dev, torch.long)
+                act = torch.from_numpy(active).to(dev)
+                logits, self._cache, aux = self.model.serve_step(
+                    self._cache, tok, active=act)
+                with telemetry.Span("step.readback"):
+                    tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
+                    counts = aux["counts"].cpu().numpy()
+            if timed:
+                t1.record()
+                with telemetry.Span("step.readback"):
+                    t1.synchronize()
+                self.decode_ms.append(t0.elapsed_time(t1))
+            self.n_decode_steps += 1
+            return tok_new, counts
 
-    def _uploads(self) -> int:
-        """Slot uploads issued so far (demand and prefetch, every shard)."""
-        st = self.slot_runtime.slot_cache.stats()
-        return st["demand_uploads"] + st["prefetch_uploads"]
+    def _slot_counters(self) -> List[int]:
+        """The slot caches' ``telemetry.SLOT_COUNTERS``, summed over the
+        shards (none when all-resident)."""
+        if self.slot_runtime is None:
+            return []
+        caches = self.slot_runtime.slot_caches
+        return [sum(getattr(c, k) for c in caches)
+                for k in telemetry.SLOT_COUNTERS]
 
     # -- routing: prefill joiners into free slots, one pool decode step -------
     def _route_iteration(self, reqs: List[Request], tokens: List[int]
@@ -622,8 +631,9 @@ class TorchModelServer(StepEngine):
         if self.slot_runtime is not None:
             # iteration boundary: the offload engine's admit/evict/prefetch
             # verdicts of the previous iteration become real async uploads
-            self.slot_runtime.sync_residency(
-                set(self.offload.gpu_cache.resident))
+            with telemetry.Span("serve.residency"):
+                self.slot_runtime.sync_residency(
+                    set(self.offload.gpu_cache.resident))
         cols: Dict[int, np.ndarray] = {}
         for r in reqs:
             if r.state != PREFILL:
@@ -637,7 +647,8 @@ class TorchModelServer(StepEngine):
             S = r.prompt_len
             padded = np.zeros(self._bucket(S), np.int32)
             padded[:S] = np.asarray(r.prompt, np.int32)
-            tok0, cnts = self._prefill(padded, S, slot)
+            with telemetry.Span("serve.prefill", r.rid):
+                tok0, cnts = self._prefill(padded, S, slot)
             self._tok[slot] = tok0
             self.generated[r.rid] = [tok0]
             cols[r.rid] = cnts
@@ -655,12 +666,18 @@ class TorchModelServer(StepEngine):
                 cols[r.rid] = cnts[:, s, :]
         return np.stack([cols[r.rid] for r in reqs], axis=1)
 
+    def _execute_iteration(self, reqs: List[Request], counts: np.ndarray,
+                           tokens: List[int], ctxs: List[int]) -> None:
+        with telemetry.Span("serve.policy"):
+            super()._execute_iteration(reqs, counts, tokens, ctxs)
+
     def _retire(self, r: Request) -> None:
-        super()._retire(r)
-        slot = self._slot_of.pop(r.rid, None)
-        if slot is not None:
-            self._free.append(slot)
-        r.slot = -1
+        with telemetry.Span("serve.retire", r.rid):
+            super()._retire(r)
+            slot = self._slot_of.pop(r.rid, None)
+            if slot is not None:
+                self._free.append(slot)
+            r.slot = -1
 
     # -- metrics --------------------------------------------------------------
     def stats(self) -> dict:
@@ -692,8 +709,17 @@ class TorchModelServer(StepEngine):
 
     def step(self, scheduler=None) -> bool:
         """One engine iteration against the server's own scheduler (or an
-        explicit one, for the shared offline ``run`` loop)."""
-        return super().step(self._sched if scheduler is None else scheduler)
+        explicit one, for the shared offline ``run`` loop): the span
+        ``serve.step``, with the slot counters' deltas."""
+        with telemetry.Span("serve.step") as sp:
+            before = self._slot_counters()
+            more = super().step(self._sched if scheduler is None
+                                else scheduler)
+            if before:
+                sp.counters = dict(zip(
+                    telemetry.SLOT_COUNTERS,
+                    (n - b for n, b in zip(self._slot_counters(), before))))
+        return more
 
     def drain(self, *, max_iters: Optional[int] = None) -> None:
         """Run until every submitted request has completed."""

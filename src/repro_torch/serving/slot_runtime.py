@@ -27,6 +27,11 @@ staged rows in the slot buffers on the compute stream right before the
 next ``post``. ``fenced=True`` stages everything at the boundary and waits
 for the copy stream on every demand miss.
 
+Spans (``serving.telemetry``): each MoE layer's wait for its routed ids
+(``slot.route_wait``), the staging of the next layer's plan
+(``slot.stage``), the step's final read-back (``step.readback``) and, on
+CUDA, the device time of its commits (``slot.commit``).
+
 PyTorch runs eagerly, so there is nothing to trace and ``compile_counts``
 stays empty. On the CPU the same walk runs the kernels' plain versions and
 the numbers equal the fused path's bit for bit at the fp32 wire.
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.slot_cache import ExpertSlotCache, HostExpertStore
+from repro_torch.serving import telemetry
 from repro_torch.kernels.moe_ffn import moe_ffn_sharded_slots
 from repro_torch.models.moe import route, slot_out_dtype
 
@@ -89,9 +95,18 @@ class SlotStreamRuntime:
 
     def _init_slot_caches(self, n_weight_slots: int, fenced: bool) -> None:
         """One slot cache on the model's device (the sharded runtime
-        overrides this with one cache per mesh device)."""
+        overrides this with one cache per mesh device): ``slot_cache``,
+        and ``slot_caches``, the list of the caches."""
         self.slot_cache = ExpertSlotCache(self.store, n_weight_slots,
                                           fenced=fenced)
+        self.slot_caches = [self.slot_cache]
+
+    def _note_commit_ms(self) -> None:
+        """Record the device ms of the step's commits (``slot.commit``),
+        once its read-back has waited for them; CUDA only."""
+        ms = [c.commit_ms() for c in self.slot_caches]
+        if None not in ms:
+            telemetry.note("slot.commit", device_ms=sum(ms))
 
     # -- pool lifecycle ------------------------------------------------------
     def build_pool(self, cache_len: int) -> None:
@@ -196,7 +211,8 @@ class SlotStreamRuntime:
                 continue
             li = self._moe_li[i]
             gates, idx = self._route(p, h2)
-            idx_np = idx.cpu().numpy()                 # (B*1, k): sync point
+            with telemetry.Span("slot.route_wait"):
+                idx_np = idx.cpu().numpy()             # (B*1, k): sync point
             used = (np.unique(idx_np[rows]) if rows.any()
                     else np.empty(0, np.int64))
             self._ensure(li, used)
@@ -204,12 +220,16 @@ class SlotStreamRuntime:
                                             idx)
             # double-buffered overlap: issue the next MoE layer's planned
             # uploads while this post computes
-            self._stage_plan(li + 1)
+            with telemetry.Span("slot.stage"):
+                self._stage_plan(li + 1)
             counts_rows.append(cnts * active.to(cnts.dtype)[:, None])
         logits = model._logits(model.final_norm(x))[:, 0]
-        tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
+        with telemetry.Span("step.readback"):
+            tok_new = torch.argmax(logits, dim=-1).cpu().numpy()
+            counts = torch.stack(counts_rows).cpu().numpy()
+        self._note_commit_ms()
         self.pos = self.pos + rows.astype(np.int32)
-        return tok_new, torch.stack(counts_rows).cpu().numpy()
+        return tok_new, counts
 
     # -- prefill -------------------------------------------------------------
     @torch.inference_mode()
@@ -238,18 +258,23 @@ class SlotStreamRuntime:
                 continue
             li = self._moe_li[i]
             gates, idx = self._route(p, h2)
-            idx_np = idx.cpu().numpy()[:true_len]      # real tokens only
+            with telemetry.Span("slot.route_wait"):
+                idx_np = idx.cpu().numpy()[:true_len]  # real tokens only
             self._ensure(li, np.unique(idx_np))
             x, aux2 = self._run_prefill_post(desc, li, p, x_mid, h2, gates,
                                              idx, token_mask)
-            self._stage_plan(li + 1)
+            with telemetry.Span("slot.stage"):
+                self._stage_plan(li + 1)
             counts_rows.append(aux2["counts"][0])
         last = (tl.long() - 1)[:, None, None].expand(1, 1, x.shape[-1])
         x_last = torch.gather(x, 1, last)
         logits = model._logits(model.final_norm(x_last))[:, 0]
-        tok0 = int(torch.argmax(logits[0]))
+        with telemetry.Span("step.readback"):
+            tok0 = int(torch.argmax(logits[0]))
+            counts = torch.stack(counts_rows).cpu().numpy()
+        self._note_commit_ms()
         self.pos[slot] = true_len
-        return tok0, torch.stack(counts_rows).cpu().numpy()
+        return tok0, counts
 
 
 # ---------------------------------------------------------------------------

@@ -691,6 +691,42 @@ def test_inflight_kernel_never_reads_a_committed_overwrite(cuda):
     assert not torch.equal(y_old, y_new)
 
 
+def test_commit_ms_reads_each_commit_once_and_none_past_the_bound(
+        cuda, monkeypatch):
+    """The slot cache's commit timing on the card: a reading covers the
+    commits since the last one (nothing staged: no commit, 0 ms), and past
+    ``TIMED_COMMITS`` commits it is None, the next reading timed again."""
+    from repro_torch.core import slot_cache as sc_mod
+    monkeypatch.setattr(sc_mod, "TIMED_COMMITS", 3)
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    store = HostExpertStore(Model(cfg, device=cuda).init(3),
+                            transfer_dtype="fp32")
+    cache = ExpertSlotCache(store, n_slots=2)
+
+    def swap(key):
+        """Evict slot 0's expert, stage ``key`` (not resident) in its place
+        and commit."""
+        cache.evict(cache.key_of[0])
+        assert cache.prefetch([key]) == 1
+        cache.commit()
+    cache.commit()
+    assert cache.commit_ms() == 0.0
+    cache.prefetch([(0, 0), (0, 1)])
+    cache.commit()
+    torch.cuda.synchronize()
+    assert cache.commit_ms() > 0.0
+    assert cache.commit_ms() == 0.0
+    for n in (3, 4):
+        for j in range(n):
+            swap((0, 2 + j % 2))
+        torch.cuda.synchronize()
+        ms = cache.commit_ms()
+        assert (ms is None) == (n > 3), (n, ms)
+    swap((1, 0))
+    torch.cuda.synchronize()
+    assert cache.commit_ms() > 0.0
+
+
 @pytest.mark.parametrize("wire", ["fp32", "fp16", "int8"])
 def test_streaming_server_on_card_matches_cpu(cuda, wire):
     """rf=0.5 through the slot runtime on the card (B1 or B2 over slot
